@@ -1,0 +1,299 @@
+"""Fixed-capacity per-frame step: policy forward + blocked model + REINFORCE
+update (counterpart of ``blockcopy_tpu/core/stepper.py``).
+
+The sampled grid is rounded to exactly ``capacity`` executed blocks, so
+every frame runs the same shapes with zero host syncs: all index bookkeeping
+stays on the device, and the train decision comes from a host-side frame
+counter (``state["frame_idx"]`` is a Python int here).
+
+The carried state is a dict: per-layer canvases (updated in place), the
+previous grid and outputs, the frame counter, and the policy state (params,
+BN running statistics, RMSprop state, running cost, and the
+``torch.Generator`` the grid draws come from).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from blockcopy_tpu_torch.core import grid as gridlib
+from blockcopy_tpu_torch.core.blocked import (
+    ExecCtx,
+    block_layout_to_dense,
+    scatter_pack,
+    split_dense,
+)
+from blockcopy_tpu_torch.device import resolve_device
+from blockcopy_tpu_torch.ops.layers import adaptive_max_pool2d
+from blockcopy_tpu_torch.policy import optim as rmsprop
+from blockcopy_tpu_torch.policy.information_gain import (
+    semseg_information_gain,
+)
+from blockcopy_tpu_torch.policy.net import (
+    assemble_policy_input,
+    init_policy_net,
+    policy_in_channels,
+    policy_net_apply,
+)
+
+FRAME_STATE = "__frame_state__"
+OUT = "__out__"
+# The policy reads the frame-state composite at 32 px per block, so the
+# canvas stores blocks already nearest-downsampled to 32x32.
+FS_BS = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class StepperConfig:
+    block_size: int = 128
+    block_target: float = 0.5
+    complexity_weight: float = 5.0
+    cost_momentum: float = 0.9
+    train_interval: int = 4
+    lr: float = 1e-4
+    weight_decay: float = 1e-3
+    momentum: float = 0.0
+    num_classes: int = 19
+    # 'ref' = the reference PolicyNet; 'fast' = space-to-depth trunk
+    policy_arch: str = "ref"
+
+
+class FixedCapacityStepper:
+    """``first_step`` / ``step`` over a fixed geometry.
+
+    ``apply_fn(params, x, ctx)`` is the blocked model.  ``step`` and
+    ``first_step`` update the canvases of the state they are given in place
+    and return the new state."""
+
+    task_keys = ("outputs",)
+
+    def __init__(self, apply_fn: Callable, cfg: StepperConfig, frame_shape,
+                 capacity: int, dtype=torch.float32, device=None):
+        self.apply_fn = apply_fn
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        n, h, w, _ = frame_shape
+        self.frame_shape = tuple(frame_shape)
+        gh, gw = gridlib.grid_shape(h, w, cfg.block_size)
+        self.geom = (n, gh, gw)
+        self.total = n * gh * gw
+        self.capacity = min(capacity, self.total)
+        self.dtype = dtype
+
+    def _store_frame_state(self, ctx, pack) -> None:
+        """Scatter this frame's blocks into the FRAME_STATE canvas at policy
+        resolution (nearest-downsampled per block)."""
+        k = pack.block_size // FS_BS
+        small = pack
+        if k > 1:
+            r = torch.arange(FS_BS, device=pack.data.device) * k
+            small = pack.with_data(
+                pack.data.index_select(1, r).index_select(2, r))
+        scatter_pack(ctx.canvas_for(FRAME_STATE, small), small)
+
+    # -- task hooks ----------------------------------------------------------
+
+    def _model_fn(self, params, pack, ctx) -> Dict:
+        out = self.apply_fn(params, pack, ctx)
+        return {"outputs": ctx.store_dense(OUT, out)}
+
+    def fetch_outputs(self, state) -> torch.Tensor:
+        """Dense (N, H/4, W/4, C) task outputs."""
+        return state["outputs"]
+
+    def _output_repr(self, state):
+        return state["outputs"]
+
+    def _information_gain(self, state):
+        return semseg_information_gain(state["outputs"],
+                                       state["outputs_prev"])
+
+    def _reward_grid(self, state) -> torch.Tensor:
+        """(n, gh, gw) information gain, max-pooled per block."""
+        _, gh, gw = self.geom
+        return adaptive_max_pool2d(self._information_gain(state),
+                                   (gh, gw))[..., 0]
+
+    # -- state --------------------------------------------------------------
+
+    def init_policy_state(self, seed: int) -> Dict:
+        # fast arch: logit-head bias starts at logit(block_target)
+        t = min(max(self.cfg.block_target, 1e-3), 1 - 1e-3)
+        head_bias = math.log(t / (1.0 - t)) \
+            if self.cfg.policy_arch == "fast" else 0.0
+        params, bn_state = init_policy_net(
+            policy_in_channels(self.cfg.num_classes), seed=seed,
+            arch=self.cfg.policy_arch, head_bias=head_bias,
+            device=self.device)
+        return {
+            "params": params,
+            "bn_state": bn_state,
+            "opt": rmsprop.init(params),
+            "running_cost": torch.full((), -1.0, device=self.device),
+            "generator": torch.Generator(self.device).manual_seed(seed),
+        }
+
+    def init_state(self, model_params, seed: int = 0) -> Dict:
+        """Carried state with zeroed canvases, their shapes found by one
+        building pass of the model on the meta device."""
+        n, gh, gw = self.geom
+        meta = torch.device("meta")
+        meta_params = rmsprop.tree_map(lambda t: t.to(meta), model_params)
+        idx = torch.arange(self.total, device=meta)
+        ctx = ExecCtx.blocked(idx, n, gh, gw, {}, building=True)
+        frame = torch.empty(self.frame_shape, dtype=self.dtype, device=meta)
+        pack = split_dense(frame, idx, n, gh, gw)
+        with torch.no_grad():
+            self._store_frame_state(ctx, pack)
+            task = self._model_fn(meta_params, pack, ctx)
+        zeros = lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                      device=self.device)
+        state = {
+            "canvases": rmsprop.tree_map(zeros, ctx.canvases),
+            "prev_grid": torch.zeros((n, gh, gw), device=self.device),
+            "frame_idx": 0,
+            "policy": self.init_policy_state(seed),
+        }
+        for k in self.task_keys:
+            state[k] = zeros(task[k])
+            state[f"{k}_prev"] = zeros(task[k])
+        return state
+
+    def reset_temporal(self, state: Dict) -> Dict:
+        """New clip: reset the frame counter (the all-exec first frame
+        overwrites every canvas; the policy state persists)."""
+        return {**state, "frame_idx": 0}
+
+    # -- internals ----------------------------------------------------------
+
+    def _run_model(self, params, state, frame, idx):
+        n, gh, gw = self.geom
+        pack = split_dense(frame, idx, n, gh, gw)
+        ctx = ExecCtx.blocked(idx, n, gh, gw, state["canvases"])
+        self._store_frame_state(ctx, pack)
+        task = self._model_fn(params, pack, ctx)
+        return ctx.canvases, task
+
+    def _sample_grid(self, probs, draws: Optional[Tuple] = None,
+                     generator: Optional[torch.Generator] = None):
+        """Bernoulli sample, then round to exactly ``capacity`` blocks: keep
+        sampled blocks (ranked by a random tie-break), fill with the highest
+        scoring unsampled ones.  ``draws=(u_bernoulli, u_rank)`` of shapes
+        ``probs.shape`` and ``(total,)`` replaces the generator's draws."""
+        if draws is None:
+            u = torch.rand(probs.shape, generator=generator,
+                           device=probs.device)
+            u_rank = torch.rand((probs.numel(),), generator=generator,
+                                device=probs.device)
+        else:
+            u, u_rank = draws
+        flat = (u < probs).float().reshape(-1)
+        scores = u_rank + 2.0 * flat
+        order = torch.argsort(-scores, stable=True)
+        rank = torch.empty_like(order).scatter_(
+            0, order, torch.arange(order.numel(), device=order.device))
+        return (rank < self.capacity).reshape(probs.shape)
+
+    def _policy_optim(self, state, grid_f, cache_x):
+        """Running cost, and the REINFORCE update on train frames."""
+        cfg = self.cfg
+        pol = state["policy"]
+        perc = grid_f.mean()
+        rc = pol["running_cost"]
+        rc = torch.where(rc < 0, perc, rc)
+        rc = rc * cfg.cost_momentum + (1 - cfg.cost_momentum) * perc
+        fi = state["frame_idx"]
+        if fi % cfg.train_interval != 0 or fi < 2:
+            return {**pol, "running_cost": rc}
+
+        reward_c = -(rc - cfg.block_target)
+        reward_c = reward_c * reward_c.abs() * cfg.complexity_weight
+        # reward_c is a scalar, so pooling the IG first and adding it after
+        # is exactly max(ig + c) per block
+        reward_grid = self._reward_grid(state) + reward_c
+        signed = torch.where(grid_f > 0, reward_grid, -reward_grid)
+
+        params = pol["params"]
+        leaves = rmsprop.tree_map(
+            lambda t: t.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            lg, _ = policy_net_apply(leaves, pol["bn_state"], cache_x,
+                                     update_stats=False,
+                                     arch=cfg.policy_arch)
+            l = lg[..., 0]
+            logp = grid_f * F.logsigmoid(l) \
+                + (1 - grid_f) * F.logsigmoid(-l)
+            loss = torch.mean(-logp * signed)
+            grads = iter(torch.autograd.grad(loss,
+                                             rmsprop.tree_leaves(leaves)))
+        grads = rmsprop.tree_map(lambda _: next(grads), leaves)
+        with torch.no_grad():
+            params, opt = rmsprop.update(
+                grads, pol["opt"], params, lr=cfg.lr,
+                weight_decay=cfg.weight_decay, momentum=cfg.momentum)
+        return {**pol, "params": params, "opt": opt, "running_cost": rc}
+
+    # -- steps --------------------------------------------------------------
+
+    def first_step(self, model_params, state, frame):
+        """Frame 1 of a clip: execute every block."""
+        n, gh, gw = self.geom
+        idx = torch.arange(self.total, device=frame.device)
+        with torch.no_grad():
+            canvases, task = self._run_model(model_params, state, frame, idx)
+            pol = dict(state["policy"])
+            rc = pol["running_cost"]
+            rc = torch.where(rc < 0, 1.0, rc)
+            pol["running_cost"] = rc * self.cfg.cost_momentum \
+                + (1 - self.cfg.cost_momentum) * 1.0
+        new = {
+            **state,
+            "canvases": canvases,
+            "prev_grid": torch.ones((n, gh, gw), device=frame.device),
+            "frame_idx": 1,
+            "policy": pol,
+        }
+        for k in self.task_keys:
+            new[k] = task[k]
+            new[f"{k}_prev"] = task[k]
+        return new
+
+    def step(self, model_params, state, frame, draws: Optional[Tuple] = None):
+        """Steady-state frame: sample a grid of ``capacity`` blocks, run
+        them, update the policy.  ``draws`` injects the grid's uniforms (see
+        ``_sample_grid``)."""
+        n, gh, gw = self.geom
+        pol = state["policy"]
+        with torch.no_grad():
+            fs_dense = block_layout_to_dense(state["canvases"][FRAME_STATE],
+                                             n, gh, gw)
+            cache_x = assemble_policy_input(
+                frame, fs_dense, self._output_repr(state),
+                state["prev_grid"], self.cfg.block_size,
+                # fast arch: bf16 assembly (its convs run bf16 anyway)
+                dtype=torch.bfloat16 if self.cfg.policy_arch == "fast"
+                else torch.float32)
+            logits, bn_state = policy_net_apply(
+                pol["params"], pol["bn_state"], cache_x, update_stats=True,
+                arch=self.cfg.policy_arch)
+            grid = self._sample_grid(torch.sigmoid(logits[..., 0]), draws,
+                                     pol["generator"])
+            grid_f = grid.float()
+            idx = gridlib.exec_indices(grid, self.capacity)
+            canvases, task = self._run_model(model_params, state, frame, idx)
+        mid = {
+            **state,
+            "canvases": canvases,
+            "prev_grid": grid_f,
+            "frame_idx": state["frame_idx"] + 1,
+            "policy": {**pol, "bn_state": bn_state},
+        }
+        for k in self.task_keys:
+            mid[k] = task[k]
+            mid[f"{k}_prev"] = state[k]
+        return {**mid, "policy": self._policy_optim(mid, grid_f, cache_x)}

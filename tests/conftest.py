@@ -13,3 +13,10 @@ if "xla_force_host_platform_device_count" not in flags:
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "slow: full-size or full-depth case, left out of tier-1")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA GPU; skips where there is none")
