@@ -7,7 +7,8 @@ through the kernels.
 
 from __future__ import annotations
 
-launches = {"halo_canvas": 0, "halo_strips": 0, "bottleneck_tail": 0}
+launches = {"halo_canvas": 0, "halo_strips": 0, "bottleneck_tail": 0,
+            "mm_bf16": 0, "mm_int8": 0}
 
 
 def reset_launches() -> None:

@@ -41,9 +41,14 @@ def swiftnet_stepper(backbone, frame_shape, capacity, dtype, device,
 
 
 def device_ms(fn, samples=50, inner=10):
-    """Median device time of one call of ``fn``: ``inner`` calls are
-    captured in a CUDA graph (so host dispatch does not pace the card) and
-    the graph is replayed ``samples`` times between CUDA events, after a
+    """Median device time of one call of ``fn`` (``device_times``)."""
+    return statistics.median(device_times(fn, samples, inner))
+
+
+def device_times(fn, samples, inner):
+    """Device times of one call of ``fn``, one per sample: ``inner`` calls
+    are captured in a CUDA graph (so host dispatch does not pace the card)
+    and the graph is replayed ``samples`` times between CUDA events, after a
     warm-up on a side stream."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -65,4 +70,4 @@ def device_ms(fn, samples=50, inner=10):
         stop.record()
         stop.synchronize()
         times.append(start.elapsed_time(stop) / inner)
-    return statistics.median(times)
+    return times

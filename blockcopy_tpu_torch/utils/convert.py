@@ -18,9 +18,18 @@ from typing import Dict
 import numpy as np
 import torch
 
+from blockcopy_tpu_torch.device import resolve_device
 
-def to_torch(a, device="cpu") -> torch.Tensor:
-    """One numpy array (bf16 included) as a tensor on ``device``."""
+
+def to_torch(a, device=None) -> torch.Tensor:
+    """One numpy array (bf16 included) as a tensor on ``device``: ``None``
+    means CUDA, and raises where it is absent (``device.resolve_device``).
+    A tensor given with ``device=None`` stays where it is."""
+    if isinstance(a, torch.Tensor) and device is None:
+        return a
+    device = resolve_device(device)
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
@@ -44,9 +53,10 @@ def _map(tree, fn, key=None):
     return fn(tree, key)
 
 
-def params_from_jax(tree, device="cpu"):
+def params_from_jax(tree, device=None):
     """SwiftNet or policy parameters (or any tree shaped like them, such as
-    RMSprop moments): HWIO conv weights -> OIHW."""
+    RMSprop moments): HWIO conv weights -> OIHW, on ``device`` (``None``:
+    CUDA, as ``to_torch``)."""
     def conv(a, key):
         t = to_torch(a, device)
         return t.permute(3, 2, 0, 1).contiguous() \
@@ -62,7 +72,7 @@ def params_to_numpy(tree):
     return _map(tree, conv)
 
 
-def policy_state_from_jax(pol: Dict, device="cpu") -> Dict:
+def policy_state_from_jax(pol: Dict, device=None) -> Dict:
     """The JAX stepper's ``state["policy"]`` (minus its PRNG key) as the
     port's: params, ``bn_state``, RMSprop state, ``running_cost``."""
     square_avg, momentum_buf = pol["opt"]
@@ -75,7 +85,7 @@ def policy_state_from_jax(pol: Dict, device="cpu") -> Dict:
     }
 
 
-def stepper_state_from_jax(state: Dict, device="cpu") -> Dict:
+def stepper_state_from_jax(state: Dict, device=None) -> Dict:
     """Carried stepper state: canvases by name (tensors or strip dicts),
     task outputs, ``prev_grid``, ``frame_idx`` (a host int here) and the
     policy state.  The port's ``generator`` is not part of the JAX state;

@@ -21,7 +21,14 @@ Phases (any failure raises and exits non-zero):
 5. modes: the step on the GPU against the same step on the CPU (plain
    versions) on a small RN50 clip, and the ``pallas`` halo mode (canvas
    entry point) against the ``strips`` mode, bitwise, on a small RN18 clip;
-6. one JSON line ``{"kernels": [...]}`` and, last, the result line.
+6. the probe path: the GEMM kernels ``mm_int8`` (bitwise) and ``mm_bf16``
+   (one bf16 ulp, TF32 off) against their plain versions at the probe's
+   default shape and the main path's two 3x3-conv GEMM shapes, with times,
+   bounds and the library call's time (``torch.matmul`` / ``torch._int_mm``,
+   yardsticks the port never calls); then the port's probe
+   (``tools/probe_int8.py``) at its defaults, launch counts zeroed just
+   before it;
+7. one JSON line ``{"kernels": [...]}`` and, last, the result line.
 
 It needs one CUDA GPU and the repository around it: without either it exits
 non-zero and prints no result.
@@ -42,6 +49,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor core
+INT8_OPS = 1979e12              # H100 SXM dense int8 tensor core
 
 # main-path halo launches per step (bs, C), K = 64, pad 1, bf16; see the
 # exchange sites in models/swiftnet.py
@@ -50,6 +58,9 @@ HALO_SHAPES = ([(32, 48)] + [(32, 64)] * 3 + [(32, 128), (16, 256),
 # main-path bottleneck-tail launches per step (bs, Cm, Co)
 TAIL_SHAPES = [(16, 128, 512)] * 3 + [(8, 256, 1024)] * 5
 N, GH, GW, K = 1, 8, 16, 64
+# (rows, k, n) of the GEMM kernels: the probe's default, then the main
+# path's 3x3 convs as GEMMs (64 blocks x bs^2 rows, 9*C, C): layer2, layer3
+MM_SHAPES = [(16384, 2304, 256), (16384, 1152, 128), (4096, 2304, 256)]
 
 
 def log(*a):
@@ -66,7 +77,7 @@ def phase_card():
         f"device {torch.cuda.get_device_name(0)}")
     from blockcopy_tpu_torch.ops.kernels import build
     t0 = time.perf_counter()
-    logs = build.build(["halo", "bottleneck"])
+    logs = build.build(["halo", "bottleneck", "mm"])
     log(f"[1] kernels built in {time.perf_counter() - t0:.2f} s")
     for name, out in logs.items():
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", out)]
@@ -283,7 +294,8 @@ def phase_main():
     if any(b != capacity for b in blocks):
         raise AssertionError(f"executed blocks per step {blocks}")
     per_frame = {"halo_strips": len(HALO_SHAPES), "halo_canvas": 0,
-                 "bottleneck_tail": len(TAIL_SHAPES)}
+                 "bottleneck_tail": len(TAIL_SHAPES), "mm_bf16": 0,
+                 "mm_int8": 0}
     want = {k: v * (steps + 1) for k, v in per_frame.items()}
     if (any(built.values()) or first != per_frame or launches != want):
         raise AssertionError(f"launch counts {launches}, expected {want}")
@@ -387,6 +399,82 @@ def phase_modes():
     return canvas_launches
 
 
+def mm_cost(rows, k, n, itemsize, out_itemsize, peak):
+    """Operations and the bound of one GEMM launch (each input read once,
+    the output written once): (ms, "bytes" or "operations")."""
+    ops = 2 * rows * k * n
+    nbytes = (rows * k + k * n) * itemsize + rows * n * out_itemsize
+    t_ops, t_bytes = ops / peak, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def phase_mm(gen):
+    """K3 against its plain versions at ``MM_SHAPES`` with times; returns
+    each kernel's row at the probe's default shape (``MM_SHAPES[0]``)."""
+    from blockcopy_tpu_torch.ops.kernels import mm as MM
+    from blockcopy_tpu_torch.tools.measure import device_ms
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = "cuda"
+    rows_out, err = {}, {"mm_bf16": 0.0, "mm_int8": 0.0}
+    for rows, k, n in MM_SHAPES:
+        xb = torch.randn((rows, k), generator=gen, device=dev).to(
+            torch.bfloat16)
+        wb = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+        ints = dict(generator=gen, device=dev, dtype=torch.int8)
+        xi = torch.randint(-128, 128, (rows, k), **ints)
+        wi = torch.randint(-128, 128, (k, n), **ints)
+        got, ref = MM.mm_bf16(xb, wb).float(), MM.mm_bf16_plain(xb, wb).float()
+        e_bf = (got - ref).abs().max().item()
+        ok_bf = torch.allclose(got, ref, rtol=2 ** -7, atol=1e-3)
+        got, ref = MM.mm_int8(xi, wi), MM.mm_int8_plain(xi, wi)
+        e_i8 = (got - ref).abs().max().item()
+        ok_i8 = torch.equal(got, ref)
+        log(f"[6] mm {rows}x{k}x{n}: bf16 max abs err {e_bf:.3g} (rtol 2^-7, "
+            f"atol 1e-3) ok={ok_bf}; int8 max abs err {e_i8} (bitwise) "
+            f"ok={ok_i8}")
+        if not (ok_bf and ok_i8):
+            raise AssertionError("GEMM kernel disagrees with its plain "
+                                 "version")
+        err["mm_bf16"] = max(err["mm_bf16"], e_bf)
+        err["mm_int8"] = max(err["mm_int8"], e_i8)
+        cases = {
+            "mm_bf16": (MM.mm_bf16, MM.mm_bf16_plain, torch.matmul, xb, wb,
+                        mm_cost(rows, k, n, 2, 2, BF16_FLOPS)),
+            "mm_int8": (MM.mm_int8, MM.mm_int8_plain, torch._int_mm, xi, wi,
+                        mm_cost(rows, k, n, 1, 4, INT8_OPS)),
+        }
+        for name, (fn, plain, lib, x, w, (bound, by)) in cases.items():
+            t = {"ms": device_ms(lambda: fn(x, w)),
+                 "plain_ms": device_ms(lambda: plain(x, w)),
+                 "library_ms": device_ms(lambda: lib(x, w)),
+                 "bound_ms": bound, "bound_by": by}
+            log(f"[6] {name} {rows}x{k}x{n}: kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
+                f"bound {bound:.4f} ms ({by}); kernel at "
+                f"{bound / t['ms']:.1%} of its bound")
+            if (rows, k, n) == MM_SHAPES[0]:
+                rows_out[name] = t
+    for name, t in rows_out.items():
+        t["max_abs_err"] = err[name]
+    return rows_out
+
+
+def phase_probe():
+    """The port's probe at its defaults; launch counts are zeroed just
+    before it and read just after."""
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.tools import probe_int8
+    kernels.reset_launches()
+    out = probe_int8.main([])
+    launches = {k: kernels.launches[k] for k in ("mm_bf16", "mm_int8")}
+    log(f"[6] probe_int8 at its defaults: {json.dumps(out)}; launches "
+        f"{launches} (wrapper calls: warm-ups and graph captures)")
+    if not all(launches.values()) or out["int8_over_bf16"] <= 0:
+        raise AssertionError(f"probe did not run both kernels: {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -403,6 +491,8 @@ def main() -> int:
     tail = phase_tail(gen)
     launches, step_ms = phase_main()
     canvas_launches = phase_modes()
+    mm = phase_mm(gen)
+    probe_launches = phase_probe()
 
     source = "blockcopy_tpu_torch/csrc/"
     common = {"route": "cuda", "library_ms": None, "matched": True}
@@ -425,11 +515,17 @@ def main() -> int:
          "max_abs_err": tail["err"], "ms": tail["kernel"],
          "plain_ms": tail["plain"], "bound_ms": tail["bound"],
          "bound_by": tail["by"], **common},
-    ]
-    log(f"[6] times are per main-path frame (sums over its launch shapes); "
-        f"library_ms null: no single PyTorch call computes either function; "
-        f"main path {step_ms:.2f} ms/frame; total "
-        f"{time.perf_counter() - t_start:.1f} s")
+    ] + [
+        {"name": name, "source": source + "mm.cu",
+         "replaces": "tools/probe_int8.py:38", "path": "probe_int8",
+         "launches": probe_launches[name], "route": "cuda", "matched": True,
+         **mm[name]}
+        for name in ("mm_bf16", "mm_int8")]
+    log(f"[7] halo and tail times are per main-path frame (sums over its "
+        f"launch shapes), their library_ms null: no single PyTorch call "
+        f"computes either function; mm times are per launch at "
+        f"{'x'.join(map(str, MM_SHAPES[0]))}; main path {step_ms:.2f} "
+        f"ms/frame; total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

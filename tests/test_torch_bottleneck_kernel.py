@@ -118,7 +118,7 @@ def test_fused_block_matches_jax_unfused(bs, dtype):
     grids[1][0, 0, ::2] = grids[1][0, 1, 1] = True
     grids[2][0, 1, :] = True
     jp = bottleneck_params(cin, planes)
-    tp = params_from_jax(jtree(jp))
+    tp = params_from_jax(jtree(jp), device="cpu")
 
     ref, ref_canv = _run(JAX, False, frames, grids, jp)
     launches = dict(kernels.launches)
@@ -142,7 +142,8 @@ def test_gate(planes, fused, monkeypatch):
     rs = np.random.RandomState(1)
     frame = torch.from_numpy(rs.randn(n, gh * bs, gw * bs, 4 * planes)
                              .astype(np.float32))
-    p = params_from_jax(jtree(bottleneck_params(4 * planes, planes)))
+    p = params_from_jax(jtree(bottleneck_params(4 * planes, planes)),
+                        device="cpu")
     calls = []
     monkeypatch.setattr(TS, "bottleneck_tail",
                         lambda h1, x, *a: calls.append(1) or x)

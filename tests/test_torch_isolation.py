@@ -6,6 +6,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -56,7 +57,18 @@ def _stepper():
     FixedCapacityStepper(None, StepperConfig(), (1, 256, 512, 3), 4)
 
 
-@pytest.mark.parametrize("entry", [_swiftnet, _policy, _stepper])
+def _params_from_jax():
+    from blockcopy_tpu_torch.utils.convert import params_from_jax
+    params_from_jax({"w": np.zeros((3, 3, 2, 4), np.float32)})
+
+
+def _probe():
+    from blockcopy_tpu_torch.tools import probe_int8
+    probe_int8.main([])
+
+
+@pytest.mark.parametrize("entry", [_swiftnet, _policy, _stepper,
+                                   _params_from_jax, _probe])
 def test_entry_points_default_to_cuda(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -16,6 +16,7 @@ from blockcopy_tpu_torch.core import grid as TG
 from blockcopy_tpu_torch.ops import kernels
 from blockcopy_tpu_torch.ops.kernels import bottleneck as BT
 from blockcopy_tpu_torch.ops.kernels import halo as H
+from blockcopy_tpu_torch.ops.kernels import mm as MM
 
 pytestmark = pytest.mark.cuda
 
@@ -111,3 +112,47 @@ def test_bottleneck_kernel_refuses_unsupported_width(cuda_device):
            if isinstance(a, dict) else a.to(cuda_device) for a in args]
     with pytest.raises(ValueError, match="Cm"):
         BT.bottleneck_tail(*gpu)
+
+
+@pytest.mark.parametrize("rows,k,n", [(128, 64, 8), (128, 160, 136),
+                                      (384, 1152, 128), (16896, 96, 24)])
+def test_mm_kernels_match_plain(cuda_device, rows, k, n):
+    """int8 bitwise, bf16 within one bf16 ulp (rtol 2^-7, 1e-3 near 0; TF32
+    off).  k 160 and 96 end in a short chunk, n 136 and 24 in a partial
+    column tile; 16896 rows take 128-row tiles, the others 64-row ones."""
+    rs = np.random.RandomState(rows + k + n)
+    xb = torch.from_numpy(rs.randn(rows, k).astype(np.float32))
+    wb = torch.from_numpy(rs.randn(k, n).astype(np.float32))
+    xi = torch.from_numpy(rs.randint(-128, 128, (rows, k)).astype(np.int8))
+    wi = torch.from_numpy(rs.randint(-128, 128, (k, n)).astype(np.int8))
+    xb, wb = (t.to(cuda_device, torch.bfloat16) for t in (xb, wb))
+    xi, wi = xi.to(cuda_device), wi.to(cuda_device)
+    before = dict(kernels.launches)
+    got = MM.mm_bf16(xb, wb)
+    assert got.dtype == torch.bfloat16 and got.shape == (rows, n)
+    torch.testing.assert_close(got.float(), MM.mm_bf16_plain(xb, wb).float(),
+                               rtol=2 ** -7, atol=1e-3)
+    got = MM.mm_int8(xi, wi)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, MM.mm_int8_plain(xi, wi))
+    assert kernels.launches["mm_bf16"] == before["mm_bf16"] + 1
+    assert kernels.launches["mm_int8"] == before["mm_int8"] + 1
+
+
+def test_mm_kernels_refuse_bad_inputs(cuda_device):
+    """Refused before any launch: the counts do not move."""
+    i8 = dict(dtype=torch.int8, device=cuda_device)
+    bf = dict(dtype=torch.bfloat16, device=cuda_device)
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match="rows"):
+        MM.mm_bf16(torch.zeros((100, 64), **bf), torch.zeros((64, 8), **bf))
+    with pytest.raises(ValueError, match="multiple"):
+        MM.mm_int8(torch.zeros((128, 48), **i8), torch.zeros((48, 8), **i8))
+    with pytest.raises(ValueError, match="multiple"):
+        MM.mm_bf16(torch.zeros((128, 64), **bf), torch.zeros((64, 12), **bf))
+    with pytest.raises(ValueError, match="dtype"):
+        MM.mm_int8(torch.zeros((128, 64), **bf), torch.zeros((64, 8), **bf))
+    with pytest.raises(ValueError, match="contiguous"):
+        MM.mm_bf16(torch.zeros((64, 128), **bf).t(),
+                   torch.zeros((64, 8), **bf))
+    assert kernels.launches == before

@@ -52,7 +52,8 @@ def test_forward_and_bn_state(arch, compute, monkeypatch):
     monkeypatch.setattr(TN, "COMPUTE_DTYPE", tdt)
     t = 1e-4 if compute == "fp32" else 3e-2
     params, bn_state, x = _setup(arch)
-    tp, ts = params_from_jax(jtree(params)), params_from_jax(jtree(bn_state))
+    tp = params_from_jax(jtree(params), device="cpu")
+    ts = params_from_jax(jtree(bn_state), device="cpu")
     for update in (True, False):
         ref, ref_s = JN.policy_net_apply(params, bn_state, jnp.asarray(x),
                                          update_stats=update, arch=arch)
@@ -86,10 +87,11 @@ def test_reinforce_grads_and_rmsprop(arch, monkeypatch):
         return jnp.mean(-logp * signed)
 
     jgrads = jax.grad(jloss)(params)
-    tp = params_from_jax(jtree(params))
+    tp = params_from_jax(jtree(params), device="cpu")
     leaves = TO.tree_map(lambda a: a.clone().requires_grad_(True), tp)
-    lg, _ = TN.policy_net_apply(leaves, params_from_jax(jtree(bn_state)),
-                                tt(x), update_stats=False, arch=arch)
+    ts = params_from_jax(jtree(bn_state), device="cpu")
+    lg, _ = TN.policy_net_apply(leaves, ts, tt(x), update_stats=False,
+                                arch=arch)
     l = lg[..., 0]
     g = torch.from_numpy(grid)
     logp = g * F.logsigmoid(l) + (1 - g) * F.logsigmoid(-l)
@@ -112,8 +114,8 @@ def test_reinforce_grads_and_rmsprop(arch, monkeypatch):
     jp, tq = params, tp
     for _ in range(2):
         jp, jopt = JO.update(jgrads, jopt, jp, lr=1e-2, momentum=0.9)
-        tq, topt = TO.update(params_from_jax(jtree(jgrads)), topt, tq,
-                             lr=1e-2, momentum=0.9)
+        tg = params_from_jax(jtree(jgrads), device="cpu")
+        tq, topt = TO.update(tg, topt, tq, lr=1e-2, momentum=0.9)
     assert_tree(jtree(jp), params_to_numpy(tq), _close(1e-6))
     assert_tree(jtree(jopt.square_avg), params_to_numpy(topt["square_avg"]),
                 _close(1e-6))

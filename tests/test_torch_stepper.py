@@ -92,7 +92,7 @@ def test_clip_matches_jax(monkeypatch):
     jcfg, tcfg = (JS.SwiftNetConfig(backbone="resnet18"),
                   TS.SwiftNetConfig(backbone="resnet18"))
     jparams = JS.init_swiftnet(jax.random.PRNGKey(0), jcfg)
-    tparams = params_from_jax(jtree(jparams))
+    tparams = params_from_jax(jtree(jparams), device="cpu")
     kw = dict(policy_arch="fast", train_interval=2)
     jst = JST.FixedCapacityStepper(JS.make_apply_fn(jcfg),
                                    JST.StepperConfig(**kw), SHAPE, CAPACITY)
@@ -106,7 +106,8 @@ def test_clip_matches_jax(monkeypatch):
     ts = tst.init_state(tparams, seed=1)
     assert_tree(jtree(js["canvases"]), stepper_state_to_numpy(ts)["canvases"],
                 assert_same)
-    ts["policy"] = {**policy_state_from_jax(jtree(js["policy"])),
+    ts["policy"] = {**policy_state_from_jax(jtree(js["policy"]),
+                                          device="cpu"),
                     "generator": ts["policy"]["generator"]}
 
     frames = _frames(4)
@@ -130,8 +131,8 @@ def test_clip_matches_jax(monkeypatch):
     # the converter's two directions are inverse on the carried state
     ref = jtree(js)
     ref["policy"] = {k: v for k, v in ref["policy"].items() if k != "key"}
-    assert_tree(ref, stepper_state_to_numpy(stepper_state_from_jax(jtree(js))),
-                assert_same)
+    back = stepper_state_from_jax(jtree(js), device="cpu")
+    assert_tree(ref, stepper_state_to_numpy(back), assert_same)
 
 
 def test_sample_grid_keeps_capacity():

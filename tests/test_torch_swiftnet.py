@@ -37,7 +37,7 @@ def _models(backbone):
     cfg_j = JS.SwiftNetConfig(backbone=backbone)
     cfg_t = TS.SwiftNetConfig(backbone=backbone)
     jp = JS.init_swiftnet(jax.random.PRNGKey(0), cfg_j)
-    return cfg_j, jp, cfg_t, params_from_jax(jtree(jp))
+    return cfg_j, jp, cfg_t, params_from_jax(jtree(jp), device="cpu")
 
 
 def test_init_matches_jax_structure():

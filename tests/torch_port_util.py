@@ -19,7 +19,7 @@ def tol(dtype) -> float:
 
 def tt(a) -> torch.Tensor:
     """A JAX or numpy array as a CPU tensor, bit for bit (bf16 included)."""
-    return to_torch(np.asarray(a))
+    return to_torch(np.asarray(a), device="cpu")
 
 
 def npf(x) -> np.ndarray:
