@@ -7,59 +7,70 @@
 // conv accumulates in fp32, is cast to the activation dtype, then the BN2
 // multiply and add each round to that dtype, ReLU; the 1x1 accumulates in
 // fp32, is cast, BN3 multiply, add, + x, ReLU, each rounding likewise.
+// Weights come prepared (ops/kernels/bottleneck.py prepare_tail_weights):
+// w2 (3, 3, Cm, Cm) as [dy][dx][co][ci], w3 (Co, Cm), BN vectors in the
+// activation dtype.
 //
 // Bound (bf16, K = 64 blocks, RN50 at 1024x2048): layer2 (bs 16, Cm 128,
 // Co 512) moves ~39 MB for ~7 GFLOP, so bytes bound it; layer3 (bs 8,
 // Cm 256, Co 1024) ~22 MB for ~7 GFLOP, so tensor-core operations do.
-// Design (bf16): one CTA per executed block keeps everything between h1 and
-// y on chip: the padded tile and h2 stay in shared memory and neither the
-// padded input nor h2 is written to device memory.  The 3x3 conv runs as 9
-// shifted-window products over the padded tile flattened to rows of width
-// bs+2 (each tap is then a constant row offset, so every A operand is a
-// plain strided tile; the 2 wrap-around columns per row are computed and
-// dropped), on mma.sync m16n8k16 bf16 with fp32 accumulators, operands
-// brought from shared memory by ldmatrix.  Weights stream through shared
-// memory in chunks (w2: KC input channels of one tap; w3: 64 output
-// channels), double-buffered with cp.async so the next chunk loads while the
-// current one is multiplied; every chunk is read once per CTA and shared by
-// its 8 warps.  Each warp holds up to 3 16x64 output strips of the 3x3 conv
-// (one column strip, so its B fragments serve all three) in registers across
-// all chunks (more strips take another pass over w2); the 1x1 conv
-// completes a 16x32 strip per chunk, its epilogue operands loaded before the
-// products.  Shared-memory rows are padded by 8 elements, so the 8 rows of
-// an ldmatrix phase fall on distinct banks.  Epilogues go through a per-warp
-// fp32 tile and move 16 bytes a lane.
+// Design (bf16), everything between h1 and y kept on chip:
+// - A cluster of 2 CTAs runs each executed block (128 CTAs at K = 64, where
+//   one CTA per block left 68 of the 132 SMs idle).  CTA r computes h2's
+//   output channels [r Cm/2, (r+1) Cm/2) over all bs^2 pixels, writes its
+//   half into both CTAs' shared memory (st.shared::cluster), and after a
+//   cluster barrier computes y's channels [r Co/2, (r+1) Co/2).  No product
+//   is computed twice.  (Splitting by pixels cannot work at layer3, whose 64
+//   pixels are one m64 tile.)
+// - Two consumer warpgroups issue wgmma.mma_async; a producer thread streams
+//   the weights by TMA (cp.async.bulk.tensor) through a ring of 4 stages of
+//   128 rows x 64 channels, 128-byte swizzled, guarded by full/empty
+//   mbarriers: first the w2 chunks (one tap, 64 input channels, this CTA's
+//   Cm/2 outputs), then the w3 chunks (64 input channels x 128 outputs).
+// - 3x3 conv: A comes from registers (wgmma's {a-regs}, descB form), loaded
+//   by ldmatrix from the padded tile: a tap's row offset dy (bs+2) + dx
+//   breaks the 8-row alignment an A descriptor needs, while ldmatrix takes
+//   one row address per lane, so each lane points at its own output pixel's
+//   tap row and the product has exactly bs^2 rows (256 at layer2, 64 at
+//   layer3).  The tile's rows are padded by 16 bytes, so the 8 rows of an
+//   ldmatrix phase fall on distinct banks.
+// - 1x1 conv: A (h2) and B (w3) from shared memory by descriptor; the 3x3
+//   epilogue writes h2 in the swizzled K-major layout the A descriptor
+//   reads.  x arrives by TMA as (bs^2 pixels x 64 channels) swizzled boxes
+//   into the space the padded tile held, the epilogue turns each x value
+//   into y in place, and a TMA store writes the boxes out.
+// - Warpgroup work: where bs^2 >= 128 each warpgroup owns half of the m64
+//   tiles, else both share the one m64 tile and split n.
 // Two ablation switches, never set by the library build, let
 // blockcopy_tpu_torch/tools/tail_breakdown.py time the parts:
-// TAIL_NO_3X3_PRODUCTS drops the 3x3 conv's products (loads, barriers and
-// epilogue stay), TAIL_NO_1X1_STAGE ends the kernel once h2 is built.
+// TAIL_NO_3X3_PRODUCTS drops the 3x3 conv's products (fragment loads,
+// barriers and epilogue stay), TAIL_NO_1X1_STAGE ends the kernel once h2 is
+// built and exchanged.
+// bf16 blocks: (bs, Cm) in (16, 128), (8, 256), (8, 128) and Co a multiple
+// of 256 (the others do not fit in shared memory); the launch refuses the
+// rest (cudaErrorInvalidValue) and the wrapper raises before.
 // fp32 runs a scalar FMA kernel (no tensor core gives fp32 exactly); its h2
-// goes through a device-memory scratch buffer.  wgmma/TMA pipelining and
-// splitting a block over several CTAs are later work.
+// goes through a device-memory scratch buffer.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 
 template <typename T>
 struct Args {
   const T *h1, *x, *top, *bottom, *left, *right, *tl, *tr, *bl, *br;
-  const T *w2;  // (3, 3, Cm, Cm): [dy][dx][ci][co]
-  const T *w3;  // (Cm, Co)
+  const T *w2;  // (3, 3, Cm, Cm): [dy][dx][co][ci]
+  const T *w3;  // (Co, Cm)
   const T *s2, *b2, *s3, *b3;
   T* y;
   int bs, cm, co;
 };
-
-__host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
 // Pixel (py, px) of block k's padded (bs+2)x(bs+2) tile: one channel row.
 template <typename T>
@@ -81,358 +92,406 @@ __device__ __forceinline__ const T* padded_pixel(const Args<T>& a, int k,
   return a.h1 + (((size_t)k * bs + py - 1) * bs + px - 1) * cm;
 }
 
-__device__ __forceinline__ bf16 round_bf16(float v) { return __float2bfloat16(v); }
-__device__ __forceinline__ float f32(bf16 v) { return __bfloat162float(v); }
-
-// 8 consecutive bf16 (16 bytes, read-only path) widened to fp32
-__device__ __forceinline__ void load8(const bf16* p, float* f) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const bf16* h = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) f[i] = f32(h[i]);
-}
-
-// 8 fp32 values that are already bf16-exact, stored as 16 bytes
-__device__ __forceinline__ void store8(bf16* p, const float* f) {
-  uint4 u;
-  bf16* h = reinterpret_cast<bf16*>(&u);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) h[i] = round_bf16(f[i]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-
 // ---------------------------------------------------------------- bf16 ----
 
-constexpr int kStrips = 3;    // 16x64 3x3-conv strips a warp accumulates
-constexpr int kRowPad = 8;    // shared-memory row padding, in elements
-constexpr int kN2 = 64;       // output channels of one 1x1 weight chunk
-constexpr size_t kMaxSmem = 232448;
+constexpr int kConsumers = 256;            // two warpgroups
+constexpr int kThreads = kConsumers + 32;  // and a producer warp
+constexpr int kStages = 4;
+constexpr int kStageBytes = 128 * 128;     // 128 rows of 64 bf16
+constexpr int kN1 = 128;                   // output channels of a 1x1 tile
+constexpr int kMaxSmem = 232448;
 
-struct Smem {
-  int wp, mp, pad_px, mh, lda, ldb2, kc;
-  size_t pad_bytes, h2_bytes, buf_bytes, stage_bytes;
-  // the 1x1 stage reuses the padded tile's space for two x chunks
-  size_t tile_bytes;
-  __host__ __device__ Smem(int bs, int cm, int kc_) {
-    kc = kc_;
-    wp = bs + 2;                      // padded row width
-    mp = round_up(bs * wp, 16);       // rows of the shifted-window product
-    pad_px = mp + 2 * wp + 2;         // pixels the 9 taps read
-    mh = round_up(bs * bs, 16);       // rows of h2
-    lda = cm + kRowPad;               // row stride of tile, h2, w2 chunk
-    ldb2 = kN2 + kRowPad;             // row stride of a w3 chunk
-    pad_bytes = (size_t)pad_px * lda * sizeof(bf16);
-    const size_t x_bytes = (size_t)2 * mh * ldb2 * sizeof(bf16);
-    tile_bytes = pad_bytes > x_bytes ? pad_bytes : x_bytes;
-    h2_bytes = (size_t)mh * lda * sizeof(bf16);
-    const size_t b1 = (size_t)2 * kc * lda * sizeof(bf16);
-    const size_t b2 = (size_t)2 * cm * ldb2 * sizeof(bf16);
-    buf_bytes = b1 > b2 ? b1 : b2;
-    stage_bytes = (size_t)kWarps * 16 * 16 * sizeof(float);
-  }
-  __host__ __device__ size_t buf_half(int cm, bool second) const {
-    return second ? (size_t)cm * ldb2 : (size_t)kc * lda;  // elements
-  }
-  __host__ __device__ size_t total() const {
-    return tile_bytes + h2_bytes + buf_bytes + stage_bytes;
-  }
+constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
+constexpr int max_of(int a, int b) { return a > b ? a : b; }
+
+template <int BS, int CM>
+struct Tail {
+  static constexpr int kM = BS * BS;      // pixels: the rows of both products
+  static constexpr int kMT = kM / 64;     // m64 tiles
+  static constexpr int kWp = BS + 2;      // padded row width
+  static constexpr int kPadPx = kWp * kWp;
+  static constexpr int kLda = CM + 8;     // padded-tile row, elements
+  static constexpr int kN2 = CM / 2;      // 3x3 outputs of one CTA
+  static constexpr int kKc = CM / 64;     // 64-channel k chunks
+  static constexpr int kMtw = kMT >= 2 ? kMT / 2 : 1;  // m tiles a warpgroup
+  static constexpr int kSplitN = kMT >= 2 ? 1 : 2;     // warpgroups on one
+  static constexpr int kN3w = kN2 / kSplitN;           // 3x3 n a warpgroup
+  static constexpr int kN1w = kN1 / kSplitN;           // 1x1 n a warpgroup
+  static constexpr int kXBytes = 2 * kM * 128;  // x / y of one 1x1 tile
+  static constexpr int kPadBytes = round_up(kPadPx * kLda * 2, 1024);
+  static constexpr int kH2Bytes = kKc * kM * 128;  // 64-channel panels
+  static constexpr int kRest = kH2Bytes + kStages * kStageBytes + 1024;
+  // two x / y buffers where they fit, so one tile's x lands while the
+  // previous tile's y leaves
+  static constexpr int kXBuf =
+      max_of(kPadBytes, 2 * kXBytes) + kRest <= kMaxSmem ? 2 : 1;
+  static constexpr int kTileBytes = max_of(kPadBytes, kXBuf * kXBytes);
+  static constexpr int kSmemBytes = kTileBytes + kRest;
+  static_assert(kMT == 1 || kMT % 2 == 0, "m64 tiles split over 2 groups");
+  static_assert(kSmemBytes <= kMaxSmem, "block does not fit");
 };
 
-// The largest w2 chunk depth whose footprint fits; 0 if none does.
-int pick_kc(int bs, int cm) {
-  const int depths[] = {64, 32, 16};
-  for (int kc : depths)
-    if (cm % kc == 0 && Smem(bs, cm, kc).total() <= kMaxSmem) return kc;
-  return 0;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ float rb(float v) {
+  return __bfloat162float(__float2bfloat16(v));
 }
 
 // Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8.  `.trans` delivers them transposed.
+// row l % 8 of matrix l / 8.
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
+      : "r"(smem_u32(p))
       : "memory");
 }
 
-// d (16x8 fp32) += a (16x16 bf16, row-major) * b (16x8 bf16, column-major)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Byte offset of (row m, channel c) in 64-channel panels of rows rows, each
+// row 128 bytes, 128-byte swizzled.
+template <int ROWS>
+__device__ __forceinline__ uint32_t swz(int m, int c) {
+  return (c / 64) * (ROWS * 128) + m * 128 + (((c % 64) / 8) ^ (m % 8)) * 16 +
+         (c % 8) * 2;
 }
 
-// The 16x16 fp32 tile of two 16x8 accumulators, row-major into `stage`.
-__device__ __forceinline__ void stage_tile(float* stage, const float (&lo)[4],
-                                           const float (&hi)[4], int lane) {
-  const int r = lane / 4, c = (lane % 4) * 2;
-  *reinterpret_cast<float2*>(stage + r * 16 + c) = make_float2(lo[0], lo[1]);
-  *reinterpret_cast<float2*>(stage + (r + 8) * 16 + c) =
-      make_float2(lo[2], lo[3]);
-  *reinterpret_cast<float2*>(stage + r * 16 + 8 + c) =
-      make_float2(hi[0], hi[1]);
-  *reinterpret_cast<float2*>(stage + (r + 8) * 16 + 8 + c) =
-      make_float2(hi[2], hi[3]);
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// The lane's 8 values of `stage`: row lane / 2, columns (lane % 2) * 8 + q.
-__device__ __forceinline__ void stage_row(const float* stage, int lane,
-                                          float (&v)[8]) {
-  const float4* p = reinterpret_cast<const float4*>(stage + lane * 8);
-  const float4 lo = p[0], hi = p[1];
-  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
-}
-
-// rows x (vecs * 8) bf16 from global (row stride src_ld) into shared memory
-// (row stride dst_ld), 16 bytes per cp.async
-__device__ __forceinline__ void load_chunk(bf16* dst, int dst_ld,
-                                           const bf16* src, size_t src_ld,
-                                           int rows, int vecs) {
-  for (int e = threadIdx.x; e < rows * vecs; e += kThreads) {
-    const int r = e / vecs, v = e % vecs;
-    __pipeline_memcpy_async(dst + (size_t)r * dst_ld + v * 8,
-                            src + r * src_ld + v * 8, 16);
-  }
-  __pipeline_commit();
-}
-
-template <int KC>
+template <int BS, int CM>
 __global__ void __launch_bounds__(kThreads, 1)
-tail_bf16(Args<bf16> a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int k = blockIdx.x, tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int bs = a.bs, cm = a.cm, co = a.co;
-  const Smem L(bs, cm, KC);
-  const int lda = L.lda;
-  bf16* pad = reinterpret_cast<bf16*>(smem);
-  bf16* h2 = reinterpret_cast<bf16*>(smem + L.tile_bytes);
-  bf16* buf = reinterpret_cast<bf16*>(smem + L.tile_bytes + L.h2_bytes);
-  float* stage = reinterpret_cast<float*>(smem + L.tile_bytes + L.h2_bytes +
-                                          L.buf_bytes) + warp * 256;
+tail_bf16(Args<bf16> a, const __grid_constant__ CUtensorMap map_w2,
+          const __grid_constant__ CUtensorMap map_w3,
+          const __grid_constant__ CUtensorMap map_x,
+          const __grid_constant__ CUtensorMap map_y) {
+  using L = Tail<BS, CM>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  // per x / y buffer: x of its tile landed, y of its tile written; and the
+  // padded tile read (the consumers are past the 3x3 products)
+  __shared__ __align__(8) uint64_t xbar[2], ydone[2], tile_free;
+  char* smem = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* pad = reinterpret_cast<bf16*>(smem);  // padded tile, then x / y
+  char* xs = smem;
+  char* h2 = smem + L::kTileBytes;
+  char* ring = h2 + L::kH2Bytes;
 
-  // padded tile by cp.async (it lands with the first w2 chunk), zero rows
-  // past it and h2's zero tail rows, 16 B a copy
-  const int vec = cm / 8;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int e = tid; e < L.pad_px * vec; e += kThreads) {
-    const int pix = e / vec, v = e % vec;
-    bf16* dst = pad + (size_t)pix * lda + v * 8;
-    if (pix < L.wp * L.wp)
-      __pipeline_memcpy_async(
-          dst, padded_pixel(a, k, pix / L.wp, pix % L.wp) + v * 8, 16);
-    else
-      *reinterpret_cast<uint4*>(dst) = zero;
+  const int blk = blockIdx.x / 2, co = a.co;
+  const uint32_t rank = cluster_rank();
+  const int n_w2 = 9 * L::kKc, n_tiles = co / 2 / kN1;
+  // first channel of the nt-th 1x1 tile
+  auto tile_c0 = [&](int nt) { return rank * (co / 2) + nt * kN1; };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&xbar[b], 1);
+      mbar_init(&ydone[b], kConsumers);
+    }
+    mbar_init(&tile_free, kConsumers);
+    fence_barrier_init();
+  }
+  // barriers ready, and the peer has started: its h2 takes our stores
+  cluster_sync();
+
+  const int row0 = blk * L::kM;  // this block's first row of x, y (K bs^2, Co)
+  if (threadIdx.x == kConsumers + 1) {
+    // x in, y out: x boxes by TMA into the space of the padded tile once
+    // the 3x3 products are done with it, y boxes out once written
+    auto load_x = [&](int nt) {
+      char* buf = xs + nt % L::kXBuf * L::kXBytes;
+      const int c0 = tile_c0(nt);
+      uint64_t* bar = &xbar[nt % L::kXBuf];
+      mbar_expect_tx(bar, L::kXBytes);
+      tma_load_2d(buf, &map_x, bar, c0, row0);
+      tma_load_2d(buf + L::kM * 128, &map_x, bar, c0 + 64, row0);
+    };
+#ifndef TAIL_NO_1X1_STAGE
+    mbar_wait(&tile_free, 0);
+    for (int nt = 0; nt < L::kXBuf && nt < n_tiles; ++nt) load_x(nt);
+#endif
+    cluster_sync();
+#ifndef TAIL_NO_1X1_STAGE
+    for (int nt = 0; nt < n_tiles; ++nt) {
+      mbar_wait(&ydone[nt % L::kXBuf], (nt / L::kXBuf) & 1);
+      const char* buf = xs + nt % L::kXBuf * L::kXBytes;
+      const int c0 = tile_c0(nt);
+      tma_store_2d(&map_y, buf, c0, row0);
+      tma_store_2d(&map_y, buf + L::kM * 128, c0 + 64, row0);
+      bulk_commit();
+      if (nt + L::kXBuf < n_tiles) {
+        bulk_wait_read();  // the buffer is free for the next x
+        load_x(nt + L::kXBuf);
+      }
+    }
+    bulk_wait();
+#endif
+    return;
+  }
+  if (threadIdx.x >= kConsumers) {
+    // producer: one thread streams w2, then w3, through the ring
+    if (threadIdx.x != kConsumers) return;
+#ifdef TAIL_NO_1X1_STAGE
+    const int chunks = n_w2;
+#else
+    const int chunks = n_w2 + n_tiles * L::kKc;
+#endif
+    bool joined = false;
+    for (int i = 0; i < chunks; ++i) {
+      // from here on a stage is freed only after the h2 exchange
+      if (i == n_w2 + kStages) {
+        cluster_sync();
+        joined = true;
+      }
+      const int s = i % kStages;
+      mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+      char* dst = ring + s * kStageBytes;
+      if (i < n_w2) {
+        const int tap = i / L::kKc, kc = i % L::kKc;
+        mbar_expect_tx(&full[s], L::kN2 * 128);
+        tma_load_2d(dst, &map_w2, &full[s], kc * 64, tap * CM + rank * L::kN2);
+      } else {
+        const int t = (i - n_w2) / L::kKc, kc = (i - n_w2) % L::kKc;
+        mbar_expect_tx(&full[s], kN1 * 128);
+        tma_load_2d(dst, &map_w3, &full[s], kc * 64, tile_c0(t));
+      }
+    }
+    if (!joined) cluster_sync();
+    return;
+  }
+
+  const int tid = threadIdx.x, wg = tid / 128, t = tid % 128;
+  const int lane = tid % 32, wi = t / 32;
+  // the padded tile by cp.async, 16 bytes a copy
+  constexpr int kVec = CM / 8;
+  for (int e = tid; e < L::kPadPx * kVec; e += kConsumers) {
+    const int px = e / kVec, v = e % kVec;
+    __pipeline_memcpy_async(
+        pad + px * L::kLda + v * 8,
+        padded_pixel(a, blk, px / L::kWp, px % L::kWp) + v * 8, 16);
   }
   __pipeline_commit();
-  for (int e = bs * bs * vec + tid; e < L.mh * vec; e += kThreads)
-    *reinterpret_cast<uint4*>(h2 + (size_t)(e / vec) * lda + e % vec * 8) =
-        zero;
+  __pipeline_wait_prior(0);
+  named_sync(1, kConsumers);
 
-  // 3x3 conv -> BN2 -> ReLU into h2.  Chunk c holds w2[tap][k0:k0+KC][:].
-  // Warp w owns the 64-column strip ct = w % cols and the row tiles
-  // w / cols + j * (kWarps / cols), kStrips of them per pass over w2, so
-  // its B fragments serve all of its strips.
-  const int cols = cm / 64, warps_per_col = kWarps / cols;
-  const int ct = warp % cols, row0 = warp / cols;
-  const int row_tiles = L.mp / 16;
-  // lane's row and column in an ldmatrix.x4 of a 16x16 tile
-  const int ld_row = lane % 8 + (lane / 8) % 2 * 8, ld_col = lane / 16 * 8;
-  const int nk = cm / KC, chunks = 9 * nk;
-  const size_t half1 = L.buf_half(cm, false);
-  auto load_w2 = [&](int c) {
-    const int tap = c / nk, k0 = (c % nk) * KC;
-    load_chunk(buf + (c & 1) * half1, lda,
-               a.w2 + ((size_t)tap * cm + k0) * cm, cm, KC, vec);
-  };
-  for (int first = 0; first < row_tiles; first += warps_per_col * kStrips) {
-    float acc[kStrips][8][4] = {};
-    load_w2(0);
-    for (int c = 0; c < chunks; ++c) {
-      if (c + 1 < chunks) {
-        load_w2(c + 1);
-        __pipeline_wait_prior(1);
-      } else {
-        __pipeline_wait_prior(0);
-      }
-      __syncthreads();
-      const bf16* b = buf + (c & 1) * half1 + ct * 64;
-      const int tap = c / nk, k0 = (c % nk) * KC;
-      const bf16* a0 = pad + (size_t)((tap / 3) * L.wp + tap % 3) * lda + k0;
+  // 3x3 conv -> BN2 -> ReLU into h2.  Warpgroup wg: m tiles mtile(j), n
+  // columns [n3, n3 + kN3w) of this CTA's half.
+  auto mtile = [&](int j) { return L::kMT >= 2 ? wg * L::kMtw + j : 0; };
+  const int n3 = (L::kSplitN == 2 ? wg : 0) * L::kN3w;
+  int px0[L::kMtw];  // the lane's ldmatrix row: its pixel's tap-(0, 0) row
+#pragma unroll
+  for (int j = 0; j < L::kMtw; ++j) {
+    const int m = mtile(j) * 64 + wi * 16 + lane % 16;
+    px0[j] = (m / BS) * L::kWp + m % BS;
+  }
+  const int kcol = lane / 16 * 8;
+  float acc3[L::kMtw][L::kN3w / 2];
+#pragma unroll
+  for (int j = 0; j < L::kMtw; ++j)
+#pragma unroll
+    for (int e = 0; e < L::kN3w / 2; ++e) acc3[j][e] = 0.0f;
+  int i = 0;  // chunk counter of the ring
+  for (; i < n_w2; ++i) {
+    const int s = i % kStages, tap = i / L::kKc, kc = i % L::kKc;
+    const int off = (tap / 3) * L::kWp + tap % 3;
+    unsigned fa[L::kMtw][4][4];
+#pragma unroll
+    for (int j = 0; j < L::kMtw; ++j)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ldsm_x4(fa[j][kk],
+                pad + (px0[j] + off) * L::kLda + kc * 64 + kk * 16 + kcol);
+    mbar_wait(&full[s], (i / kStages) & 1);
 #ifndef TAIL_NO_3X3_PRODUCTS
+    const uint32_t b = smem_u32(ring + s * kStageBytes) + n3 * 128;
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < KC; kk += 16) {
-        unsigned fb[4][4];
+    for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          ldsm_x4_t(fb[q], b + (size_t)(kk + ld_row) * lda + q * 16 + ld_col);
+      for (int j = 0; j < L::kMtw; ++j)
+        wgmma_bf16_rs(acc3[j], fa[j][kk], desc_sw128(b + kk * 32, 16, 1024),
+                      1);
+    wgmma_commit();
+    wgmma_wait<0>();
 #pragma unroll
-        for (int j = 0; j < kStrips; ++j) {
-          const int rt = first + row0 + j * warps_per_col;
-          if (rt < row_tiles) {
-            unsigned fa[4];
-            ldsm_x4(fa, a0 + (size_t)(rt * 16 + ld_row) * lda + kk + ld_col);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              mma_bf16(acc[j][2 * q], fa, fb[q][0], fb[q][1]);
-              mma_bf16(acc[j][2 * q + 1], fa, fb[q][2], fb[q][3]);
-            }
-          }
-        }
-      }
+    for (int j = 0; j < L::kMtw; ++j) fence_regs(acc3[j]);
 #endif
-      __syncthreads();
-    }
+    if (t == 0) mbar_arrive(&empty[s]);
+  }
+  fence_proxy_async();  // the tile's reads come before the x loads into it
+  mbar_arrive(&tile_free);
+
+  // epilogue: both CTAs get this CTA's half of h2, swizzled as the 1x1's A
+  const uint32_t h2_peer = map_cta(smem_u32(h2), rank ^ 1);
 #pragma unroll
-    for (int j = 0; j < kStrips; ++j) {
-      const int rt = first + row0 + j * warps_per_col;
-      if (rt >= row_tiles) continue;
+  for (int j = 0; j < L::kMtw; ++j) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        stage_tile(stage, acc[j][2 * i], acc[j][2 * i + 1], lane);
-        __syncwarp();
-        // lane: 8 consecutive channels of one output row, 16 bytes a copy
-        const int m = rt * 16 + lane / 2, c8 = (lane % 2) * 8;
-        const int oy = m / L.wp, ox = m % L.wp;
-        if (oy < bs && ox < bs) {
-          const int ch = ct * 64 + i * 16 + c8;
-          float sc[8], bi[8], v[8];
-          load8(a.s2 + ch, sc);
-          load8(a.b2 + ch, bi);
-          stage_row(stage, lane, v);
+    for (int q = 0; q < L::kN3w / 8; ++q) {
+      const int ch = rank * L::kN2 + n3 + 8 * q + 2 * (t % 4);
+      const float2 sc = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(a.s2 + ch));
+      const float2 bi = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(a.b2 + ch));
 #pragma unroll
-          for (int q = 0; q < 8; ++q) {
-            v[q] = f32(round_bf16(v[q]));
-            v[q] = f32(round_bf16(__fmul_rn(v[q], sc[q])));
-            v[q] = f32(round_bf16(__fadd_rn(v[q], bi[q])));
-            v[q] = v[q] > 0.0f ? v[q] : 0.0f;
-          }
-          store8(h2 + (size_t)(oy * bs + ox) * lda + ch, v);
+      for (int h = 0; h < 2; ++h) {
+        const int m = mtile(j) * 64 + wi * 16 + lane / 4 + 8 * h;
+        float v[2] = {acc3[j][4 * q + 2 * h], acc3[j][4 * q + 2 * h + 1]};
+        const float s2v[2] = {sc.x, sc.y}, b2v[2] = {bi.x, bi.y};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          v[e] = rb(v[e]);
+          v[e] = rb(__fmul_rn(v[e], s2v[e]));
+          v[e] = rb(__fadd_rn(v[e], b2v[e]));
+          v[e] = v[e] > 0.0f ? v[e] : 0.0f;
         }
-        __syncwarp();
+        const uint32_t at = swz<L::kM>(m, ch), word = pack(v[0], v[1]);
+        *reinterpret_cast<uint32_t*>(h2 + at) = word;
+        st_cluster_u32(h2_peer + at, word);
       }
     }
   }
-  __syncthreads();
-
+  fence_proxy_async();
+  cluster_sync();  // both halves of h2 are in both CTAs
+  fence_proxy_async();
 #ifdef TAIL_NO_1X1_STAGE
   return;
 #endif
-  // 1x1 conv -> BN3 -> + x -> ReLU into y.  Chunk c holds w3[:][64c:64c+64]
-  // and, in the padded tile's space, x[:][64c:64c+64] of this block.
-  const int chunks2 = co / kN2, strips2 = (L.mh / 16) * 2;
-  const size_t half2 = L.buf_half(cm, true), halfx = (size_t)L.mh * L.ldb2;
-  const size_t base = (size_t)k * bs * bs;
-  bf16* xs = pad;
-  auto load_w3 = [&](int c) {
-    for (int e = tid; e < bs * bs * (kN2 / 8); e += kThreads) {
-      const int r = e / (kN2 / 8), v = e % (kN2 / 8);
-      __pipeline_memcpy_async(xs + (c & 1) * halfx + (size_t)r * L.ldb2 + v * 8,
-                              a.x + (base + r) * co + c * kN2 + v * 8, 16);
+
+  // 1x1 conv -> BN3 -> + x -> ReLU into y, kN1 channels a tile.  Warpgroup
+  // wg: m tiles mtile(j), columns [n1, n1 + kN1w) of the tile.
+  const int n1 = (L::kSplitN == 2 ? wg : 0) * L::kN1w;
+  for (int nt = 0; nt < n_tiles; ++nt) {
+    float acc1[L::kMtw][L::kN1w / 2];
+#pragma unroll
+    for (int j = 0; j < L::kMtw; ++j)
+#pragma unroll
+      for (int e = 0; e < L::kN1w / 2; ++e) acc1[j][e] = 0.0f;
+    for (int kc = 0; kc < L::kKc; ++kc, ++i) {
+      const int s = i % kStages;
+      mbar_wait(&full[s], (i / kStages) & 1);
+      const uint32_t b = smem_u32(ring + s * kStageBytes) + n1 * 128;
+      const uint32_t h = smem_u32(h2) + kc * L::kM * 128;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < L::kMtw; ++j)
+          wgmma_bf16_ss<0>(
+              acc1[j], desc_sw128(h + mtile(j) * 64 * 128 + kk * 32, 16, 1024),
+              desc_sw128(b + kk * 32, 16, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < L::kMtw; ++j) fence_regs(acc1[j]);
+      if (t == 0) mbar_arrive(&empty[s]);
     }
-    load_chunk(buf + (c & 1) * half2, L.ldb2, a.w3 + (size_t)c * kN2, co, cm,
-               kN2 / 8);
-  };
-  load_w3(0);
-  for (int c = 0; c < chunks2; ++c) {
-    if (c + 1 < chunks2) {
-      load_w3(c + 1);
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();
-    const bf16* b = buf + (c & 1) * half2;
-    const bf16* xc = xs + (c & 1) * halfx;
-    for (int t = warp; t < strips2; t += kWarps) {
-      const int rt = t / 2, col = (t % 2) * 32;
-      // lane: 8 consecutive channels of one output row per fragment; the
-      // BN operands load before the products, to hide their latency
-      const int m = rt * 16 + lane / 2, c8 = (lane % 2) * 8;
-      const bool row_ok = m < bs * bs;
-      float sc[2][8], bi[2][8];
-      if (row_ok) {
+
+    // x of this tile has landed; y replaces it in place
+    mbar_wait(&xbar[nt % L::kXBuf], (nt / L::kXBuf) & 1);
+    char* buf = xs + nt % L::kXBuf * L::kXBytes;
+    const int c0 = tile_c0(nt);
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int ch = c * kN2 + col + i * 16 + c8;
-          load8(a.s3 + ch, sc[i]);
-          load8(a.b3 + ch, bi[i]);
-        }
-      }
-      float acc2[4][4] = {};
-#pragma unroll 4
-      for (int kk = 0; kk < cm; kk += 16) {
-        unsigned fa[4], fb[2][4];
-        ldsm_x4(fa, h2 + (size_t)(rt * 16 + ld_row) * lda + kk + ld_col);
+    for (int j = 0; j < L::kMtw; ++j) {
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          ldsm_x4_t(fb[q], b + (size_t)(kk + ld_row) * L.ldb2 + col + q * 16 +
-                               ld_col);
-          mma_bf16(acc2[2 * q], fa, fb[q][0], fb[q][1]);
-          mma_bf16(acc2[2 * q + 1], fa, fb[q][2], fb[q][3]);
-        }
-      }
+      for (int q = 0; q < L::kN1w / 8; ++q) {
+        const int cl = n1 + 8 * q + 2 * (t % 4);
+        const float2 sc = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(a.s3 + c0 + cl));
+        const float2 bi = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(a.b3 + c0 + cl));
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        stage_tile(stage, acc2[2 * i], acc2[2 * i + 1], lane);
-        __syncwarp();
-        if (row_ok) {
-          float v[8], xr[8];
-          const uint4 xu = *reinterpret_cast<const uint4*>(
-              xc + (size_t)m * L.ldb2 + col + i * 16 + c8);
-          const bf16* xh = reinterpret_cast<const bf16*>(&xu);
+        for (int h = 0; h < 2; ++h) {
+          const int m = mtile(j) * 64 + wi * 16 + lane / 4 + 8 * h;
+          __nv_bfloat162* p =
+              reinterpret_cast<__nv_bfloat162*>(buf + swz<L::kM>(m, cl));
+          const float2 xv = __bfloat1622float2(*p);
+          float v[2] = {acc1[j][4 * q + 2 * h], acc1[j][4 * q + 2 * h + 1]};
+          const float s3v[2] = {sc.x, sc.y}, b3v[2] = {bi.x, bi.y};
+          const float xr[2] = {xv.x, xv.y};
 #pragma unroll
-          for (int q = 0; q < 8; ++q) xr[q] = f32(xh[q]);
-          stage_row(stage, lane, v);
-#pragma unroll
-          for (int q = 0; q < 8; ++q) {
-            v[q] = f32(round_bf16(v[q]));
-            v[q] = f32(round_bf16(__fmul_rn(v[q], sc[i][q])));
-            v[q] = f32(round_bf16(__fadd_rn(v[q], bi[i][q])));
-            v[q] = f32(round_bf16(__fadd_rn(v[q], xr[q])));
-            v[q] = v[q] > 0.0f ? v[q] : 0.0f;
+          for (int e = 0; e < 2; ++e) {
+            v[e] = rb(v[e]);
+            v[e] = rb(__fmul_rn(v[e], s3v[e]));
+            v[e] = rb(__fadd_rn(v[e], b3v[e]));
+            v[e] = rb(__fadd_rn(v[e], xr[e]));
+            v[e] = v[e] > 0.0f ? v[e] : 0.0f;
           }
-          store8(a.y + (base + m) * co + c * kN2 + col + i * 16 + c8, v);
+          *p = __floats2bfloat162_rn(v[0], v[1]);
         }
-        __syncwarp();
       }
     }
-    __syncthreads();
+    fence_proxy_async();  // y before the TMA store reads it
+    mbar_arrive(&ydone[nt % L::kXBuf]);
   }
+}
+
+template <int BS, int CM>
+int launch_bf16(const Args<bf16>& a, int k, cudaStream_t stream) {
+  using L = Tail<BS, CM>;
+  constexpr auto kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr auto kSw = CU_TENSOR_MAP_SWIZZLE_128B;
+  const uint64_t rows = (uint64_t)k * L::kM;
+  CUtensorMap mw2, mw3, mx, my;
+  int err = encode_2d(&mw2, kBf16, a.w2, CM, 9 * CM, CM * 2, 64, L::kN2, kSw);
+  if (!err) err = encode_2d(&mw3, kBf16, a.w3, CM, a.co, CM * 2, 64, kN1, kSw);
+  if (!err)
+    err = encode_2d(&mx, kBf16, a.x, a.co, rows, a.co * 2, 64, L::kM, kSw);
+  if (!err)
+    err = encode_2d(&my, kBf16, a.y, a.co, rows, a.co * 2, 64, L::kM, kSw);
+  if (err) return err;
+  // raised once, never again (a CUDA graph capture may be open)
+  static bool raised = false;
+  if (!raised) {
+    cudaError_t e =
+        cudaFuncSetAttribute(tail_bf16<BS, CM>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::kSmemBytes);
+    if (e != cudaSuccess) return (int)e;
+    raised = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2 * k);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = L::kSmemBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e =
+      cudaLaunchKernelEx(&cfg, tail_bf16<BS, CM>, a, mw2, mw3, mx, my);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// The blocks the bf16 kernel takes (ops/kernels/bottleneck.py BF16_BLOCKS)
+bool bf16_block(int bs, int cm) {
+  return (bs == 16 && cm == 128) || (bs == 8 && (cm == 256 || cm == 128));
 }
 
 // ---------------------------------------------------------------- fp32 ----
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kF32Threads = 256;
+
+__global__ void __launch_bounds__(kF32Threads)
 tail_f32(Args<float> a, float* __restrict__ h2_scratch) {
   const int k = blockIdx.x, tid = threadIdx.x;
   const int bs = a.bs, cm = a.cm, co = a.co, m_all = bs * bs;
   float* h2 = h2_scratch + (size_t)k * m_all * cm;
 
-  for (int e = tid; e < m_all * cm; e += kThreads) {
+  for (int e = tid; e < m_all * cm; e += kF32Threads) {
     const int m = e / cm, c = e % cm;
     const int oy = m / bs, ox = m % bs;
     float acc = 0.0f;
     for (int tap = 0; tap < 9; ++tap) {
       const float* src = padded_pixel(a, k, oy + tap / 3, ox + tap % 3);
-      const float* w = a.w2 + (size_t)tap * cm * cm + c;
-      for (int ci = 0; ci < cm; ++ci) acc = fmaf(src[ci], w[(size_t)ci * cm], acc);
+      const float* w = a.w2 + ((size_t)tap * cm + c) * cm;
+      for (int ci = 0; ci < cm; ++ci) acc = fmaf(src[ci], w[ci], acc);
     }
     const float v = __fadd_rn(__fmul_rn(acc, a.s2[c]), a.b2[c]);
     h2[e] = v > 0.0f ? v : 0.0f;
@@ -440,11 +499,12 @@ tail_f32(Args<float> a, float* __restrict__ h2_scratch) {
   __syncthreads();
 
   const size_t base = (size_t)k * m_all;
-  for (int e = tid; e < m_all * co; e += kThreads) {
+  for (int e = tid; e < m_all * co; e += kF32Threads) {
     const int m = e / co, o = e % co;
     const float* hrow = h2 + (size_t)m * cm;
+    const float* w = a.w3 + (size_t)o * cm;
     float acc = 0.0f;
-    for (int c = 0; c < cm; ++c) acc = fmaf(hrow[c], a.w3[(size_t)c * co + o], acc);
+    for (int c = 0; c < cm; ++c) acc = fmaf(hrow[c], w[c], acc);
     const size_t at = (base + m) * co + o;
     float v = __fadd_rn(__fmul_rn(acc, a.s3[o]), a.b3[o]);
     v = __fadd_rn(v, a.x[at]);
@@ -468,15 +528,9 @@ Args<T> make_args(void* const* p, int bs, int cm, int co) {
 
 }  // namespace
 
-// Shared memory the bf16 kernel needs for one block (more than one CTA may
-// use if no chunk depth fits).
-extern "C" long long bottleneck_tail_smem_bytes(int bs, int cm) {
-  const int kc = pick_kc(bs, cm);
-  return (long long)Smem(bs, cm, kc ? kc : 16).total();
-}
-
 // ptrs: h1, x, top, bottom, left, right, top_left, top_right, bottom_left,
-// bottom_right, w2, w3, s2, b2, s3, b3, y (17 device pointers).
+// bottom_right, w2, w3, s2, b2, s3, b3, y (17 device pointers; weights as
+// prepare_tail_weights lays them out).
 // dtype: 0 = fp32 (h2_scratch (K, bs*bs, Cm) fp32 required), 1 = bf16.
 extern "C" int bottleneck_tail(void* const* ptrs, void* h2_scratch, int k,
                                int bs, int cm, int co, int dtype,
@@ -484,25 +538,13 @@ extern "C" int bottleneck_tail(void* const* ptrs, void* h2_scratch, int k,
   if (k <= 0) return (int)cudaGetLastError();
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    const int kc = pick_kc(bs, cm);
-    if (!kc || cm % 64 || kWarps % (cm / 64) || co % kN2)
-      return (int)cudaErrorInvalidValue;
-    const size_t bytes = Smem(bs, cm, kc).total();
-    auto kernel = kc == 64 ? tail_bf16<64>
-                           : (kc == 32 ? tail_bf16<32> : tail_bf16<16>);
-    // raised once per kernel, never again (a CUDA graph capture may be open)
-    static size_t allowed[3] = {48 * 1024, 48 * 1024, 48 * 1024};
-    size_t& limit = allowed[kc == 64 ? 0 : (kc == 32 ? 1 : 2)];
-    if (bytes > limit) {
-      cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-      if (err != cudaSuccess) return (int)err;
-      limit = bytes;
-    }
-    kernel<<<k, kThreads, bytes, s>>>(make_args<bf16>(ptrs, bs, cm, co));
-  } else {
-    tail_f32<<<k, kThreads, 0, s>>>(make_args<float>(ptrs, bs, cm, co),
-                                    static_cast<float*>(h2_scratch));
+    if (!bf16_block(bs, cm) || co % (2 * kN1)) return (int)cudaErrorInvalidValue;
+    const Args<bf16> a = make_args<bf16>(ptrs, bs, cm, co);
+    if (bs == 16) return launch_bf16<16, 128>(a, k, s);
+    if (cm == 256) return launch_bf16<8, 256>(a, k, s);
+    return launch_bf16<8, 128>(a, k, s);
   }
+  tail_f32<<<k, kF32Threads, 0, s>>>(make_args<float>(ptrs, bs, cm, co),
+                                     static_cast<float*>(h2_scratch));
   return (int)cudaGetLastError();
 }

@@ -9,12 +9,17 @@ Replaces the Pallas kernel ``blockcopy_tpu/ops/pallas/bottleneck.py``
 with the padded 3x3 input built from ``h1`` and the 8 halo pieces of
 ``ExecCtx.exchange_pieces`` at pad 1.  A CPU tensor takes the plain version;
 a CUDA tensor launches the kernel or raises.
+
+The kernel reads its weights in the layouts of ``prepare_tail_weights``.
+The wrapper prepares each parameter set once (``prepared_tail_weights``,
+cached on the tensors' identity and version), not on every launch.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import weakref
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,7 +29,8 @@ from blockcopy_tpu_torch.ops.kernels import build
 
 PIECES = ("top", "bottom", "left", "right", "top_left", "top_right",
           "bottom_left", "bottom_right")
-MAX_SMEM = 232_448  # dynamic shared memory one CTA may use on sm_90
+# (bs, Cm) of the blocks the bf16 kernel takes; Co a multiple of 256
+BF16_BLOCKS = ((16, 128), (8, 256), (8, 128))
 
 
 def _padded(h1: torch.Tensor, pieces: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -51,6 +57,41 @@ def bottleneck_tail_plain(h1, x, pieces, w2, s2, b2, w3, s3, b3):
     return torch.clamp_min(y, 0)
 
 
+def prepare_tail_weights(w2, s2, b2, w3, s3, b3, dtype=None) -> Tuple:
+    """The layouts the kernels read, from the JAX-side ones: ``w2`` (Cm, Cm,
+    3, 3) as (3, 3, Cm_out, Cm_in) ([dy][dx][co][ci]: each tap's rows are
+    output channels, k-contiguous), ``w3`` (Co, Cm, 1, 1) as (Co, Cm), the
+    BN vectors as they are; all in ``dtype`` (``w2``'s by default) and
+    contiguous.  Returns ``(w2, s2, b2, w3, s3, b3)``."""
+    dt = dtype or w2.dtype
+    return (w2.to(dt).permute(2, 3, 0, 1).contiguous(),
+            s2.to(dt).contiguous(), b2.to(dt).contiguous(),
+            w3.to(dt)[:, :, 0, 0].contiguous(),
+            s3.to(dt).contiguous(), b3.to(dt).contiguous())
+
+
+_prepared: Dict[tuple, tuple] = {}
+
+
+def prepared_tail_weights(w2, s2, b2, w3, s3, b3, dtype) -> Tuple:
+    """``prepare_tail_weights`` once per parameter set and dtype: cached on
+    the tensors' identity and ``_version``, so an in-place update of any of
+    them prepares the set again."""
+    params = (w2, s2, b2, w3, s3, b3)
+    key = tuple(id(t) for t in params) + (dtype,)
+    versions = tuple(t._version for t in params)
+    hit = _prepared.get(key)
+    if (hit is not None and hit[1] == versions
+            and all(ref() is t for ref, t in zip(hit[0], params))):
+        return hit[2]
+    for stale in [k for k, (refs, _, _) in _prepared.items()
+                  if any(ref() is None for ref in refs)]:
+        del _prepared[stale]
+    out = prepare_tail_weights(*params, dtype=dtype)
+    _prepared[key] = ([weakref.ref(t) for t in params], versions, out)
+    return out
+
+
 def _lib():
     lib = build.library("bottleneck")
     if not getattr(lib, "_typed", False):
@@ -58,8 +99,6 @@ def _lib():
             ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         lib.bottleneck_tail.restype = ctypes.c_int
-        lib.bottleneck_tail_smem_bytes.argtypes = [ctypes.c_int] * 2
-        lib.bottleneck_tail_smem_bytes.restype = ctypes.c_longlong
         lib._typed = True
     return lib
 
@@ -92,24 +131,22 @@ def bottleneck_tail(h1, x, pieces, w2, s2, b2, w3, s3, b3):
     if cm % 64 or co % 64 or 8 % (cm // 64):
         raise ValueError(f"needs Cm in (64, 128, 256, 512) and Co a multiple "
                          f"of 64, got {cm}, {co}")
-    lib = _lib()
-    smem = lib.bottleneck_tail_smem_bytes(bs, cm)
-    if dt == torch.bfloat16 and smem > MAX_SMEM:
-        raise ValueError(f"block {bs}x{bs}x{cm} needs {smem} B of shared "
-                         f"memory, more than {MAX_SMEM}")
+    if dt == torch.bfloat16 and ((bs, cm) not in BF16_BLOCKS or co % 256):
+        raise ValueError(f"the bf16 kernel takes (bs, Cm) in {BF16_BLOCKS} "
+                         f"and Co a multiple of 256, got ({bs}, {cm}), {co}")
     x = x.to(dt).contiguous()
     piece = {name: pieces[name].to(dt).contiguous() for name in PIECES}
-    w2t = w2.to(dt).permute(2, 3, 1, 0).contiguous()     # [dy][dx][ci][co]
-    w3t = w3.to(dt)[:, :, 0, 0].t().contiguous()         # (Cm, Co)
-    bn = [v.to(dt).contiguous() for v in (s2, b2, s3, b3)]
+    w2p, s2p, b2p, w3p, s3p, b3p = prepared_tail_weights(w2, s2, b2, w3, s3,
+                                                         b3, dt)
+    bn = [s2p, b2p, s3p, b3p]
     shapes = {"top": (k, 1, bs, cm), "bottom": (k, 1, bs, cm),
               "left": (k, bs, 1, cm), "right": (k, bs, 1, cm)}
     _expect("h1", h1, (k, bs, bs, cm), dt, dev)
     _expect("x", x, (k, bs, bs, co), dt, dev)
     for name in PIECES:
         _expect(name, piece[name], shapes.get(name, (k, 1, 1, cm)), dt, dev)
-    _expect("w2", w2t, (3, 3, cm, cm), dt, dev)
-    _expect("w3", w3t, (cm, co), dt, dev)
+    _expect("w2", w2p, (3, 3, cm, cm), dt, dev)
+    _expect("w3", w3p, (co, cm), dt, dev)
     for name, v, c in zip(("s2", "b2", "s3", "b3"), bn, (cm, cm, co, co)):
         _expect(name, v, (c,), dt, dev)
     y = torch.empty_like(x)
@@ -117,9 +154,9 @@ def bottleneck_tail(h1, x, pieces, w2, s2, b2, w3, s3, b3):
     if dt == torch.float32:
         scratch = torch.empty((k, bs * bs, cm), dtype=torch.float32,
                               device=dev)
-    tensors = [h1, x, *(piece[name] for name in PIECES), w2t, w3t, *bn, y]
+    tensors = [h1, x, *(piece[name] for name in PIECES), w2p, w3p, *bn, y]
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-    err = lib.bottleneck_tail(
+    err = _lib().bottleneck_tail(
         ptrs, ctypes.c_void_p(0 if scratch is None else scratch.data_ptr()),
         k, bs, cm, co, 1 if dt == torch.bfloat16 else 0,
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))

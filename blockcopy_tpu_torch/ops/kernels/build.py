@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own by
 ``nvcc`` for ``sm_90a`` into ``_build/<name>-<hash>.so`` at first use, then
-loaded with ``ctypes``.  The file name carries a hash of the source, so an
-edited source is rebuilt and a stale library is never loaded.
+loaded with ``ctypes``.  The file name carries a hash of the source and of
+the shared headers ``csrc/*.cuh``, so an edited source or header is rebuilt
+and a stale library is never loaded.  Tensor maps for TMA are encoded
+through ``cudaGetDriverEntryPoint``, so nothing links ``libcuda``.
 """
 
 from __future__ import annotations
@@ -41,8 +43,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    digest = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.read_bytes())
+    digest = digest.hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -3,15 +3,16 @@
     python3 -m blockcopy_tpu_torch.tools.tail_breakdown
 
 Builds ``csrc/bottleneck.cu`` three more times with its ablation switches
-(``TAIL_NO_1X1_STAGE``: stop once h2 is built; ``TAIL_NO_3X3_PRODUCTS``: drop
-the 3x3 conv's products but keep its loads, barriers and epilogue), times
-each build and the library's own at the main path's two shapes (bf16, 64
-blocks) as device time per launch (CUDA graph of 10 launches, median of 30
-replays), and prints one JSON line with the parts:
+(``TAIL_NO_1X1_STAGE``: stop once h2 is built and exchanged;
+``TAIL_NO_3X3_PRODUCTS``: drop the 3x3 conv's products but keep its fragment
+loads, barriers and epilogue), times each build at the main path's two
+shapes (bf16, 64 blocks) as device time per launch (CUDA graph of 10
+launches, median of 30 replays), and prints one JSON line with the parts:
 
 * ``3x3_products``  = full - no 3x3 products;
 * ``1x1_stage``     = full - no 1x1 stage;
-* ``rest``          = the tile fill, w2 chunk loads, barriers and 3x3 epilogue.
+* ``rest``          = the tile fill, w2 chunk loads, barriers, 3x3 epilogue
+  and the exchange of h2 between the block's two CTAs.
 
 The variants are written to ``_build/ablation/``; the outputs of a variant
 are not checked (they are wrong by design).
@@ -64,7 +65,7 @@ def _inputs(bs, cm, co, gen):
               "left": (K, bs, 1, cm), "right": (K, bs, 1, cm)}
     pieces = [rnd(*shapes.get(n, (K, 1, 1, cm))) for n in BT.PIECES]
     tensors = [rnd(K, bs, bs, cm), rnd(K, bs, bs, co), *pieces,
-               rnd(3, 3, cm, cm), rnd(cm, co), rnd(cm), rnd(cm), rnd(co),
+               rnd(3, 3, cm, cm), rnd(co, cm), rnd(cm), rnd(cm), rnd(co),
                rnd(co), torch.empty((K, bs, bs, co), dtype=torch.bfloat16,
                                     device="cuda")]
     return tensors, (ctypes.c_void_p * len(tensors))(

@@ -11,7 +11,8 @@ Phases (any failure raises and exits non-zero):
    every main-path shape, bf16 and fp32, pad 1 and 3, on a partial grid with
    padding slots; times at the main-path shapes;
 3. bottleneck-tail kernel against its plain version at the RN50 layer2 and
-   layer3 shapes, bf16 (3e-2) and fp32 (1e-4, TF32 off); times;
+   layer3 shapes, bf16 (3e-2) and fp32 (1e-4, TF32 off); times (the weights
+   are prepared by the warm-up calls, as on the main path);
 4. the main path at full width: SwiftNet-RN50 BlockCopy fixed-capacity step,
    1024x2048 bf16, fast policy, block 128, target 0.5 (64 of 128 blocks),
    REINFORCE every 4th frame; ``init_state``, ``first_step`` and 12 steps,
@@ -24,8 +25,9 @@ Phases (any failure raises and exits non-zero):
 6. the probe path: the GEMM kernels ``mm_int8`` (bitwise) and ``mm_bf16``
    (one bf16 ulp, TF32 off) against their plain versions at the probe's
    default shape and the main path's two 3x3-conv GEMM shapes, with times,
-   bounds and the library call's time (``torch.matmul`` / ``torch._int_mm``,
-   yardsticks the port never calls); then the port's probe
+   bounds, the launch plan and its CTA count, and the library call's time
+   (``torch.matmul`` / ``torch._int_mm``, yardsticks the port never calls);
+   then the port's probe
    (``tools/probe_int8.py``) at its defaults, launch counts zeroed just
    before it;
 7. one JSON line ``{"kernels": [...]}`` and, last, the result line.
@@ -231,7 +233,8 @@ def phase_tail(gen):
                 log(f"[3] tail bs={bs} Cm={cm} Co={co} bf16 K={K}: kernel "
                     f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, bound "
                     f"{t['bound']:.4f} ms ({t['by']}; {flops / 1e9:.2f} "
-                    f"GFLOP, {nbytes / 1e6:.1f} MB)")
+                    f"GFLOP, {nbytes / 1e6:.1f} MB); {2 * K} CTAs in "
+                    f"clusters of 2")
     per_step = {key: sum(rows[s][key] for s in TAIL_SHAPES)
                 for key in ("kernel", "plain", "bound")}
     by = [rows[s]["by"] for s in TAIL_SHAPES]
@@ -416,6 +419,7 @@ def phase_mm(gen):
     from blockcopy_tpu_torch.tools.measure import device_ms
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = "cuda"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows_out, err = {}, {"mm_bf16": 0.0, "mm_int8": 0.0}
     for rows, k, n in MM_SHAPES:
         xb = torch.randn((rows, k), generator=gen, device=dev).to(
@@ -449,10 +453,13 @@ def phase_mm(gen):
                  "plain_ms": device_ms(lambda: plain(x, w)),
                  "library_ms": device_ms(lambda: lib(x, w)),
                  "bound_ms": bound, "bound_by": by}
+            p = MM.plan(rows, k, n, sms, x.element_size())
+            ctas = rows // MM.ROW_TILE * -(-n // p.bn) * p.splits
             log(f"[6] {name} {rows}x{k}x{n}: kernel {t['ms']:.4f} ms, plain "
                 f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, "
                 f"bound {bound:.4f} ms ({by}); kernel at "
-                f"{bound / t['ms']:.1%} of its bound")
+                f"{bound / t['ms']:.1%} of its bound; {ctas} CTAs on {sms} "
+                f"SMs ({p})")
             if (rows, k, n) == MM_SHAPES[0]:
                 rows_out[name] = t
     for name, t in rows_out.items():

@@ -78,6 +78,92 @@ def test_plain_matches_pallas(bs, dtype):
     assert_close(ref, got, tol(dtype))
 
 
+def _plain_prepared(h1, x, pieces, prep):
+    """The tail computed from the prepared layouts, read as the kernel reads
+    them: w2 [dy][dx][co][ci] tap by tap, w3 (Co, Cm); cast order of
+    ``bottleneck.py:82-89``."""
+    w2p, s2, b2, w3p, s3, b3 = prep
+    dt, (k, bs, _, cm) = h1.dtype, h1.shape
+    full = BT._padded(h1, pieces).float()                # (K, bs+2, bs+2, Cm)
+    acc = torch.zeros((k, bs, bs, cm))
+    for dy in range(3):
+        for dx in range(3):
+            acc += full[:, dy:dy + bs, dx:dx + bs] @ w2p[dy, dx].float().t()
+    h2 = torch.clamp_min(acc.to(dt) * s2 + b2, 0)
+    y = (h2.float() @ w3p.float().t()).to(dt) * s3 + b3
+    return torch.clamp_min(y + x, 0)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+def test_prepared_weights_round_trip(dtype):
+    """``prepare_tail_weights`` lays out w2 as [dy][dx][co][ci] and w3 as
+    (Co, Cm): undoing the layouts gives the JAX-side (HWIO) weights back,
+    bit for bit, and the BN vectors unchanged."""
+    rs = np.random.RandomState(3)
+    _, _, _, w2, s2, b2, w3, s3, b3 = _tail_inputs(rs, 1, 8, 128, 256, dtype)
+    oihw = lambda w: tt(w).permute(3, 2, 0, 1)
+    prep = BT.prepare_tail_weights(oihw(w2), tt(s2), tt(b2),
+                                   oihw(w3[None, None]), tt(s3), tt(b3))
+    w2p, s2p, b2p, w3p, s3p, b3p = prep
+    assert all(t.is_contiguous() and t.dtype == tt(w2).dtype for t in prep)
+    assert w2p.shape == (3, 3, 128, 128) and w3p.shape == (256, 128)
+    assert_same(w2, w2p.permute(0, 1, 3, 2))             # back to HWIO
+    assert_same(w3, w3p.t())
+    for ref, got in zip((s2, b2, s3, b3), (s2p, b2p, s3p, b3p)):
+        assert_same(ref, got)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+@pytest.mark.parametrize("bs", [8, 16])
+def test_prepared_reader_matches_plain_and_pallas(bs, dtype):
+    """A plain reader of the prepared layouts equals ``bottleneck_tail_plain``
+    and, through it, the Pallas ``bottleneck_tail`` in interpret mode."""
+    rs = np.random.RandomState(bs + 1)
+    h1, x, pieces, w2, s2, b2, w3, s3, b3 = _tail_inputs(rs, 3, bs, 128,
+                                                         256, dtype)
+    ref = jtail(jnp.asarray(h1), jnp.asarray(x),
+                {k: jnp.asarray(v) for k, v in pieces.items()},
+                *map(jnp.asarray, (w2, s2, b2, w3, s3, b3)))
+    oihw = lambda w: tt(w).permute(3, 2, 0, 1)
+    tpieces = {k: tt(v) for k, v in pieces.items()}
+    weights = (oihw(w2), tt(s2), tt(b2), oihw(w3[None, None]), tt(s3),
+               tt(b3))
+    got = _plain_prepared(tt(h1), tt(x), tpieces,
+                          BT.prepare_tail_weights(*weights))
+    plain = BT.bottleneck_tail_plain(tt(h1), tt(x), tpieces, *weights)
+    assert_close(plain, got, tol(dtype))
+    assert_close(ref, got, tol(dtype))
+
+
+def test_prepared_cache_follows_in_place_updates(monkeypatch):
+    """``prepared_tail_weights`` prepares a parameter set once; an in-place
+    update of any of its tensors, or another dtype, prepares it again."""
+    calls = []
+    real = BT.prepare_tail_weights
+    monkeypatch.setattr(BT, "prepare_tail_weights",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    monkeypatch.setattr(BT, "_prepared", {})
+    rs = np.random.RandomState(5)
+    _, _, _, w2, s2, b2, w3, s3, b3 = _tail_inputs(rs, 1, 8, 128, 256,
+                                                   np.float32)
+    params = [tt(w2).permute(3, 2, 0, 1), tt(s2), tt(b2),
+              tt(w3[None, None]).permute(3, 2, 0, 1), tt(s3), tt(b3)]
+    first = BT.prepared_tail_weights(*params, torch.float32)
+    again = BT.prepared_tail_weights(*params, torch.float32)
+    assert len(calls) == 1 and all(a is b for a, b in zip(first, again))
+    params[0].mul_(2.0)                       # in place: w2's version moves
+    updated = BT.prepared_tail_weights(*params, torch.float32)
+    assert len(calls) == 2
+    assert torch.equal(updated[0], first[0] * 2.0)
+    params[4].add_(1.0)
+    BT.prepared_tail_weights(*params, torch.float32)
+    BT.prepared_tail_weights(*params, torch.bfloat16)
+    assert len(calls) == 4
+    BT.prepared_tail_weights(*params, torch.float32)
+    BT.prepared_tail_weights(*params, torch.bfloat16)
+    assert len(calls) == 4
+
+
 def _run(pkg, fused, frames, grids, params, n=1, gh=2, gw=4):
     """One bottleneck over a clip: outputs and strip canvases per frame."""
     S, G, Ctx, split, to = pkg

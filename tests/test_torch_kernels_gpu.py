@@ -88,15 +88,19 @@ def _tail_inputs(rs, k, bs, cm, co):
             1 + arr(co, scale=0.1), arr(co, scale=0.1)]
 
 
+def _gpu(args, device, dtype):
+    return [{k: v.to(device, dtype) for k, v in a.items()}
+            if isinstance(a, dict) else a.to(device, dtype) for a in args]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bs,cm,co", [(8, 256, 1024), (16, 128, 512)])
 def test_bottleneck_kernel_matches_plain(cuda_device, bs, cm, co, dtype):
     """The RN50 layer3 and layer2 shapes: 1e-4 in fp32 (TF32 off), 3e-2 in
     bf16 (the kernel and the plain version round at the same points but
     sum in another order)."""
-    args = _tail_inputs(np.random.RandomState(bs), 6, bs, cm, co)
-    gpu = [{k: v.to(cuda_device, dtype) for k, v in a.items()}
-           if isinstance(a, dict) else a.to(cuda_device, dtype) for a in args]
+    gpu = _gpu(_tail_inputs(np.random.RandomState(bs), 6, bs, cm, co),
+               cuda_device, dtype)
     ref = BT.bottleneck_tail_plain(*gpu)
     before = kernels.launches["bottleneck_tail"]
     got = BT.bottleneck_tail(*gpu)
@@ -106,20 +110,52 @@ def test_bottleneck_kernel_matches_plain(cuda_device, bs, cm, co, dtype):
     torch.testing.assert_close(got.float(), ref.float(), rtol=t, atol=t)
 
 
+@pytest.mark.parametrize("k", [1, 5, 64, 65])
+@pytest.mark.parametrize("bs,cm,co", [(8, 256, 1024), (16, 128, 512),
+                                      (8, 128, 256)])
+def test_bottleneck_bf16_block_counts(cuda_device, bs, cm, co, k):
+    """bf16 at 1 to 65 blocks (2 to 130 CTAs in clusters of 2), within
+    3e-2 of the plain version."""
+    gpu = _gpu(_tail_inputs(np.random.RandomState(k + bs), k, bs, cm, co),
+               cuda_device, torch.bfloat16)
+    got = BT.bottleneck_tail(*gpu)
+    torch.testing.assert_close(got.float(),
+                               BT.bottleneck_tail_plain(*gpu).float(),
+                               rtol=3e-2, atol=3e-2)
+
+
+def test_bottleneck_weight_update_in_place(cuda_device):
+    """The prepared weights follow an in-place update of w2 between two
+    calls (the cache keys on the tensor's version)."""
+    gpu = _gpu(_tail_inputs(np.random.RandomState(7), 4, 16, 128, 512),
+               cuda_device, torch.bfloat16)
+    first = BT.bottleneck_tail(*gpu)
+    gpu[3].mul_(-1.5)
+    second = BT.bottleneck_tail(*gpu)
+    ref = BT.bottleneck_tail_plain(*gpu).float()
+    torch.testing.assert_close(second.float(), ref, rtol=3e-2, atol=3e-2)
+    assert not torch.allclose(first.float(), ref, rtol=3e-2, atol=3e-2)
+
+
 def test_bottleneck_kernel_refuses_unsupported_width(cuda_device):
     args = _tail_inputs(np.random.RandomState(0), 2, 8, 192, 256)
-    gpu = [{k: v.to(cuda_device) for k, v in a.items()}
-           if isinstance(a, dict) else a.to(cuda_device) for a in args]
     with pytest.raises(ValueError, match="Cm"):
-        BT.bottleneck_tail(*gpu)
+        BT.bottleneck_tail(*_gpu(args, cuda_device, torch.float32))
+    args = _tail_inputs(np.random.RandomState(0), 2, 16, 256, 1024)
+    with pytest.raises(ValueError, match="Cm"):
+        BT.bottleneck_tail(*_gpu(args, cuda_device, torch.bfloat16))
 
 
 @pytest.mark.parametrize("rows,k,n", [(128, 64, 8), (128, 160, 136),
-                                      (384, 1152, 128), (16896, 96, 24)])
+                                      (384, 1152, 128), (16896, 96, 24),
+                                      (512, 1152, 136), (4096, 2304, 256),
+                                      (8576, 160, 136)])
 def test_mm_kernels_match_plain(cuda_device, rows, k, n):
     """int8 bitwise, bf16 within one bf16 ulp (rtol 2^-7, 1e-3 near 0; TF32
     off).  k 160 and 96 end in a short chunk, n 136 and 24 in a partial
-    column tile; 16896 rows take 128-row tiles, the others 64-row ones."""
+    column tile (of 128 columns, and of 256 at 8576 rows), n 8 in one mostly
+    empty tile; 384, 512 and 4096 rows split k; 128, 384 and 8576 rows run
+    single CTAs, the others 2-CTA clusters (``MM.plan``)."""
     rs = np.random.RandomState(rows + k + n)
     xb = torch.from_numpy(rs.randn(rows, k).astype(np.float32))
     wb = torch.from_numpy(rs.randn(k, n).astype(np.float32))
@@ -137,6 +173,29 @@ def test_mm_kernels_match_plain(cuda_device, rows, k, n):
     assert torch.equal(got, MM.mm_int8_plain(xi, wi))
     assert kernels.launches["mm_bf16"] == before["mm_bf16"] + 1
     assert kernels.launches["mm_int8"] == before["mm_int8"] + 1
+
+
+@pytest.mark.parametrize("rows,k,n,splits", [(512, 1152, 136, 2),
+                                             (16896, 96, 24, 1)])
+def test_mm_cluster_plan_matches_plain(cuda_device, monkeypatch, rows, k, n,
+                                       splits):
+    """2-CTA clusters (each w tile multicast to both) with 256-column tiles
+    and k splits, a plan ``plan`` does not make at these shapes."""
+    monkeypatch.setattr(MM, "plan", lambda rows, k, n, sms, itemsize:
+                        MM.Plan(256 if n > 128 else 128, 2, splits))
+    rs = np.random.RandomState(rows + k)
+    xb = torch.from_numpy(rs.randn(rows, k).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    wb = torch.from_numpy(rs.randn(k, n).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    xi = torch.from_numpy(rs.randint(-128, 128, (rows, k)).astype(
+        np.int8)).to(cuda_device)
+    wi = torch.from_numpy(rs.randint(-128, 128, (k, n)).astype(
+        np.int8)).to(cuda_device)
+    torch.testing.assert_close(MM.mm_bf16(xb, wb).float(),
+                               MM.mm_bf16_plain(xb, wb).float(),
+                               rtol=2 ** -7, atol=1e-3)
+    assert torch.equal(MM.mm_int8(xi, wi), MM.mm_int8_plain(xi, wi))
 
 
 def test_mm_kernels_refuse_bad_inputs(cuda_device):

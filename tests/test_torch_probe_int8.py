@@ -134,3 +134,45 @@ def test_rate_arithmetic_matches_jax_tool(monkeypatch, capsys):
     probe.main()
     jax_line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert TP.report(128, 64, 128, 1300.75, 2011.25) == jax_line
+
+
+PLAN_SHAPES = [(16384, 2304, 256), (16384, 1152, 128), (4096, 2304, 256),
+               (128, 64, 8), (128, 160, 136), (384, 1152, 128),
+               (16896, 96, 24), (512, 1152, 136)]
+
+
+@pytest.mark.parametrize("itemsize", [2, 1])
+@pytest.mark.parametrize("rows,k,n", PLAN_SHAPES)
+def test_plan_covers_every_tile_once(rows, k, n, itemsize):
+    """The grid of ``plan`` (row blocks x column tiles x k splits, cut as
+    the kernel cuts them) covers every output tile once per split, the
+    splits of a tile cover its k chunks once and in order, and every CTA
+    keeps at least one chunk."""
+    p = MM.plan(rows, k, n, 132, itemsize)
+    assert p.bn in (128, 256) and p.cluster in (1, 2)
+    assert (rows // MM.ROW_TILE) % p.cluster == 0
+    chunks = -(-k * itemsize // MM.CHUNK_BYTES)
+    cover = np.zeros((rows, -(-n // p.bn) * p.bn), np.int64)
+    for bx in range(rows // MM.ROW_TILE):
+        for by in range(-(-n // p.bn)):
+            cover[bx * MM.ROW_TILE:(bx + 1) * MM.ROW_TILE,
+                  by * p.bn:(by + 1) * p.bn] += p.splits
+    assert (cover == p.splits).all()
+    parts = MM.split_ranges(chunks, p.splits)
+    assert parts[0][0] == 0 and all(count >= 1 for _, count in parts)
+    assert all(a + c == b for (a, c), (b, _) in zip(parts, parts[1:]))
+    assert sum(count for _, count in parts) == chunks
+    assert chunks * MM.CHUNK_BYTES >= k * itemsize > (chunks - 1) * \
+        MM.CHUNK_BYTES
+
+
+@pytest.mark.parametrize("itemsize", [2, 1])
+@pytest.mark.parametrize("rows,k,n", PLAN_SHAPES[:3])
+def test_plan_fills_the_card(rows, k, n, itemsize):
+    """At the shapes of ``chip_smoke.py`` the plan puts at least 128 CTAs
+    on the 132 SMs of an H100 (4096x2304x256 as 128-column tiles with k
+    split 2 ways), and never more than one wave."""
+    p = MM.plan(rows, k, n, 132, itemsize)
+    ctas = rows // MM.ROW_TILE * -(-n // p.bn) * p.splits
+    assert 128 <= ctas <= 132
+    assert (p.bn, p.splits) == ((128, 2) if rows == 4096 else (n, 1))
