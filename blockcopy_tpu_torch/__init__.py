@@ -7,8 +7,10 @@ zero sentinel row) and imports nothing of it.  The two Pallas kernels of the
 reference are CUDA C++ kernels here (``csrc/``), built at first use.
 
 Entry points (``init_swiftnet``, ``init_policy_net``,
-``FixedCapacityStepper``) default to ``device="cuda"`` and raise when no GPU
-is present unless the caller passes ``device="cpu"``.
+``FixedCapacityStepper``, ``BlockCopyModel``, ``build_policy_from_settings``,
+the checkpoint loaders, and ``tasks/semseg/eval.py`` through ``--device``)
+default to CUDA and raise when no GPU is present unless the caller asks for
+the CPU.
 """
 
 from blockcopy_tpu_torch.device import resolve_device

@@ -176,6 +176,10 @@ class ExecCtx:
     idx: Optional[torch.Tensor] = None
     canvases: Dict[str, object] = dataclasses.field(default_factory=dict)
     building: bool = False
+    # Multiply-accumulate tally by layer name, from shapes on the host (no
+    # device read); shared with the dense views of ``as_dense`` so SPP
+    # interiors count into the same tally (``blocked.py:303-309``).
+    macs: Dict[str, float] = dataclasses.field(default_factory=dict)
     # Canvas names already stored this frame: a second store through the
     # same name means two call sites silently share one temporal canvas.
     stored_names: set = dataclasses.field(default_factory=set)
@@ -186,6 +190,22 @@ class ExecCtx:
 
     def as_dense(self) -> "ExecCtx":
         return dataclasses.replace(self, mode="dense")
+
+    def add_macs(self, count: float, name: str = "") -> None:
+        self.macs[name] = self.macs.get(name, 0.0) + float(count)
+
+    @property
+    def total_macs(self) -> float:
+        return sum(self.macs.values())
+
+    def macs_by_module(self) -> Dict[str, float]:
+        """The tally by top-level module (first dot-segment of the layer
+        name), the shape of the reference's per-submodule cost tree."""
+        out: Dict[str, float] = {}
+        for name, v in self.macs.items():
+            key = name.split(".", 1)[0] if name else "other"
+            out[key] = out.get(key, 0.0) + v
+        return out
 
     @classmethod
     def blocked(cls, idx, n, gh, gw, canvases, building=False) -> "ExecCtx":

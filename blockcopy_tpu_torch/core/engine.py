@@ -1,20 +1,181 @@
-"""BlockCopy execution helpers (counterpart of
-``blockcopy_tpu/core/engine.py``; ladder mode's ``BlockCopyModel`` is not
-ported yet)."""
+"""BlockCopy execution engine: the per-frame pipeline in ladder mode
+(counterpart of ``blockcopy_tpu/core/engine.py``).
+
+Each frame: the policy picks the grid, the blocked model runs the executed
+blocks padded to the smallest capacity on the quantization ladder, the
+policy optimizes every ``train_interval`` frames.  The port runs eagerly,
+so a capacity needs no program of its own; its MAC tally is still recorded
+once per capacity.
+
+The only host sync per frame is the executed-block count
+(``Policy._finalize``), which picks the capacity.  A frame with count 0
+runs no model and returns the previous outputs.  Temporal state is a dict
+of per-layer canvases updated in place.
+"""
 
 from __future__ import annotations
 
 from typing import Callable
 
+import torch
+
+from blockcopy_tpu_torch.core import grid as gridlib
 from blockcopy_tpu_torch.core.blocked import BlockPack, ExecCtx, split_dense
+from blockcopy_tpu_torch.device import resolve_device
+from blockcopy_tpu_torch.policy.optim import tree_map
+from blockcopy_tpu_torch.policy.policies import build_policy_from_settings
+from blockcopy_tpu_torch.utils.flops import FlopsTracker, policy_net_macs
+from blockcopy_tpu_torch.utils.profiler import timings
+
+FRAME_STATE = "__frame_state__"
+OUT = "__out__"
 
 
 def noblocks(ctx: ExecCtx, name: str, x, fn: Callable):
     """Run ``fn(dense_ctx, dense_x)`` densely inside a blocked model: combine
     the blocks through a persistent canvas, apply ``fn``, gather the executed
-    blocks of the result (``engine.py:44``)."""
+    blocks of the result (``engine.py:44``).  The dense view shares the
+    context's MAC tally."""
     if not isinstance(x, BlockPack) or ctx.is_dense:
         return fn(ctx.as_dense(), x)
     dense = ctx.store_dense(name, x)
     y = fn(ctx.as_dense(), dense)
     return split_dense(y, ctx.idx, ctx.n, ctx.gh, ctx.gw)
+
+
+class BlockCopyModel:
+    """A blocked model's apply function wrapped in the BlockCopy frame loop.
+
+    Args:
+        apply_fn: ``apply_fn(params, x, ctx)``, ``x`` a ``BlockPack`` or a
+            dense NHWC tensor, ``ctx`` an ``ExecCtx``; the output stride
+            against the input is constant.
+        params: the model's parameter tree, on ``device``.
+        settings: the BlockCopy settings dict (``core/argparser.py``).
+        policy: a policy object; by default ``build_policy_from_settings``.
+        device: default CUDA; raises where it is absent.
+    """
+
+    def __init__(self, apply_fn: Callable, params, settings: dict,
+                 policy=None, device=None):
+        self.device = resolve_device(device)
+        self.apply_fn = apply_fn
+        self.params = params
+        self.settings = settings
+        self.policy = policy or build_policy_from_settings(settings,
+                                                           self.device)
+        self.block_size = settings["block_size"]
+        self.train_interval = settings["block_train_interval"]
+        self.quantum = settings.get("block_quantize_number_exec", 1.0 / 16.0)
+
+        self._geom = None  # (n, gh, gw)
+        self._frame_shape = None
+        self.temporal = None
+        self.flops = FlopsTracker()
+        self.reset_temporal()
+
+    # -- temporal state -----------------------------------------------------
+
+    def reset_temporal(self):
+        """Reset per-clip state (reference ``core/blockcopy.py:34-43``).
+        Canvases stay allocated: the first frame executes every block and
+        overwrites them all."""
+        self.clip_length = 0
+        self.policy_meta = {"inputs": None, "outputs": None,
+                            "outputs_prev": None}
+
+    def _init_temporal(self, frame):
+        """Zeroed canvases on the device, their shapes found by one building
+        pass of the model over every block on the meta device."""
+        n, h, w, _ = frame.shape
+        gh, gw = gridlib.grid_shape(h, w, self.block_size)
+        self._geom = (n, gh, gw)
+        self._frame_shape = tuple(frame.shape)
+        total = n * gh * gw
+        meta = torch.device("meta")
+        idx = torch.arange(total, device=meta)
+        ctx = ExecCtx.blocked(idx, n, gh, gw, {}, building=True)
+        pack = split_dense(torch.empty(frame.shape, dtype=frame.dtype,
+                                       device=meta), idx, n, gh, gw)
+        with torch.no_grad():
+            ctx.store_dense(FRAME_STATE, pack)
+            out = self.apply_fn(tree_map(lambda t: t.to(meta), self.params),
+                                pack, ctx)
+            ctx.store_dense(OUT, out)
+        self.temporal = {"canvases": tree_map(
+            lambda t: torch.zeros(t.shape, dtype=t.dtype, device=self.device),
+            ctx.canvases)}
+        if self.policy.is_trainable():
+            scale = 0.25 * 128 / self.block_size
+            self.flops.policy_macs = policy_net_macs(
+                int(h * scale), int(w * scale),
+                self.settings.get("block_num_classes", 19),
+                arch=self.settings.get("block_policy_arch", "ref"))
+
+    def _model_step(self, capacity: int, frame, grid):
+        """Run the executed blocks of ``grid`` at ``capacity``; the canvases
+        are updated in place.  Returns ``(outputs, frame_state)``."""
+        n, gh, gw = self._geom
+        with torch.no_grad():
+            idx = gridlib.exec_indices(grid, capacity)
+            pack = split_dense(frame, idx, n, gh, gw)
+            ctx = ExecCtx.blocked(idx, n, gh, gw, self.temporal["canvases"])
+            frame_state = ctx.store_dense(FRAME_STATE, pack)
+            out = self.apply_fn(self.params, pack, ctx)
+            outputs = ctx.store_dense(OUT, out)
+        if capacity not in self.flops.macs_per_capacity:
+            self.flops.record_trace(capacity, ctx.macs_by_module())
+        return outputs, frame_state
+
+    # -- checkpoint / resume ------------------------------------------------
+
+    def save_policy(self, path: str) -> None:
+        from blockcopy_tpu_torch.utils.policy_ckpt import save_ladder_policy
+        save_ladder_policy(self.policy, path)
+
+    def load_policy(self, path: str) -> None:
+        from blockcopy_tpu_torch.utils.policy_ckpt import load_ladder_policy
+        load_ladder_policy(self.policy, path)
+
+    # -- frame loop ---------------------------------------------------------
+
+    def __call__(self, inputs, draws=None):
+        """One frame.  ``inputs``: dense (N, H, W, 3), normalized, on the
+        engine's device.  ``draws`` goes to the policy's ``forward``."""
+        self.clip_length += 1
+        meta = self.policy_meta
+        meta["inputs"] = inputs
+
+        with timings.env("blockcopy/policy_forward", 3):
+            meta = self.policy(meta, draws)
+
+        with timings.env("blockcopy/model", 3):
+            if self.temporal is None or self._geom is None:
+                self._init_temporal(inputs)
+            elif tuple(inputs.shape) != self._frame_shape:
+                raise ValueError(
+                    f"frame shape changed {self._frame_shape} -> "
+                    f"{tuple(inputs.shape)}: the engine's temporal state "
+                    f"is geometry-static; build a new BlockCopyModel for a "
+                    f"different resolution")
+            count = meta["num_exec"]
+            if count == 0:
+                out = meta["outputs"]
+                capacity = 0
+            else:
+                capacity = gridlib.capacity_for_count(
+                    count, meta["num_total"], self.quantum)
+                out, meta["frame_state"] = self._model_step(
+                    capacity, inputs, meta["grid"])
+            self.flops.record_frame(
+                capacity, policy_ran=meta.get("_rl_cache") is not None,
+                images=inputs.shape[0])
+            meta["outputs_prev"] = meta["outputs"]
+            meta["outputs"] = out
+
+        with timings.env("blockcopy/policy_optim", 3):
+            train_policy = self.clip_length % self.train_interval == 0
+            self.policy_meta = self.policy.optim(meta, train=train_policy)
+        return out
+
+    forward = __call__

@@ -4,15 +4,21 @@ The execution grid is a boolean tensor ``(N, GH, GW)`` marking the blocks to
 execute this frame.  Index bookkeeping stays on the device with static
 shapes: ``exec_indices`` pads to a fixed capacity with the sentinel
 ``total == N*GH*GW`` and never synchronises with the host.
+
+The capacity ladder (ladder mode, ``core/engine.py``) rounds the executed
+count up to a multiple of ``total * quantum`` so only a few block counts,
+and so a few sets of launch shapes, ever occur.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["grid_shape", "num_blocks", "exec_indices", "neighbor_indices"]
+__all__ = ["grid_shape", "num_blocks", "quantize_grid", "capacity_for_count",
+           "capacity_ladder", "exec_indices", "neighbor_indices"]
 
 
 def grid_shape(height: int, width: int, block_size: int) -> Tuple[int, int]:
@@ -26,6 +32,53 @@ def grid_shape(height: int, width: int, block_size: int) -> Tuple[int, int]:
 
 def num_blocks(n: int, gh: int, gw: int) -> int:
     return n * gh * gw
+
+
+def quantize_grid(grid: torch.Tensor, quantum: float,
+                  generator: Optional[torch.Generator] = None,
+                  u_rank: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Round the number of executed blocks up to a multiple of
+    ``total * quantum`` by enabling extra randomly chosen blocks
+    (``grid.py:53``): blocks are ranked by (executed, random uniform) and
+    the top ``target`` kept.  Joint over the batch, like the reference.
+
+    The uniforms come from ``generator``, or are given as ``u_rank``
+    (``(total,)`` fp32).  No host sync: the count stays on the device."""
+    if quantum <= 0:
+        return grid
+    flat = grid.reshape(-1)
+    total = flat.shape[0]
+    multiple = int(total * quantum)
+    if multiple <= 0:
+        return grid
+    if u_rank is None:
+        u_rank = torch.rand((total,), generator=generator, device=grid.device)
+    n_exec = flat.sum(dtype=torch.int64)
+    # ceil to the next multiple; 0 stays 0
+    target = torch.where(n_exec > 0, multiple * (1 + (n_exec - 1) // multiple),
+                         0)
+    scores = u_rank + 2.0 * flat.float()
+    order = torch.argsort(-scores, stable=True)    # executed blocks lead
+    rank = torch.empty_like(order).scatter_(
+        0, order, torch.arange(total, device=order.device))
+    return (rank < target).reshape(grid.shape)
+
+
+def capacity_for_count(count: int, total: int, quantum: float) -> int:
+    """Host-side: smallest ladder capacity >= count."""
+    if count <= 0:
+        return 0
+    multiple = max(1, int(total * quantum)) if quantum > 0 else 1
+    return min(total, multiple * math.ceil(count / multiple))
+
+
+def capacity_ladder(total: int, quantum: float):
+    """All capacities that can occur for this grid size."""
+    if quantum <= 0:
+        return list(range(1, total + 1))
+    multiple = max(1, int(total * quantum))
+    return list(range(multiple, total + 1, multiple)) + (
+        [total] if total % multiple else [])
 
 
 def exec_indices(grid: torch.Tensor, capacity: int) -> torch.Tensor:

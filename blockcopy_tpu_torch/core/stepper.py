@@ -19,7 +19,6 @@ import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from blockcopy_tpu_torch.core import grid as gridlib
 from blockcopy_tpu_torch.core.blocked import (
@@ -40,6 +39,8 @@ from blockcopy_tpu_torch.policy.net import (
     policy_in_channels,
     policy_net_apply,
 )
+from blockcopy_tpu_torch.policy.policies import reinforce_update
+from blockcopy_tpu_torch.utils.flops import policy_net_macs
 
 FRAME_STATE = "__frame_state__"
 OUT = "__out__"
@@ -61,6 +62,22 @@ class StepperConfig:
     num_classes: int = 19
     # 'ref' = the reference PolicyNet; 'fast' = space-to-depth trunk
     policy_arch: str = "ref"
+
+    @classmethod
+    def from_settings(cls, s: dict) -> "StepperConfig":
+        """From a settings dict (``core/argparser.py`` keys)."""
+        return cls(
+            block_size=s["block_size"],
+            block_target=s["block_target"],
+            complexity_weight=s["block_complexity_weight"],
+            cost_momentum=s["block_cost_momentum"],
+            train_interval=s["block_train_interval"],
+            lr=s["block_optim_lr"],
+            weight_decay=s["block_optim_wd"],
+            momentum=s["block_optim_momentum"],
+            num_classes=s["block_num_classes"],
+            policy_arch=s.get("block_policy_arch", "ref"),
+        )
 
 
 class FixedCapacityStepper:
@@ -138,19 +155,27 @@ class FixedCapacityStepper:
             "generator": torch.Generator(self.device).manual_seed(seed),
         }
 
-    def init_state(self, model_params, seed: int = 0) -> Dict:
-        """Carried state with zeroed canvases, their shapes found by one
-        building pass of the model on the meta device."""
+    def _shape_pass(self, model_params, blocks: int):
+        """One building pass of the model over ``blocks`` executed blocks
+        on the meta device (no values, no kernel): the context with its
+        canvases and MAC tally, and the task outputs."""
         n, gh, gw = self.geom
         meta = torch.device("meta")
         meta_params = rmsprop.tree_map(lambda t: t.to(meta), model_params)
-        idx = torch.arange(self.total, device=meta)
+        idx = torch.arange(blocks, device=meta)
         ctx = ExecCtx.blocked(idx, n, gh, gw, {}, building=True)
         frame = torch.empty(self.frame_shape, dtype=self.dtype, device=meta)
         pack = split_dense(frame, idx, n, gh, gw)
         with torch.no_grad():
             self._store_frame_state(ctx, pack)
             task = self._model_fn(meta_params, pack, ctx)
+        return ctx, task
+
+    def init_state(self, model_params, seed: int = 0) -> Dict:
+        """Carried state with zeroed canvases, their shapes found by one
+        building pass of the model on the meta device."""
+        n, gh, gw = self.geom
+        ctx, task = self._shape_pass(model_params, self.total)
         zeros = lambda t: torch.zeros(t.shape, dtype=t.dtype,
                                       device=self.device)
         state = {
@@ -163,6 +188,37 @@ class FixedCapacityStepper:
             state[k] = zeros(task[k])
             state[f"{k}_prev"] = zeros(task[k])
         return state
+
+    def macs_breakdown_per_step(self, model_params,
+                                policy: bool = True) -> Dict[str, float]:
+        """Per-module MACs of one steady step (``capacity`` blocks), plus
+        the policy net's under ``policy``; counted from shapes."""
+        ctx, _ = self._shape_pass(model_params, self.capacity)
+        breakdown = ctx.macs_by_module()
+        if policy:
+            _, h, w, _ = self.frame_shape
+            scale = 0.25 * 128 / self.cfg.block_size
+            breakdown["policy"] = policy_net_macs(
+                int(h * scale), int(w * scale), self.cfg.num_classes,
+                arch=self.cfg.policy_arch)
+        return breakdown
+
+    def macs_per_step(self, model_params, policy: bool = True) -> float:
+        return sum(self.macs_breakdown_per_step(model_params, policy).values())
+
+    @staticmethod
+    def check_policy_finite(policy_state: Dict, phase: str) -> None:
+        """Phase-boundary NaN guard: one bad REINFORCE update would
+        silently spoil the policy for the rest of a run.  Sums every
+        parameter leaf and the running cost: one host read."""
+        total = policy_state["running_cost"].float().sum()
+        for leaf in rmsprop.tree_leaves(policy_state["params"]):
+            total = total + leaf.float().sum()
+        if not bool(torch.isfinite(total)):
+            raise FloatingPointError(
+                f"policy state non-finite after {phase} (running_cost="
+                f"{policy_state['running_cost'].tolist()}); training "
+                f"diverged")
 
     def reset_temporal(self, state: Dict) -> Dict:
         """New clip: reset the frame counter (the all-exec first frame
@@ -218,24 +274,9 @@ class FixedCapacityStepper:
         reward_grid = self._reward_grid(state) + reward_c
         signed = torch.where(grid_f > 0, reward_grid, -reward_grid)
 
-        params = pol["params"]
-        leaves = rmsprop.tree_map(
-            lambda t: t.detach().requires_grad_(True), params)
-        with torch.enable_grad():
-            lg, _ = policy_net_apply(leaves, pol["bn_state"], cache_x,
-                                     update_stats=False,
-                                     arch=cfg.policy_arch)
-            l = lg[..., 0]
-            logp = grid_f * F.logsigmoid(l) \
-                + (1 - grid_f) * F.logsigmoid(-l)
-            loss = torch.mean(-logp * signed)
-            grads = iter(torch.autograd.grad(loss,
-                                             rmsprop.tree_leaves(leaves)))
-        grads = rmsprop.tree_map(lambda _: next(grads), leaves)
-        with torch.no_grad():
-            params, opt = rmsprop.update(
-                grads, pol["opt"], params, lr=cfg.lr,
-                weight_decay=cfg.weight_decay, momentum=cfg.momentum)
+        params, opt, _ = reinforce_update(
+            pol["params"], pol["bn_state"], pol["opt"], cache_x, grid_f,
+            signed, cfg.policy_arch, cfg.lr, cfg.weight_decay, cfg.momentum)
         return {**pol, "params": params, "opt": opt, "running_cost": rc}
 
     # -- steps --------------------------------------------------------------

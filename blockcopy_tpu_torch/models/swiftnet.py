@@ -207,6 +207,9 @@ def _fused_bottleneck(ctx: ExecCtx, name: str, x: BlockPack, p):
         h1.data, x.data, pieces,
         p["conv2"]["w"], p["bn2"]["scale"], p["bn2"]["bias"],
         p["conv3"]["w"], p["bn3"]["scale"], p["bn3"]["bias"])
+    c_mid = p["conv2"]["w"].shape[1]
+    ctx.add_macs(h1.data.numel() * c_mid * 9, f"{name}.conv2")
+    ctx.add_macs(y.numel() * c_mid, f"{name}.conv3")
     return x.with_data(y)
 
 
@@ -253,6 +256,9 @@ def _stem(ctx: ExecCtx, x, params):
                               w, params["bn1"]["scale"],
                               params["bn1"]["bias"])
         if out is not None:
+            # the conv's output is 4x the pooled one (``swiftnet.py:343``)
+            ctx.add_macs(out.data.numel() * 4 * w.shape[1] * 49,
+                         "backbone.conv1")
             return out
     x = L.conv2d(ctx, "backbone.conv1", x, w, stride=2, padding=3)
     x = L.relu(L.batch_norm(x, params["bn1"]["scale"], params["bn1"]["bias"]))

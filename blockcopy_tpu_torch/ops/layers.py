@@ -89,9 +89,13 @@ def conv2d(ctx: ExecCtx, name: str, x: Arrayish, w: torch.Tensor,
                 data = F.pad(data, (0, 0, p, p, p, p))
             else:
                 data = ctx.exchange(name, x, padding)
-        return x.with_data(_conv(data, w, b, stride, dilation, 0, groups))
-    return _rewrap(x, _conv(_data(x), w, b, stride, dilation, padding,
-                            groups))
+        out = x.with_data(_conv(data, w, b, stride, dilation, 0, groups))
+    else:
+        out = _rewrap(x, _conv(_data(x), w, b, stride, dilation, padding,
+                               groups))
+    # output elements x (Cin/groups) x taps, as ``layers.py:456-460``
+    ctx.add_macs(_data(out).numel() * w.shape[1] * kh * w.shape[3], name)
+    return out
 
 
 def batch_norm(x: Arrayish, scale: torch.Tensor,

@@ -8,6 +8,12 @@ import torch
 from blockcopy_tpu_torch.ops.layers import resize_bilinear
 
 
+def semseg_output_repr(outputs: torch.Tensor) -> torch.Tensor:
+    """Output representation fed to the policy net: the raw logits
+    (``information_gain.py:20``)."""
+    return outputs
+
+
 def semseg_information_gain(outputs: torch.Tensor,
                             outputs_prev: torch.Tensor,
                             scale_factor: float = 0.25) -> torch.Tensor:

@@ -1,0 +1,455 @@
+"""SwiftNet + BlockCopy evaluation CLI (counterpart of
+``blockcopy_tpu/tasks/semseg/eval.py``, reference
+``semantic_segmentation/test_swiftnet.py``), flag for flag, plus
+``--device``.
+
+Dataset setup (Cityscapes-seq clips, a demo folder, or ``--synthetic``),
+model build and checkpoint load, then one of three engines: the ladder
+``BlockCopyModel`` (default), the ``FixedCapacityStepper``
+(``--speed-mode``), or the dense model (``--block-policy static``).  A
+warmup phase then an eval phase, with a temporal reset per clip, streaming
+mIoU, FPS and analytic GMACs; the last stdout line is one JSON object.
+
+    python -m blockcopy_tpu_torch.tasks.semseg.eval --synthetic \\
+        --model-backbone resnet50 --half            # on the card
+    python -m blockcopy_tpu_torch.tasks.semseg.eval --synthetic --res 256 \\
+        --device cpu                                # on the CPU, when asked
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import os.path as osp
+import time
+
+import numpy as np
+import torch
+
+from blockcopy_tpu_torch.core.argparser import add_argparser_arguments
+from blockcopy_tpu_torch.core.blocked import ExecCtx
+from blockcopy_tpu_torch.core.engine import BlockCopyModel
+from blockcopy_tpu_torch.data import transforms as et
+from blockcopy_tpu_torch.data.cityscapes_vid import CityscapesVid
+from blockcopy_tpu_torch.data.demo import DemoImageDataset
+from blockcopy_tpu_torch.data.loader import PrefetchLoader
+from blockcopy_tpu_torch.device import resolve_device
+from blockcopy_tpu_torch.models.swiftnet import (
+    SwiftNetConfig,
+    init_swiftnet,
+    make_apply_fn,
+    swiftnet_apply,
+)
+from blockcopy_tpu_torch.ops.layers import resize_bilinear
+from blockcopy_tpu_torch.policy.optim import tree_map
+from blockcopy_tpu_torch.utils.checkpoint import load_params
+from blockcopy_tpu_torch.utils.flops import format_gmacs_breakdown
+from blockcopy_tpu_torch.utils.metrics import StreamSegMetrics
+from blockcopy_tpu_torch.utils.profiler import timings
+
+logger = logging.getLogger("blockcopy_tpu_torch.semseg")
+
+
+class SyntheticClipDataset:
+    """Deterministic synthetic video clips (a bright square moving over a
+    fixed background) with self-consistent labels, for data-free runs."""
+
+    def __init__(self, num_clips, clip_length, height, width, num_classes=19,
+                 seed=0):
+        self.num_clips = num_clips
+        self.clip_length = clip_length
+        self.h, self.w = height, width
+        self.num_classes = num_classes
+        self.seed = seed
+
+    def __len__(self):
+        return self.num_clips
+
+    def __getitem__(self, index):
+        rs = np.random.RandomState(self.seed + index)
+        base = rs.randn(self.h, self.w, 3).astype(np.float32)
+        clip = []
+        for t in range(self.clip_length):
+            f = base.copy()
+            s = (47 * (index + t)) % max(self.h - 200, 1)
+            f[s:s + 160, s:s + 160] += 2.0
+            clip.append(f)
+        label = (np.abs(base[..., 0]) * 7).astype(np.int64) % self.num_classes
+        return clip, label, {"relpath": f"synthetic/{index}.png"}
+
+
+def build_argparser():
+    parser = argparse.ArgumentParser(description="BlockCopy Segmentation "
+                                     "(PyTorch/CUDA)")
+    parser.add_argument("--demo-dir", type=str, default="")
+    parser.add_argument("--cityscapes-dir", type=str, default="")
+    parser.add_argument("--synthetic", action="store_true",
+                        help="run on generated clips (no dataset needed)")
+    parser.add_argument("--mode", type=str, default="val",
+                        choices=["val", "test"])
+    parser.add_argument("--batch-size", type=int, default=1)
+    parser.add_argument("--res", type=int, default=1024,
+                        help="smallest image side in pixels")
+    parser.add_argument("--clip-length", type=int, default=20)
+    parser.add_argument("--workers", type=int, default=6)
+    parser.add_argument("--num-clips-warmup", type=int, default=500)
+    parser.add_argument("--num-clips-eval", type=int, default=-1)
+    parser.add_argument("--model-backbone", default="resnet18", type=str)
+    parser.add_argument("--model-checkpoint",
+                        default="pretrained/swiftnet_rn18.pth", type=str)
+    parser.add_argument("--half", action="store_true",
+                        help="bfloat16 model (the policy stays float32)")
+    parser.add_argument("--output-dir", default="", type=str)
+    parser.add_argument("--fast", action="store_true")
+    parser.add_argument("--single-clip-loop", action="store_true")
+    parser.add_argument("--native-io", action="store_true",
+                        help="decode clips with the C++ IO library (not "
+                        "ported: refused)")
+    parser.add_argument("--policy-checkpoint", type=str, default="",
+                        help="npz path: load the online policy state before "
+                        "warmup if present, save it after warmup")
+    parser.add_argument("--speed-mode", action="store_true",
+                        help="fixed-capacity stepper: every frame runs the "
+                        "same shapes with no host sync")
+    parser.add_argument("--num-devices", type=int, default=1,
+                        help="clip-parallel over N devices (not ported: "
+                        "values > 1 are refused)")
+    parser.add_argument("--timings", type=int, default=0)
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="'cuda' (default; raises without a GPU) or "
+                        "'cpu'")
+    add_argparser_arguments(parser)
+    return parser
+
+
+def _refuse_unported(args) -> None:
+    """Paths of the JAX CLI this port does not have yet: raise, never run
+    something else in their place."""
+    if args.num_devices > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(
+            "clip-parallel and multi-process runs (--num-devices > 1, "
+            "WORLD_SIZE > 1) are not ported yet: ROADMAP Queue 1 item 13")
+    if args.native_io:
+        raise NotImplementedError(
+            "--native-io needs the C++ IO library (blockcopy_tpu/native), "
+            "not ported yet (ROADMAP Queue 1 item 15)")
+
+
+def main(argv=None):
+    args = build_argparser().parse_args(argv)
+    logger.info("Arguments: %s", args)
+    _refuse_unported(args)
+    device = resolve_device(args.device)
+    num_classes = args.block_num_classes
+    timings.set_level(args.timings)
+
+    val_transform = et.ExtCompose([
+        et.ExtResize((args.res, args.res * 2)),
+        et.ExtToArray(),
+        et.ExtNormalize(mean=CityscapesVid.mean, std=CityscapesVid.std),
+    ])
+
+    if args.synthetic:
+        has_labels = True
+        n_warm = max(args.num_clips_warmup, 0) or 4
+        n_eval = args.num_clips_eval if args.num_clips_eval > 0 else 4
+        dataset_warmup = SyntheticClipDataset(n_warm, args.clip_length,
+                                              args.res, args.res * 2,
+                                              num_classes)
+        dataset_eval = SyntheticClipDataset(n_eval, args.clip_length,
+                                            args.res, args.res * 2,
+                                            num_classes, seed=10_000)
+    elif args.demo_dir:
+        has_labels = False
+        dataset_warmup = DemoImageDataset(args.demo_dir, val_transform)
+        dataset_eval = DemoImageDataset(args.demo_dir, val_transform)
+    elif args.cityscapes_dir:
+        has_labels = not args.fast and args.mode != "test"
+        dataset_warmup = CityscapesVid(args.cityscapes_dir, split="train",
+                                       transform=val_transform,
+                                       clip_length=args.clip_length,
+                                       has_labels=has_labels)
+        dataset_eval = CityscapesVid(args.cityscapes_dir, split=args.mode,
+                                     transform=val_transform,
+                                     clip_length=args.clip_length,
+                                     has_labels=has_labels)
+    else:
+        raise AttributeError("need --synthetic, --demo-dir or --cityscapes-dir")
+
+    # Model
+    dtype = torch.bfloat16 if args.half else torch.float32
+    cfg = SwiftNetConfig(backbone=args.model_backbone,
+                         num_classes=num_classes)
+    if args.model_checkpoint and os.path.isfile(args.model_checkpoint):
+        logger.info("=> loading model checkpoint '%s'", args.model_checkpoint)
+        params = load_params(args.model_checkpoint, cfg, dtype=dtype,
+                             device=device)
+    else:
+        logger.warning("checkpoint '%s' not found: using random init",
+                       args.model_checkpoint)
+        params = init_swiftnet(cfg, seed=0, dtype=dtype, device=device)
+
+    apply_fn = make_apply_fn(cfg)
+    static = args.block_policy == "static"
+    model = None
+    stepper_state = {}
+    if args.speed_mode and not static:
+        from blockcopy_tpu_torch.core.stepper import (FixedCapacityStepper,
+                                                      StepperConfig)
+        gh, gw = args.res // args.block_size, args.res * 2 // args.block_size
+        capacity = max(1, int(round(args.block_target * gh * gw)))
+        stepper = FixedCapacityStepper(
+            apply_fn, StepperConfig.from_settings(vars(args)),
+            (args.batch_size, args.res, args.res * 2, 3), capacity,
+            dtype=dtype, device=device)
+        stepper_state["stepper"] = stepper
+        stepper_state["state"] = stepper.init_state(params, seed=1)
+        logger.info("speed mode: capacity %d/%d blocks, %.2f GMACs/frame",
+                    stepper.capacity, stepper.total,
+                    stepper.macs_per_step(params) / 1e9)
+    elif not static:
+        model = BlockCopyModel(apply_fn, params, vars(args), device=device)
+
+    def dense_fwd(p, x):
+        with torch.no_grad():
+            return swiftnet_apply(p, x, ExecCtx.dense(), cfg)
+
+    output_dir = None
+    if args.output_dir:
+        if args.fast:
+            raise ValueError("Cannot combine --fast with --output-dir")
+        output_dir = os.path.join("output_demo", args.output_dir)
+        os.makedirs(output_dir, exist_ok=True)
+
+    def upsample(o, hw):
+        with torch.no_grad():
+            return resize_bilinear(o.float(), hw).argmax(dim=-1)
+
+    staged_clip = {}
+
+    def process_clip(clip, meta, phase):
+        """clip: list over time of (B, H, W, 3) numpy frames."""
+        if model is not None:
+            model.reset_temporal()
+        if stepper_state:
+            stepper_state["state"] = stepper_state["stepper"].reset_temporal(
+                stepper_state["state"])
+        preds = None
+        for frame_id, frame in enumerate(clip):
+            if args.single_clip_loop and frame_id in staged_clip:
+                # device-staged frames: measure model FPS, not host
+                # conversion
+                inputs = staged_clip[frame_id]
+                arr = None
+            else:
+                arr = np.asarray(frame, np.float32)
+                # cast on the host so the upload is half-width
+                inputs = torch.from_numpy(arr).to(dtype).to(device)
+                if args.single_clip_loop:
+                    staged_clip[frame_id] = inputs
+            timings.add_count(inputs.shape[0])
+            with timings.env("process_clip/model", 2):
+                if stepper_state:
+                    st = stepper_state["stepper"]
+                    fn = st.first_step if frame_id == 0 else st.step
+                    stepper_state["state"] = fn(params,
+                                                stepper_state["state"],
+                                                inputs)
+                    out = stepper_state["state"]["outputs"]
+                elif model is not None:
+                    out = model(inputs)
+                else:
+                    out = dense_fwd(params, inputs)
+                if frame_id == len(clip) - 1 or output_dir:
+                    preds = upsample(out, tuple(inputs.shape[1:3]))
+            if output_dir and phase != "warmup":
+                if arr is None:
+                    arr = inputs.float().cpu().numpy()
+                _dump_viz(output_dir, phase, meta, frame_id, arr, preds,
+                          model)
+        return preds
+
+    def process_dataset(dataset, phase, max_num_clips):
+        metrics = StreamSegMetrics(
+            num_classes, classes=CityscapesVid.fine_classes,
+            class_names=CityscapesVid.train_id_to_name)
+        timings.reset()
+        loader = PrefetchLoader(dataset, num_workers=args.workers,
+                                max_items=max_num_clips
+                                if max_num_clips >= 0 else -1)
+        logger.info("## phase %s: %d clips", phase, len(loader))
+        start = time.perf_counter()
+        num_images = 0
+        cached = None
+        preds = None
+
+        def batched(it, bsize):
+            """Group consecutive clips into time-major batches (the torch
+            DataLoader's collate, reference ``test_swiftnet.py:70-80``)."""
+            group = []
+            for item in it:
+                group.append(item)
+                if len(group) == bsize:
+                    yield _collate(group)
+                    group = []
+            if group and bsize == 1:
+                yield _collate(group)
+            elif group:
+                # partial batches are dropped: temporal state is
+                # shape-static per batch size (the reference's drop_last)
+                logger.warning(
+                    "dropping %d tail clip(s) not filling a group of %d; "
+                    "use a clip count divisible by the group size to "
+                    "evaluate them", len(group), bsize)
+
+        def _collate(group):
+            clips = [g[0] for g in group]
+            t_len = len(clips[0])
+            clip_b = [np.stack([np.asarray(c[t], np.float32) for c in clips])
+                      for t in range(t_len)]
+            targets = [g[1] for g in group]
+            target_b = (np.stack(targets)
+                        if not any(isinstance(t, int) for t in targets)
+                        else 0)
+            return clip_b, target_b, group[0][2]
+
+        for clip, target, meta in batched(iter(loader), args.batch_size):
+            if args.single_clip_loop:
+                if cached is None:
+                    cached = (clip, target, meta)
+                clip, target, meta = cached
+            num_images += len(clip) * clip[0].shape[0]
+            with timings.env("process_dataset/process_clip", 1):
+                preds = process_clip(clip, meta, phase)
+            if has_labels and not args.fast and not isinstance(target, int):
+                metrics.update(np.asarray(target), preds.cpu().numpy())
+        # fence with a device-to-host read
+        if preds is not None:
+            float(preds.sum())
+        stop = time.perf_counter()
+
+        logger.info("Number of images: %d", num_images)
+        if phase != "eval":
+            return None
+        fps = num_images / (stop - start)
+        results = {"fps": fps}
+        if has_labels and not args.fast:
+            metric_results = metrics.get_results()
+            logger.info("Mean IoU %.2f", metric_results["Mean IoU"] * 100)
+            results.update({k: v for k, v in metric_results.items()
+                            if k != "Class IoU"})
+        logger.info("Average FPS: %.2f", fps)
+        if model is not None:
+            breakdown = model.flops.average_macs_by_module()
+            logger.info("%s", format_gmacs_breakdown(breakdown))
+            results["gmacs_per_image"] = model.flops.average_gmacs()
+            results["gmacs_breakdown"] = {k: v / 1e9
+                                          for k, v in breakdown.items()}
+            logger.info("%s", model.policy.stats)
+            results["perc_exec"] = model.policy.stats.get_exec_percentage()
+        elif stepper_state:
+            st = stepper_state["stepper"]
+            breakdown = st.macs_breakdown_per_step(params)
+            logger.info("%s", format_gmacs_breakdown(breakdown))
+            results["gmacs_per_image"] = sum(breakdown.values()) / 1e9
+            results["gmacs_breakdown"] = {k: v / 1e9
+                                          for k, v in breakdown.items()}
+            results["perc_exec"] = st.capacity / st.total
+            results["running_cost"] = float(
+                stepper_state["state"]["policy"]["running_cost"].mean())
+        else:
+            # the static baseline's cost: exact dense MACs from a shape
+            # pass of the same model code on the meta device
+            dense_ctx = ExecCtx.dense()
+            meta = torch.device("meta")
+            with torch.no_grad():
+                swiftnet_apply(tree_map(lambda t: t.to(meta), params),
+                               torch.empty((1, args.res, args.res * 2, 3),
+                                           dtype=dtype, device=meta),
+                               dense_ctx, cfg)
+            breakdown = dense_ctx.macs_by_module()
+            logger.info("%s", format_gmacs_breakdown(breakdown))
+            results["gmacs_per_image"] = sum(breakdown.values()) / 1e9
+            results["gmacs_breakdown"] = {k: v / 1e9
+                                          for k, v in breakdown.items()}
+        if args.timings:
+            logger.info("%s", timings)
+        return results
+
+    def check_policy_health(phase):
+        """Phase-boundary NaN guard for the stepper (the ladder engine
+        guards each update under --block-policy-verbose instead)."""
+        if stepper_state:
+            stepper_state["stepper"].check_policy_finite(
+                stepper_state["state"]["policy"], phase)
+
+    if args.policy_checkpoint and os.path.exists(args.policy_checkpoint):
+        logger.info("loading policy state from %s", args.policy_checkpoint)
+        if model is not None:
+            model.load_policy(args.policy_checkpoint)
+        elif stepper_state:
+            from blockcopy_tpu_torch.utils.policy_ckpt import (
+                load_stepper_policy)
+            state = stepper_state["state"]
+            stepper_state["state"] = {**state, "policy": load_stepper_policy(
+                args.policy_checkpoint, state["policy"])}
+    process_dataset(dataset_warmup, "warmup", args.num_clips_warmup)
+    check_policy_health("warmup")
+    if args.policy_checkpoint:
+        if model is not None:
+            model.save_policy(args.policy_checkpoint)
+        elif stepper_state:
+            from blockcopy_tpu_torch.utils.policy_ckpt import (
+                save_stepper_policy)
+            save_stepper_policy(args.policy_checkpoint,
+                                stepper_state["state"]["policy"])
+        logger.info("saved policy state to %s", args.policy_checkpoint)
+    if model is not None:
+        model.flops.reset_frames()
+        model.policy.stats = type(model.policy.stats)()
+    results = process_dataset(dataset_eval, "eval", args.num_clips_eval)
+    check_policy_health("eval")
+    print(json.dumps({k: (float(v) if isinstance(v, (int, float, np.floating))
+                          else v) for k, v in results.items()}))
+    return results
+
+
+def _dump_viz(output_dir, phase, meta, frame_id, arr, preds, model):
+    """Input, prediction and execution-grid overlays (reference
+    ``test_swiftnet.py:200-230``), written with PIL."""
+    from PIL import Image
+
+    phase_dir = osp.join(output_dir, phase)
+    os.makedirs(phase_dir, exist_ok=True)
+    relpath = meta["relpath"]
+    fname = ".".join(relpath.replace("/", "-").split(".")[:-1]) \
+        + f"_{frame_id}"
+
+    img = et.denormalize(arr[0], CityscapesVid.mean, CityscapesVid.std)
+    img = np.clip(img, 0, 1)
+    Image.fromarray((img * 255).astype(np.uint8)).resize((1024, 512)).save(
+        osp.join(phase_dir, f"{fname}_input.jpg"))
+    pred_color = CityscapesVid.decode_target(
+        preds[0].cpu().numpy()).astype(np.uint8)
+    Image.fromarray(pred_color).resize((1024, 512), Image.NEAREST).save(
+        osp.join(phase_dir, f"{fname}_output.jpg"))
+    if model is not None and "grid" in model.policy_meta:
+        grid = model.policy_meta["grid"][0].float().cpu().numpy()
+        overlay = img.copy()
+        gh, gw = grid.shape
+        bh, bw = img.shape[0] // gh, img.shape[1] // gw
+        for gy in range(gh):
+            for gx in range(gw):
+                c = np.array([0.2, 0.8, 0.2]) if grid[gy, gx] else \
+                    np.array([0.5, 0.2, 0.7])
+                sl = np.s_[gy * bh:(gy + 1) * bh, gx * bw:(gx + 1) * bw]
+                overlay[sl] = 0.6 * overlay[sl] + 0.4 * c
+        Image.fromarray((np.clip(overlay, 0, 1) * 255).astype(np.uint8)) \
+            .resize((1024, 512)).save(osp.join(phase_dir, f"{fname}_grid.jpg"))
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO)
+    main()

@@ -1,11 +1,15 @@
 """Where one steady step of the main path spends its time, on the GPU.
 
     python3 -m blockcopy_tpu_torch.tools.profile_step [--steps 8]
+        [--engine stepper|ladder]
 
 Runs the main path of ``chip_smoke.py`` (SwiftNet-RN50, 1024x2048 bf16, fast
 policy, block 128, target 0.5, REINFORCE every 4th frame), warms up past the
 first two train frames, then traces ``--steps`` steps with
-``torch.profiler`` and prints one JSON line:
+``torch.profiler`` and prints one JSON line.  ``--engine ladder`` runs the
+ladder engine of ``chip_smoke.py`` phase 8a instead (``BlockCopyModel`` with
+the CLI's default settings, one clip) and adds the capacities of the traced
+frames.  The line holds:
 
 * ``wall_ms_per_step``: host clock over the traced steps, fenced by
   ``torch.cuda.synchronize()`` (the profiler's own cost included);
@@ -43,38 +47,75 @@ def _busy_us(intervals):
     return busy
 
 
+def _stepper(shape):
+    """The main path's per-frame call: ``first_step`` then ``step``."""
+    params, stepper = swiftnet_stepper("resnet50", shape, 64, torch.bfloat16,
+                                       "cuda")
+    box = {"state": stepper.init_state(params, seed=1)}
+
+    def run(t, frame):
+        fn = stepper.first_step if t == 0 else stepper.step
+        box["state"] = fn(params, box["state"], frame)
+        return None
+
+    return run
+
+
+def _ladder(shape):
+    """The ladder engine's per-frame call; returns the frame's count."""
+    from blockcopy_tpu_torch.core.argparser import default_settings
+    from blockcopy_tpu_torch.core.engine import BlockCopyModel
+    from blockcopy_tpu_torch.models.swiftnet import (SwiftNetConfig,
+                                                     init_swiftnet,
+                                                     make_apply_fn)
+    cfg = SwiftNetConfig(backbone="resnet50", num_classes=19)
+    model = BlockCopyModel(
+        make_apply_fn(cfg),
+        init_swiftnet(cfg, seed=0, dtype=torch.bfloat16, device="cuda"),
+        default_settings(), device="cuda")
+
+    def run(t, frame):
+        model(frame)
+        return model.policy_meta["num_exec"]
+
+    return run
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--warmup", type=int, default=10)
+    ap.add_argument("--engine", choices=("stepper", "ladder"),
+                    default="stepper")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_step: CUDA is not available", file=sys.stderr)
         return 2
     shape = (1, 1024, 2048, 3)
-    params, stepper = swiftnet_stepper("resnet50", shape, 64, torch.bfloat16,
-                                       "cuda")
+    run = (_stepper if args.engine == "stepper" else _ladder)(shape)
     frames = synthetic_frames(shape, args.warmup + args.steps + 1,
                               torch.bfloat16)
-    state = stepper.first_step(params, stepper.init_state(params, seed=1),
-                               frames[0])
-    for t in range(1, args.warmup + 1):
-        state = stepper.step(params, state, frames[t])
+    for t in range(args.warmup + 1):
+        run(t, frames[t])
     torch.cuda.synchronize()
 
+    counts = []
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for t in range(args.warmup + 1, args.warmup + 1 + args.steps):
-            state = stepper.step(params, state, frames[t])
+            counts.append(run(t, frames[t]))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     steps = args.steps
     result = {"device": torch.cuda.get_device_name(0), "steps": steps,
+              "engine": args.engine,
               "wall_ms_per_step": wall_ms / steps,
               "device_busy_ms_per_step": None, "device_idle_share": None,
               "kernels_per_step": None, "top": None}
+    if args.engine == "ladder":
+        result["capacities"] = counts
     if events:
         busy_ms = _busy_us([(e.time_range.start, e.time_range.end)
                             for e in events]) / 1e3

@@ -85,6 +85,21 @@ def policy_state_from_jax(pol: Dict, device=None) -> Dict:
     }
 
 
+def ladder_policy_state_from_jax(state: Dict, device=None) -> Dict:
+    """The JAX ``PolicyTrainRL.state()`` (numpy leaves; ``running_cost`` a
+    host float or None) as the port policy's ``load_state`` input; the
+    JAX ``key`` is dropped."""
+    square_avg, momentum_buf = state["opt_state"]
+    rc = state["running_cost"]
+    return {
+        "net_params": params_from_jax(state["net_params"], device),
+        "bn_state": params_from_jax(state["bn_state"], device),
+        "opt_state": {"square_avg": params_from_jax(square_avg, device),
+                      "momentum_buf": params_from_jax(momentum_buf, device)},
+        "running_cost": None if rc is None else float(rc),
+    }
+
+
 def stepper_state_from_jax(state: Dict, device=None) -> Dict:
     """Carried stepper state: canvases by name (tensors or strip dicts),
     task outputs, ``prev_grid``, ``frame_idx`` (a host int here) and the

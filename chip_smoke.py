@@ -12,7 +12,9 @@ Phases (any failure raises and exits non-zero):
    padding slots; times at the main-path shapes;
 3. bottleneck-tail kernel against its plain version at the RN50 layer2 and
    layer3 shapes, bf16 (3e-2) and fp32 (1e-4, TF32 off); times (the weights
-   are prepared by the warm-up calls, as on the main path);
+   are prepared by the warm-up calls, as on the main path); then the same at
+   ladder mode's smallest and largest capacities, K = 8 and K = 128, with
+   the time per launch beside its bound;
 4. the main path at full width: SwiftNet-RN50 BlockCopy fixed-capacity step,
    1024x2048 bf16, fast policy, block 128, target 0.5 (64 of 128 blocks),
    REINFORCE every 4th frame; ``init_state``, ``first_step`` and 12 steps,
@@ -30,7 +32,20 @@ Phases (any failure raises and exits non-zero):
    then the port's probe
    (``tools/probe_int8.py``) at its defaults, launch counts zeroed just
    before it;
-7. one JSON line ``{"kernels": [...]}`` and, last, the result line.
+7. one JSON line ``{"kernels": [...]}`` and, last, the result line;
+8. ladder mode, before the JSON lines: (a) ``BlockCopyModel`` built with
+   ``build_policy_from_settings(default_settings())`` (block 128,
+   ``rl_semseg``, target 0.5, quantum 1/16, REINFORCE every 4th frame,
+   ``ref`` policy) on SwiftNet-RN50 1024x2048 bf16, 2 clips of 8 frames:
+   frame 1 of a clip executes all 128 blocks, every count is on the
+   capacity ladder, exactly one host sync per frame (torch's sync debug
+   mode), 12 halo and 8 tail launches per executed frame (launch counts
+   zeroed just before the first clip), policy updates on frames 4 and 8
+   only; capacities, ms/frame and peak memory; (b) the semseg CLI
+   in-process at the same width, on the ladder engine and with
+   ``--speed-mode``; (c) the ladder engine on the GPU against the CPU (RN50
+   256x512 fp32, 4 frames, injected draws, counts 8, 4, 6, 8) within 1e-3
+   of the largest |CPU output|.
 
 It needs one CUDA GPU and the repository around it: without either it exits
 non-zero and prints no result.
@@ -44,6 +59,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import torch
@@ -52,6 +68,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor core
 INT8_OPS = 1979e12              # H100 SXM dense int8 tensor core
+FP32_FLOPS = 67e12              # H100 SXM fp32 outside the tensor cores
 
 # main-path halo launches per step (bs, C), K = 64, pad 1, bf16; see the
 # exchange sites in models/swiftnet.py
@@ -60,6 +77,9 @@ HALO_SHAPES = ([(32, 48)] + [(32, 64)] * 3 + [(32, 128), (16, 256),
 # main-path bottleneck-tail launches per step (bs, Cm, Co)
 TAIL_SHAPES = [(16, 128, 512)] * 3 + [(8, 256, 1024)] * 5
 N, GH, GW, K = 1, 8, 16, 64
+# ladder mode's smallest and largest capacities at 1024x2048, block 128,
+# quantum 1/16
+LADDER_KS = (8, 128)
 # (rows, k, n) of the GEMM kernels: the probe's default, then the main
 # path's 3x3 convs as GEMMs (64 blocks x bs^2 rows, 9*C, C): layer2, layer3
 MM_SHAPES = [(16384, 2304, 256), (16384, 1152, 128), (4096, 2304, 256)]
@@ -175,7 +195,7 @@ def phase_halo(gen):
     return per_step
 
 
-def _tail_case(gen, bs, cm, co, dtype):
+def _tail_case(gen, bs, cm, co, dtype, k=K):
     from blockcopy_tpu_torch.ops.kernels.bottleneck import PIECES
     dev = "cuda"
 
@@ -183,20 +203,20 @@ def _tail_case(gen, bs, cm, co, dtype):
         t = torch.randn(shape, generator=gen, device=dev) * scale
         return (t.clamp_min(0) if relu else t).to(dtype)
 
-    shapes = {"top": (K, 1, bs, cm), "bottom": (K, 1, bs, cm),
-              "left": (K, bs, 1, cm), "right": (K, bs, 1, cm)}
-    pieces = {nm: rnd(*shapes.get(nm, (K, 1, 1, cm)), relu=True)
+    shapes = {"top": (k, 1, bs, cm), "bottom": (k, 1, bs, cm),
+              "left": (k, bs, 1, cm), "right": (k, bs, 1, cm)}
+    pieces = {nm: rnd(*shapes.get(nm, (k, 1, 1, cm)), relu=True)
               for nm in PIECES}
-    return (rnd(K, bs, bs, cm, relu=True), rnd(K, bs, bs, co), pieces,
+    return (rnd(k, bs, bs, cm, relu=True), rnd(k, bs, bs, co), pieces,
             rnd(cm, cm, 3, 3, scale=(9 * cm) ** -0.5),
             1 + rnd(cm, scale=0.1), rnd(cm, scale=0.1),
             rnd(co, cm, 1, 1, scale=cm ** -0.5),
             1 + rnd(co, scale=0.1), rnd(co, scale=0.1))
 
 
-def tail_cost(bs, cm, co, itemsize):
-    flops = 2 * K * bs * bs * cm * (9 * cm + co)
-    elems = (K * bs * bs * (cm + 2 * co) + K * (4 * bs + 4) * cm
+def tail_cost(bs, cm, co, itemsize, k=K):
+    flops = 2 * k * bs * bs * cm * (9 * cm + co)
+    elems = (k * bs * bs * (cm + 2 * co) + k * (4 * bs + 4) * cm
              + 9 * cm * cm + cm * co + 2 * cm + 2 * co)
     return flops, elems * itemsize
 
@@ -243,7 +263,45 @@ def phase_tail(gen):
     log(f"[3] tail per main-path step ({len(TAIL_SHAPES)} launches): "
         f"kernel {per_step['kernel']:.4f} ms, plain {per_step['plain']:.4f} "
         f"ms, bound {per_step['bound']:.4f} ms")
+    phase_tail_ladder(gen)
     return per_step
+
+
+def phase_tail_ladder(gen):
+    """K2 at ladder mode's smallest and largest capacities at 1024x2048
+    (K = 8: 16 bf16 CTAs; K = 128: 256 in two waves on 132 SMs), both RN50
+    shapes, bf16 and fp32: against the plain version, then the time per
+    launch beside its bound (fp32 runs scalar FMA: 67 TFLOP/s)."""
+    from blockcopy_tpu_torch.ops.kernels import bottleneck as BT
+    from blockcopy_tpu_torch.tools.measure import device_ms
+    for k in LADDER_KS:
+        for bs, cm, co in sorted(set(TAIL_SHAPES)):
+            for dtype, tol, peak in ((torch.bfloat16, 3e-2, BF16_FLOPS),
+                                     (torch.float32, 1e-4, FP32_FLOPS)):
+                args = _tail_case(gen, bs, cm, co, dtype, k)
+                ref = BT.bottleneck_tail_plain(*args)
+                got = BT.bottleneck_tail(*args)
+                err = (got.float() - ref.float()).abs().max().item()
+                if not torch.allclose(got.float(), ref.float(), rtol=tol,
+                                      atol=tol):
+                    raise AssertionError(
+                        f"bottleneck kernel disagrees with its plain version "
+                        f"at K={k} bs={bs} {dtype}: max abs err {err:.3g}")
+                flops, nbytes = tail_cost(bs, cm, co, got.element_size(), k)
+                t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+                # the fp32 kernel takes tens of ms a launch: fewer samples
+                reps = (50, 10) if dtype == torch.bfloat16 else (5, 1)
+                ms = device_ms(lambda: BT.bottleneck_tail(*args), *reps)
+                plain = device_ms(lambda: BT.bottleneck_tail_plain(*args),
+                                  *reps)
+                bound = max(t_ops, t_bytes) * 1e3
+                ctas = 2 * k if dtype == torch.bfloat16 else k
+                log(f"[3] tail K={k:3d} bs={bs} Cm={cm} Co={co} {dtype}: max "
+                    f"abs err {err:.3g} (rtol and atol {tol}) ok; kernel "
+                    f"{ms:.4f} ms per launch, plain {plain:.4f} ms, bound "
+                    f"{bound:.4f} ms "
+                    f"({'operations' if t_ops > t_bytes else 'bytes'}), "
+                    f"kernel at {bound / ms:.1%} of it; {ctas} CTAs")
 
 
 def phase_main():
@@ -402,6 +460,188 @@ def phase_modes():
     return canvas_launches
 
 
+def _ladder_frame(model, frame):
+    """One ``model(frame)`` with torch's sync debug mode on: returns the
+    output, the number of synchronizing CUDA calls it made, and its host
+    time fenced by ``synchronize``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = model(frame)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    syncs = sum("synchronizing" in str(w.message) for w in caught)
+    return out, syncs, ms
+
+
+def phase_ladder():
+    """(a) the ladder engine at full width: ``BlockCopyModel`` with the
+    CLI's default settings over 2 clips of 8 frames; launch counts are
+    zeroed just before it and read just after."""
+    from blockcopy_tpu_torch.core.argparser import default_settings
+    from blockcopy_tpu_torch.core.engine import BlockCopyModel
+    from blockcopy_tpu_torch.core.grid import capacity_ladder
+    from blockcopy_tpu_torch.models.swiftnet import (SwiftNetConfig,
+                                                     init_swiftnet,
+                                                     make_apply_fn)
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.policy.policies import \
+        build_policy_from_settings
+    from blockcopy_tpu_torch.tools.measure import synthetic_frames
+
+    torch.backends.cudnn.allow_tf32 = True
+    shape, dtype, clip_len = (1, 1024, 2048, 3), torch.bfloat16, 8
+    cfg = SwiftNetConfig(backbone="resnet50", num_classes=19)
+    params = init_swiftnet(cfg, seed=0, dtype=dtype, device="cuda")
+    # block 128, rl_semseg, target 0.5, quantum 1/16, train interval 4,
+    # ref arch: the CLI's defaults
+    settings = default_settings()
+    model = BlockCopyModel(make_apply_fn(cfg), params, settings,
+                           policy=build_policy_from_settings(settings),
+                           device="cuda")
+    clips = [synthetic_frames(shape, clip_len, dtype, seed=c)
+             for c in range(2)]
+    ladder = set(capacity_ladder(128, settings["block_quantize_number_exec"]))
+    per_exec = {"halo_strips": len(HALO_SHAPES),
+                "bottleneck_tail": len(TAIL_SHAPES)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    kernels.reset_launches()
+    counts, ms, rows = [], [], []
+    for c, clip in enumerate(clips):
+        model.reset_temporal()
+        for t, frame in enumerate(clip):
+            before = dict(kernels.launches)
+            head = model.policy.net_params["head2"]["w"].clone()
+            out, syncs, frame_ms = _ladder_frame(model, frame)
+            count = model.policy_meta["num_exec"]
+            used = {k: kernels.launches[k] - before[k] for k in per_exec}
+            trained = not torch.equal(head,
+                                      model.policy.net_params["head2"]["w"])
+            want = per_exec if count else {k: 0 for k in per_exec}
+            rows.append((c + 1, t + 1, count, syncs, used, trained))
+            counts.append(count)
+            ms.append(frame_ms)
+            if syncs != 1:
+                raise AssertionError(f"clip {c + 1} frame {t + 1}: {syncs} "
+                                     f"host syncs, expected 1")
+            if used != want:
+                raise AssertionError(f"clip {c + 1} frame {t + 1}: launches "
+                                     f"{used}, expected {want}")
+            if t == 0 and count != 128:
+                raise AssertionError(f"frame 1 of clip {c + 1} executed "
+                                     f"{count} of 128 blocks")
+            if count and count not in ladder:
+                raise AssertionError(f"count {count} is not on the ladder")
+            if trained != ((t + 1) % 4 == 0):
+                raise AssertionError(f"clip {c + 1} frame {t + 1}: policy "
+                                     f"params changed={trained}")
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if tuple(out.shape) != (1, 256, 512, 19) or \
+            not bool(torch.isfinite(out.float()).all()):
+        raise AssertionError(f"outputs {tuple(out.shape)} not finite")
+    for row in rows:
+        log(f"[8a] clip {row[0]} frame {row[1]}: {row[2]} of 128 blocks, "
+            f"{row[3]} host sync, launches {row[4]}, policy trained "
+            f"{row[5]}")
+    steady = ms[clip_len + 2:]
+    med = statistics.median(steady)
+    seen = sorted(set(counts))
+    log(f"[8a] RN50 1024x2048 bf16 ladder engine, 2 clips x {clip_len} "
+        f"frames: capacities {seen}, launches {launches}; ms/frame (host "
+        f"clock, synchronize-fenced, frames 3-{clip_len} of clip 2) median "
+        f"{med:.2f}, min {min(steady):.2f}, max {max(steady):.2f}; all "
+        f"{[round(x, 2) for x in ms]}; peak memory {peak:.2f} GiB")
+    return launches, {"capacities": seen, "ms": med, "peak_gib": peak}
+
+
+def phase_cli():
+    """(b) the semseg CLI in-process at full width, on the ladder engine
+    and with ``--speed-mode``; its JSON line is kept off this script's
+    stdout."""
+    import contextlib
+    import io
+    from blockcopy_tpu_torch.tasks.semseg import eval as cli
+
+    argv = ["--synthetic", "--res", "1024", "--model-backbone", "resnet50",
+            "--half", "--clip-length", "8", "--num-clips-warmup", "1",
+            "--num-clips-eval", "1", "--model-checkpoint", ""]
+    out = {}
+    for name, extra in (("ladder", []), ("speed-mode", ["--speed-mode"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = cli.main(argv + extra)
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        ok = (line["fps"] > 0 and "Mean IoU" in line
+              and line["gmacs_per_image"] > 0 and 0 < line["perc_exec"] <= 1)
+        log(f"[8b] CLI {name}: {json.dumps(line)}")
+        if not ok or line["fps"] != res["fps"]:
+            raise AssertionError(f"CLI {name} result {line}")
+        out[name] = line
+    return out
+
+
+def _ladder_small(device, frames, draws):
+    """RN50 256x512 fp32 ladder engine (quantum 0.25: ladder {2, 4, 6, 8})
+    over ``frames`` with injected draws; outputs and counts per frame."""
+    from blockcopy_tpu_torch.core.argparser import default_settings
+    from blockcopy_tpu_torch.core.engine import BlockCopyModel
+    from blockcopy_tpu_torch.models.swiftnet import (SwiftNetConfig,
+                                                     init_swiftnet,
+                                                     make_apply_fn)
+    cfg = SwiftNetConfig(backbone="resnet50", num_classes=19)
+    params = init_swiftnet(cfg, seed=0, device=device)
+    model = BlockCopyModel(make_apply_fn(cfg), params, default_settings(
+        block_quantize_number_exec=0.25), device=device)
+    outs, counts = [], []
+    for frame, d in zip(frames, draws):
+        d = None if d is None else tuple(x.to(device) for x in d)
+        outs.append(model(frame.to(device), d).float().cpu())
+        counts.append(model.policy_meta["num_exec"])
+    return outs, counts
+
+
+def phase_ladder_modes():
+    """(c) the ladder engine on the GPU against the CPU: the Bernoulli
+    draws are -1 (execute) or 2 (skip), so the grids do not depend on the
+    probabilities and 3, 5 and 8 blocks round to 4, 6 and 8."""
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.policy import net as policy_net
+    from blockcopy_tpu_torch.tools.measure import synthetic_frames
+    policy_net.COMPUTE_DTYPE = torch.float32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    frames = synthetic_frames((1, 256, 512, 3), 4, torch.float32, seed=2)
+    gen = torch.Generator().manual_seed(4)
+    draws = [None]
+    for n_exec in (3, 5, 8):
+        u = torch.full((8,), 2.0)
+        u[torch.randperm(8, generator=gen)[:n_exec]] = -1.0
+        draws.append((u.view(1, 2, 4), torch.rand((8,), generator=gen)))
+    kernels.reset_launches()
+    gpu, counts = _ladder_small("cuda", frames, draws)
+    used = dict(kernels.launches)
+    cpu, cpu_counts = _ladder_small("cpu", frames, draws)
+    err = rel_err(gpu, cpu)
+    log(f"[8c] RN50 256x512 fp32 ladder engine, 4 frames, counts {counts} "
+        f"(CPU {cpu_counts}), GPU (kernels {used}) vs CPU (plain "
+        f"versions): max abs err / max |CPU output| {err:.3g} (tol 1e-3)")
+    torch.backends.cudnn.deterministic = False
+    policy_net.COMPUTE_DTYPE = torch.bfloat16
+    if (err > 1e-3 or counts != cpu_counts or len(set(counts)) < 2
+            or not used["halo_strips"] or not used["bottleneck_tail"]):
+        raise AssertionError("GPU ladder engine disagrees with the CPU")
+    return err
+
+
 def mm_cost(rows, k, n, itemsize, out_itemsize, peak):
     """Operations and the bound of one GEMM launch (each input read once,
     the output written once): (ms, "bytes" or "operations")."""
@@ -500,13 +740,17 @@ def main() -> int:
     canvas_launches = phase_modes()
     mm = phase_mm(gen)
     probe_launches = phase_probe()
+    ladder_launches, ladder = phase_ladder()
+    cli = phase_cli()
+    ladder_err = phase_ladder_modes()
 
     source = "blockcopy_tpu_torch/csrc/"
     common = {"route": "cuda", "library_ms": None, "matched": True}
     kern = [
         {"name": "halo_gather_strips", "source": source + "halo.cu",
          "replaces": "blockcopy_tpu/ops/pallas/halo.py:68",
-         "path": "main", "launches": launches["halo_strips"],
+         "path": "main, ladder", "launches": launches["halo_strips"],
+         "ladder_launches": ladder_launches["halo_strips"],
          "max_abs_err": halo["err"], "ms": halo["strips"],
          "plain_ms": halo["strips_plain"], "bound_ms": halo["bound"],
          "bound_by": "bytes", **common},
@@ -518,7 +762,8 @@ def main() -> int:
          "bound_by": "bytes", **common},
         {"name": "bottleneck_tail", "source": source + "bottleneck.cu",
          "replaces": "blockcopy_tpu/ops/pallas/bottleneck.py:92",
-         "path": "main", "launches": launches["bottleneck_tail"],
+         "path": "main, ladder", "launches": launches["bottleneck_tail"],
+         "ladder_launches": ladder_launches["bottleneck_tail"],
          "max_abs_err": tail["err"], "ms": tail["kernel"],
          "plain_ms": tail["plain"], "bound_ms": tail["bound"],
          "bound_by": tail["by"], **common},
@@ -532,7 +777,11 @@ def main() -> int:
         f"launch shapes), their library_ms null: no single PyTorch call "
         f"computes either function; mm times are per launch at "
         f"{'x'.join(map(str, MM_SHAPES[0]))}; main path {step_ms:.2f} "
-        f"ms/frame; total {time.perf_counter() - t_start:.1f} s")
+        f"ms/frame; ladder path {ladder['ms']:.2f} ms/frame at capacities "
+        f"{ladder['capacities']}, peak {ladder['peak_gib']:.2f} GiB; CLI fps "
+        f"ladder {cli['ladder']['fps']:.2f}, speed-mode "
+        f"{cli['speed-mode']['fps']:.2f}; ladder GPU vs CPU {ladder_err:.3g}; "
+        f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

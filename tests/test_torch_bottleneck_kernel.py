@@ -22,6 +22,7 @@ from blockcopy_tpu_torch.ops.kernels import bottleneck as BT
 from blockcopy_tpu_torch.utils.convert import params_from_jax
 from torch_port_util import (assert_close, assert_same, assert_tree, jtree,
                              tol, tt)
+from torch_port_util import two_torch_threads  # noqa: F401
 
 
 def bottleneck_params(cin, planes, seed=0):

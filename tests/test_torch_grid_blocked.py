@@ -12,6 +12,7 @@ import blockcopy_tpu_torch.core.blocked as TB
 from blockcopy_tpu.core import grid as JG
 from blockcopy_tpu_torch.core import grid as TG
 from torch_port_util import assert_same, assert_tree, npf, tt
+from torch_port_util import two_torch_threads  # noqa: F401
 
 
 def _grids(rs, n, gh, gw, count):

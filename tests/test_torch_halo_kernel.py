@@ -13,6 +13,7 @@ from blockcopy_tpu.ops.pallas.halo import halo_gather_pallas
 from blockcopy_tpu_torch.ops import kernels
 from blockcopy_tpu_torch.ops.kernels import halo as H
 from torch_port_util import assert_same, tt
+from torch_port_util import two_torch_threads  # noqa: F401
 
 
 def _case(pad, partial, dtype, n=1, gh=3, gw=4, bs=8, c=16, seed=0):

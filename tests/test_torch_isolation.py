@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and its
 entry points refuse to run on the CPU unless asked."""
 
+import os
 import re
 import subprocess
 import sys
@@ -30,6 +31,26 @@ def test_import_leaves_jax_out():
         "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_cli_runs_without_jax_or_pil():
+    """The semseg CLI on ``--synthetic`` clips imports neither JAX, nor the
+    JAX package, nor PIL (the card's machine has no PIL)."""
+    code = (
+        "import sys\n"
+        "from blockcopy_tpu_torch.tasks.semseg import eval as cli\n"
+        "res = cli.main(['--synthetic', '--res', '128', '--clip-length', '2',"
+        " '--num-clips-warmup', '1', '--num-clips-eval', '1',"
+        " '--model-checkpoint', '', '--device', 'cpu'])\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'blockcopy_tpu', 'PIL'))\n"
+        "assert not bad, bad\n"
+        "assert res['fps'] > 0\n")
+    # two intra-op threads, as the other port tests (torch_port_util.py)
+    env = {**os.environ, "OMP_NUM_THREADS": "2"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
 
 
@@ -67,8 +88,39 @@ def _probe():
     probe_int8.main([])
 
 
+def _engine():
+    from blockcopy_tpu_torch.core.argparser import default_settings
+    from blockcopy_tpu_torch.core.engine import BlockCopyModel
+    BlockCopyModel(None, None, default_settings(block_policy="all"))
+
+
+def _build_policy():
+    from blockcopy_tpu_torch.core.argparser import default_settings
+    from blockcopy_tpu_torch.policy.policies import \
+        build_policy_from_settings
+    build_policy_from_settings(default_settings())
+
+
+def _load_checkpoint():
+    from blockcopy_tpu_torch.models.swiftnet import SwiftNetConfig
+    from blockcopy_tpu_torch.utils.checkpoint import load_params
+    load_params("missing.pth", SwiftNetConfig())
+
+
+def _load_npz():
+    from blockcopy_tpu_torch.utils.checkpoint import load_npz
+    load_npz("missing.npz", {})
+
+
+def _cli():
+    from blockcopy_tpu_torch.tasks.semseg import eval as cli
+    cli.main(["--synthetic", "--res", "128"])
+
+
 @pytest.mark.parametrize("entry", [_swiftnet, _policy, _stepper,
-                                   _params_from_jax, _probe])
+                                   _params_from_jax, _probe, _engine,
+                                   _build_policy, _load_checkpoint,
+                                   _load_npz, _cli])
 def test_entry_points_default_to_cuda(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -60,6 +60,33 @@ def test_halo_kernel_matches_plain(cuda_device, pad, c, dtype):
     assert kernels.launches["halo_strips"] == before["halo_strips"] + 1
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,c", [(32, 48), (16, 256), (8, 512), (4, 512)])
+def test_halo_kernel_ladder_capacity_8(cuda_device, bs, c, dtype):
+    """Ladder mode's smallest capacity at 1024x2048: 8 of 128 blocks, one
+    of them a padding slot, at main-path (bs, C), both entry points."""
+    n, gh, gw, pad = 1, 8, 16, 1
+    total = n * gh * gw
+    gen = torch.Generator().manual_seed(bs + c)
+    canvas = torch.randn((total + 1, bs, bs, c), generator=gen).to(dtype)
+    canvas[-1] = 0
+    grid = torch.zeros(total, dtype=torch.bool)
+    grid[torch.randperm(total, generator=gen)[:7]] = True
+    idx = TG.exec_indices(grid.view(n, gh, gw), 8)
+    center = torch.randn((8, bs, bs, c), generator=gen).to(dtype)
+    strips = {"rows": torch.cat([canvas[:, :pad], canvas[:, -pad:]], 1),
+              "cols": torch.cat([canvas[:, :, :pad], canvas[:, :, -pad:]], 2)}
+    ref = H.halo_gather_canvas_plain(canvas, idx, pad, n, gh, gw, center)
+    dev = {"device": cuda_device}
+    got_c = H.halo_gather_canvas(canvas.to(**dev), idx.to(**dev), pad, n,
+                                 gh, gw, center.to(**dev))
+    got_s = H.halo_gather_strips({k: v.contiguous().to(**dev)
+                                  for k, v in strips.items()},
+                                 idx.to(**dev), pad, n, gh, gw,
+                                 center.to(**dev))
+    assert torch.equal(got_c.cpu(), ref) and torch.equal(got_s.cpu(), ref)
+
+
 def test_halo_kernel_refuses_bad_inputs(cuda_device):
     canvas = torch.zeros((9, 4, 4, 8), device=cuda_device)
     idx = torch.arange(2, device=cuda_device)
@@ -108,6 +135,23 @@ def test_bottleneck_kernel_matches_plain(cuda_device, bs, cm, co, dtype):
     assert got.dtype == dtype and got.shape == (6, bs, bs, co)
     t = 3e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(got.float(), ref.float(), rtol=t, atol=t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,cm,co", [(8, 256, 1024), (16, 128, 512)])
+@pytest.mark.parametrize("k", [8, 128])
+def test_bottleneck_kernel_ladder_capacities(cuda_device, k, bs, cm, co,
+                                             dtype):
+    """Ladder mode's smallest and largest capacities at 1024x2048: K = 8
+    (16 CTAs in bf16) and K = 128 (256 CTAs, two waves on 132 SMs), at 3e-2
+    in bf16 and 1e-4 in fp32."""
+    gpu = _gpu(_tail_inputs(np.random.RandomState(k + cm), k, bs, cm, co),
+               cuda_device, dtype)
+    got = BT.bottleneck_tail(*gpu)
+    t = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(),
+                               BT.bottleneck_tail_plain(*gpu).float(),
+                               rtol=t, atol=t)
 
 
 @pytest.mark.parametrize("k", [1, 5, 64, 65])

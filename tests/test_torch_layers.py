@@ -15,6 +15,7 @@ from blockcopy_tpu_torch.core import grid as TG
 from blockcopy_tpu_torch.core.blocked import ExecCtx as TCtx
 from blockcopy_tpu_torch.core.blocked import split_dense as tsplit
 from torch_port_util import assert_close, assert_same, assert_tree, tol, tt
+from torch_port_util import two_torch_threads  # noqa: F401
 
 DTYPES = [np.float32, jnp.bfloat16]
 

@@ -21,6 +21,7 @@ from blockcopy_tpu_torch.policy.information_gain import \
 from blockcopy_tpu_torch.utils.convert import params_from_jax, \
     params_to_numpy
 from torch_port_util import assert_close, assert_tree, jtree, npf, tt
+from torch_port_util import two_torch_threads  # noqa: F401
 
 CIN = JN.policy_in_channels(19)
 

@@ -19,6 +19,7 @@ from blockcopy_tpu_torch.ops import kernels
 from blockcopy_tpu_torch.ops.kernels import mm as MM
 from blockcopy_tpu_torch.tools import probe_int8 as TP
 from torch_port_util import assert_close, assert_same, tt
+from torch_port_util import two_torch_threads  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -31,6 +31,7 @@ from blockcopy_tpu_torch.utils.convert import (params_from_jax,
                                                stepper_state_from_jax,
                                                stepper_state_to_numpy)
 from torch_port_util import assert_same, assert_tree, jtree, npf, tt
+from torch_port_util import two_torch_threads  # noqa: F401
 
 SHAPE = (1, 256, 512, 3)
 CAPACITY = 4

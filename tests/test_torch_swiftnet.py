@@ -21,6 +21,7 @@ from blockcopy_tpu_torch.core.blocked import ExecCtx as TCtx
 from blockcopy_tpu_torch.core.blocked import split_dense as tsplit
 from blockcopy_tpu_torch.utils.convert import params_from_jax
 from torch_port_util import assert_tree, jtree, npf, tt
+from torch_port_util import two_torch_threads  # noqa: F401
 
 H, W, BS = 256, 512, 128
 RTOL = 1e-4
