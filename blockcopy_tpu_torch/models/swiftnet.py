@@ -21,7 +21,8 @@ from blockcopy_tpu_torch.core.blocked import BlockPack, ExecCtx
 from blockcopy_tpu_torch.core.engine import noblocks
 from blockcopy_tpu_torch.device import resolve_device
 from blockcopy_tpu_torch.ops import layers as L
-from blockcopy_tpu_torch.ops.kernels.bottleneck import bottleneck_tail
+from blockcopy_tpu_torch.ops.kernels.bottleneck import (bottleneck_tail,
+                                                        kernel_takes)
 
 # Fused bottleneck-tail kernel for stride-1 identity bottlenecks.  Tri-state
 # like the JAX flag (``swiftnet.py:39``): None = auto, "0"/"1" force.  Auto is
@@ -214,8 +215,9 @@ def _fused_bottleneck(ctx: ExecCtx, name: str, x: BlockPack, p):
 
 
 def maybe_fused_bottleneck(ctx, name, x, p, stride, groups=1, dilation=1):
-    """Run the fused tail when eligible (the gate of ``swiftnet.py:283``),
-    else return None."""
+    """Run the fused tail when eligible (the gate of ``swiftnet.py:283``)
+    and the kernel of the activations' dtype takes the block
+    (``kernel_takes``), else return None."""
     fused = True if FUSED_BOTTLENECK is None else FUSED_BOTTLENECK
     if (fused and isinstance(x, BlockPack) and not ctx.is_dense
             and not ctx.building and stride == 1 and groups == 1
@@ -223,7 +225,9 @@ def maybe_fused_bottleneck(ctx, name, x, p, stride, groups=1, dilation=1):
             and _blocked.HALO_IMPL == "strips"
             and p["conv2"]["w"].shape[1] % 128 == 0
             and x.data.shape[-1] % 128 == 0
-            and x.data.shape[1] >= 8):
+            and x.data.shape[1] >= 8
+            and kernel_takes(x.data.dtype, x.data.shape[1],
+                             p["conv2"]["w"].shape[1], x.data.shape[-1])):
         return _fused_bottleneck(ctx, name, x, p)
     return None
 

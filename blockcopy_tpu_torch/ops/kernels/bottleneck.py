@@ -31,6 +31,18 @@ PIECES = ("top", "bottom", "left", "right", "top_left", "top_right",
           "bottom_left", "bottom_right")
 # (bs, Cm) of the blocks the bf16 kernel takes; Co a multiple of 256
 BF16_BLOCKS = ((16, 128), (8, 256), (8, 128))
+# Cm of the blocks the fp32 kernel takes, at any bs; Co a multiple of 64
+F32_WIDTHS = (64, 128, 256, 512)
+
+
+def kernel_takes(dtype, bs: int, cm: int, co: int) -> bool:
+    """Whether the kernel of ``dtype`` takes a (K, bs, bs, Cm) -> Co block.
+    Pure in dtype and shape, so a CPU run routes blocks as the card does."""
+    if dtype == torch.bfloat16:
+        return (bs, cm) in BF16_BLOCKS and co % 256 == 0
+    if dtype == torch.float32:
+        return bs >= 1 and cm in F32_WIDTHS and co % 64 == 0
+    return False
 
 
 def _padded(h1: torch.Tensor, pieces: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -128,12 +140,12 @@ def bottleneck_tail(h1, x, pieces, w2, s2, b2, w3, s3, b3):
         raise ValueError(f"unsupported dtype {dt}")
     k, bs, _, cm = h1.shape
     co = x.shape[-1]
-    if cm % 64 or co % 64 or 8 % (cm // 64):
-        raise ValueError(f"needs Cm in (64, 128, 256, 512) and Co a multiple "
-                         f"of 64, got {cm}, {co}")
-    if dt == torch.bfloat16 and ((bs, cm) not in BF16_BLOCKS or co % 256):
-        raise ValueError(f"the bf16 kernel takes (bs, Cm) in {BF16_BLOCKS} "
-                         f"and Co a multiple of 256, got ({bs}, {cm}), {co}")
+    if not kernel_takes(dt, bs, cm, co):
+        takes = (f"(bs, Cm) in {BF16_BLOCKS} and Co a multiple of 256"
+                 if dt == torch.bfloat16 else
+                 f"Cm in {F32_WIDTHS} and Co a multiple of 64")
+        raise ValueError(f"the {dt} kernel takes {takes}, got (bs {bs}, "
+                         f"Cm {cm}), Co {co}")
     x = x.to(dt).contiguous()
     piece = {name: pieces[name].to(dt).contiguous() for name in PIECES}
     w2p, s2p, b2p, w3p, s3p, b3p = prepared_tail_weights(w2, s2, b2, w3, s3,

@@ -244,3 +244,51 @@ def test_gate(planes, fused, monkeypatch):
     out = TS._bottleneck_block(ctx, "bn", pack, p, stride=1)
     assert out.data.shape == (gh * gw, bs, bs, 4 * planes)
     assert calls == ([1] if fused else [])
+
+
+# RN50's stride-1 identity bottlenecks at block sizes 64, 128 and 256: layer2
+# (stride 8, Cm 128), layer3 (stride 16, Cm 256), layer4 (stride 32, Cm 512)
+# give bs = block / stride; whether the fused tail runs there, fp32 / bf16
+GATE_CASES = [
+    (64, 8, 128, True, True), (64, 16, 256, False, False),
+    (64, 32, 512, False, False),
+    (128, 8, 128, True, True), (128, 16, 256, True, True),
+    (128, 32, 512, False, False),
+    (256, 8, 128, True, False), (256, 16, 256, True, False),
+    (256, 32, 512, True, False),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block,stride,planes,f32,bf16", GATE_CASES)
+def test_gate_asks_the_kernel(block, stride, planes, f32, bf16, dtype,
+                              monkeypatch):
+    """The gate fuses only the blocks the dtype's kernel takes
+    (``kernel_takes``) and runs the rest unfused: the bf16 kernel takes none
+    of RN50's block-256 shapes, the fp32 kernel every 128-aligned one at
+    bs >= 8.  The unfused fall-through gives the block's full output."""
+    n, gh, gw, bs = 1, 1, 2, block // stride
+    fused = f32 if dtype == torch.float32 else bf16
+    # below bs 8 the gate refuses first; the fp32 kernel takes any bs
+    takes = fused or (bs < 8 and dtype == torch.float32)
+    assert BT.kernel_takes(dtype, bs, planes, 4 * planes) == takes
+    rs = np.random.RandomState(block + planes)
+    frame = torch.from_numpy(rs.randn(n, gh * bs, gw * bs, 4 * planes)
+                             .astype(np.float32)).to(dtype)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    p = params_from_jax(jtree(jax.tree.map(
+        lambda a: a.astype(jdt), bottleneck_params(4 * planes, planes))),
+        device="cpu")
+    calls = []
+    monkeypatch.setattr(TS, "bottleneck_tail",
+                        lambda h1, x, *a: calls.append(1) or x)
+    monkeypatch.setattr(TS, "FUSED_BOTTLENECK", None)   # port default: on
+    idx = TG.exec_indices(torch.ones((n, gh, gw), dtype=torch.bool), gh * gw)
+    pack = tsplit(frame, idx, n, gh, gw)
+    ctx = TCtx.blocked(idx, n, gh, gw, {}, building=True)
+    TS._bottleneck_block(ctx, "bn", pack, p, stride=1)   # makes the canvases
+    ctx.building = False
+    out = TS._bottleneck_block(ctx, "bn", pack, p, stride=1)
+    assert out.data.shape == (gh * gw, bs, bs, 4 * planes)
+    assert out.data.dtype == dtype
+    assert calls == ([1] if fused else [])
