@@ -49,8 +49,8 @@
 // bf16 blocks: (bs, Cm) in (16, 128), (8, 256), (8, 128) and Co a multiple
 // of 256 (the others do not fit in shared memory); the launch refuses the
 // rest (cudaErrorInvalidValue) and the wrapper raises before.
-// fp32 runs a scalar FMA kernel (no tensor core gives fp32 exactly); its h2
-// goes through a device-memory scratch buffer.
+// fp32 runs two GEMM launches on mma.sync TF32 with a 3-product split
+// (3xTF32), h2 in a device-memory scratch buffer: see the fp32 section.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -475,41 +475,261 @@ bool bf16_block(int bs, int cm) {
 }
 
 // ---------------------------------------------------------------- fp32 ----
+//
+// Replaces the same Pallas kernel (bottleneck.py bottleneck_tail :92) in
+// fp32.  Bound: operations, 2 K bs^2 Cm (9 Cm + Co) over 67 TFLOP/s fp32
+// (0.104 ms at K = 64 for either RN50 shape), or 3x that over 495 TFLOP/s
+// TF32 on the tensor cores (0.042 ms); the bytes (h1, x, y, the pieces, the
+// weights, each once) take 0.013-0.024 ms at 3.35 TB/s.
+// Design: the tail as two GEMMs over rows m = (block, pixel) flattened
+// across blocks, so every launch spreads over all SMs whatever K is:
+// - stage A: h2 (K bs^2 x Cm) = relu(bn2(A w2)), depth 9 Cm as (tap, ci),
+//   the A row of pixel (k, oy, ox) at tap (dy, dx) being padded_pixel(k,
+//   oy + dy, ox + dx): h1 or one of the 8 pieces, so the padded tile is
+//   never built; h2 goes to the wrapper's fp32 scratch (16.8 MB at K = 128,
+//   L2-resident for stage B);
+// - stage B: y (K bs^2 x Co) = relu(bn3(h2 w3) + x), depth Cm.
+// A CTA of 4 warps (2 x 2) computes a BM x 64 tile (BM 64, or 32 where
+// 64-row tiles would not fill one wave), streaming 32-deep A and B slices
+// through 3 shared-memory stages by cp.async (16-byte pieces; rows padded by
+// 4 floats, so the fragment loads of a warp hit 32 distinct banks).
+// Products run on mma.sync m16n8k8 TF32, 3 per product (3xTF32): each
+// operand v splits into hi = rna(v) and lo = rna(v - hi), and lo hi + hi lo
+// is accumulated before hi hi (lo lo is dropped); one TF32 product keeps
+// about 3 digits and misses 1e-4.  The epilogues round as the plain
+// version: acc * s + b in two roundings, (+ x), ReLU.  Row tiles past K
+// bs^2 are masked: loads clamp to the last row, stores are skipped.
 
-constexpr int kF32Threads = 256;
+constexpr int kF32Threads = 128;  // four warps, 2 x 2 over the tile
+constexpr int kF32BN = 64;        // output channels of a tile
+constexpr int kF32BK = 32;        // depth of a stage, floats
+constexpr int kF32Ld = kF32BK + 4;  // shared-memory row, floats
+constexpr int kF32Stages = 3;
 
+template <int BM>
+constexpr int f32_smem_bytes() {
+  return kF32Stages * (BM + kF32BN) * kF32Ld * 4;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v = hi + lo, both TF32
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(__fsub_rn(v, __uint_as_float(hi)));
+}
+
+// d += a b: A 16 x 8 (row), B 8 x 8 (col), D 16 x 8, fp32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One BM x 64 tile of stage A (CONV: the 3x3 conv into h2) or of stage B
+// (the 1x1 over h2 into y); rows = K bs^2.
+template <int BM, bool CONV>
 __global__ void __launch_bounds__(kF32Threads)
-tail_f32(Args<float> a, float* __restrict__ h2_scratch) {
-  const int k = blockIdx.x, tid = threadIdx.x;
-  const int bs = a.bs, cm = a.cm, co = a.co, m_all = bs * bs;
-  float* h2 = h2_scratch + (size_t)k * m_all * cm;
+tail_f32(Args<float> a, float* h2, int rows) {
+  constexpr int kMT = BM / 32;  // m16 tiles of a warp (BM / 2 rows)
+  constexpr int kNT = 4;        // n8 tiles of a warp (32 columns)
+  constexpr int kRowStep = kF32Threads / 8;  // rows a pass of the copy
+  constexpr int kAPieces = BM / kRowStep;    // A rows a thread copies
+  constexpr int kBPieces = kF32BN / kRowStep;
+  extern __shared__ __align__(16) float smem_f[];
+  float* As = smem_f;                                // [stage][BM][kF32Ld]
+  float* Bs = smem_f + kF32Stages * BM * kF32Ld;     // [stage][64][kF32Ld]
 
-  for (int e = tid; e < m_all * cm; e += kF32Threads) {
-    const int m = e / cm, c = e % cm;
-    const int oy = m / bs, ox = m % bs;
-    float acc = 0.0f;
-    for (int tap = 0; tap < 9; ++tap) {
-      const float* src = padded_pixel(a, k, oy + tap / 3, ox + tap % 3);
-      const float* w = a.w2 + ((size_t)tap * cm + c) * cm;
-      for (int ci = 0; ci < cm; ++ci) acc = fmaf(src[ci], w[ci], acc);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp / 2, wn = warp % 2;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * kF32BN;
+  const int cm = a.cm, bs = a.bs;
+  const int chunks = cm / kF32BK;  // stages of one tap
+  const int iters = (CONV ? 9 : 1) * chunks;
+
+  // the rows this thread copies: row tid / 8 + i kRowStep, 16 bytes at
+  // float 4 (tid % 8) of the stage's 32
+  const int r0 = tid / 8, c4 = (tid % 8) * 4;
+  int blk[kAPieces], oy[kAPieces], ox[kAPieces];
+#pragma unroll
+  for (int i = 0; i < kAPieces; ++i) {
+    const int m = min(m0 + r0 + i * kRowStep, rows - 1);
+    const int p = m % (bs * bs);
+    blk[i] = m / (bs * bs);
+    oy[i] = p / bs;
+    ox[i] = p % bs;
+  }
+
+  auto load = [&](int it, int s) {
+    const int tap = it / chunks, c0 = (it % chunks) * kF32BK + c4;
+    float* as = As + s * BM * kF32Ld + c4;
+    float* bsm = Bs + s * kF32BN * kF32Ld + c4;
+#pragma unroll
+    for (int i = 0; i < kAPieces; ++i) {
+      const float* src =
+          CONV ? padded_pixel(a, blk[i], oy[i] + tap / 3, ox[i] + tap % 3)
+               : h2 + ((size_t)blk[i] * bs * bs + oy[i] * bs + ox[i]) * cm;
+      cp_async16(as + (r0 + i * kRowStep) * kF32Ld, src + c0);
     }
-    const float v = __fadd_rn(__fmul_rn(acc, a.s2[c]), a.b2[c]);
-    h2[e] = v > 0.0f ? v : 0.0f;
-  }
-  __syncthreads();
+    const float* w = CONV ? a.w2 + (size_t)tap * cm * cm : a.w3;
+#pragma unroll
+    for (int i = 0; i < kBPieces; ++i) {
+      const int n = r0 + i * kRowStep;
+      cp_async16(bsm + n * kF32Ld, w + (size_t)(n0 + n) * cm + c0);
+    }
+  };
 
-  const size_t base = (size_t)k * m_all;
-  for (int e = tid; e < m_all * co; e += kF32Threads) {
-    const int m = e / co, o = e % co;
-    const float* hrow = h2 + (size_t)m * cm;
-    const float* w = a.w3 + (size_t)o * cm;
-    float acc = 0.0f;
-    for (int c = 0; c < cm; ++c) acc = fmaf(hrow[c], w[c], acc);
-    const size_t at = (base + m) * co + o;
-    float v = __fadd_rn(__fmul_rn(acc, a.s3[o]), a.b3[o]);
-    v = __fadd_rn(v, a.x[at]);
-    a.y[at] = v > 0.0f ? v : 0.0f;
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < kF32Stages - 1; ++s) {
+    if (s < iters) load(s, s);
+    cp_async_commit();
   }
+  for (int it = 0; it < iters; ++it) {
+    cp_async_wait<kF32Stages - 2>();
+    __syncthreads();  // stage it landed; stage it - 1 is read by all
+    if (it + kF32Stages - 1 < iters)
+      load(it + kF32Stages - 1, (it + kF32Stages - 1) % kF32Stages);
+    cp_async_commit();
+    const int s = it % kF32Stages;
+    const float* as = As + (s * BM + wm * (BM / 2)) * kF32Ld;
+    const float* bsm = Bs + (s * kF32BN + wn * 32) * kF32Ld;
+#pragma unroll
+    for (int kk = 0; kk < kF32BK; kk += 8) {
+      uint32_t ahi[kMT][4], alo[kMT][4], bhi[kNT][2], blo[kNT][2];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) {
+        // rows g, g + 8 of the m16 tile; columns t, t + 4 of the k8 step
+        const float* p = as + (i * 16 + g) * kF32Ld + kk + t;
+        split_tf32(p[0], ahi[i][0], alo[i][0]);
+        split_tf32(p[8 * kF32Ld], ahi[i][1], alo[i][1]);
+        split_tf32(p[4], ahi[i][2], alo[i][2]);
+        split_tf32(p[8 * kF32Ld + 4], ahi[i][3], alo[i][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        // column g of the n8 tile; rows t, t + 4 of the k8 step
+        const float* q = bsm + (j * 8 + g) * kF32Ld + kk + t;
+        split_tf32(q[0], bhi[j][0], blo[j][0]);
+        split_tf32(q[4], bhi[j][1], blo[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          mma_tf32(acc[i][j], alo[i], bhi[j]);
+          mma_tf32(acc[i][j], ahi[i], blo[j]);
+          mma_tf32(acc[i][j], ahi[i], bhi[j]);
+        }
+    }
+  }
+  cp_async_wait<0>();
+
+  const int ld = CONV ? cm : a.co;
+  const float* sc = CONV ? a.s2 : a.s3;
+  const float* bi = CONV ? a.b2 : a.b3;
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * (BM / 2) + i * 16 + g + 8 * h;
+      if (m >= rows) continue;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const int n = n0 + wn * 32 + j * 8 + 2 * t;
+        const size_t at = (size_t)m * ld + n;
+        float v[2] = {acc[i][j][2 * h], acc[i][j][2 * h + 1]};
+        float2 xv = make_float2(0.0f, 0.0f);
+        if (!CONV) xv = *reinterpret_cast<const float2*>(a.x + at);
+        const float xr[2] = {xv.x, xv.y};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          v[e] = __fadd_rn(__fmul_rn(v[e], sc[n + e]), bi[n + e]);
+          if (!CONV) v[e] = __fadd_rn(v[e], xr[e]);
+          v[e] = v[e] > 0.0f ? v[e] : 0.0f;
+        }
+        float* out = CONV ? h2 + at : a.y + at;
+        *reinterpret_cast<float2*>(out) = make_float2(v[0], v[1]);
+      }
+    }
+}
+
+// One stage: a grid of row tiles x 64-column tiles.  The dynamic
+// shared-memory limit is raised once, never again (a CUDA graph capture
+// may be open).
+template <int BM, bool CONV>
+int launch_f32_stage(const Args<float>& a, float* h2, int rows, int n,
+                     cudaStream_t stream) {
+  constexpr int kSmem = f32_smem_bytes<BM>();
+  static bool raised = false;
+  if (!raised) {
+    cudaError_t e = cudaFuncSetAttribute(
+        tail_f32<BM, CONV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmem);
+    if (e != cudaSuccess) return (int)e;
+    raised = true;
+  }
+  const dim3 grid((rows + BM - 1) / BM, n / kF32BN);
+  tail_f32<BM, CONV><<<grid, kF32Threads, kSmem, stream>>>(a, h2, rows);
+  return (int)cudaGetLastError();
+}
+
+// 32-row tiles where 64-row ones would leave SMs idle (under one wave)
+bool f32_small_tiles(int rows, int n) {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+#ifdef TAIL_F32_BM
+  return TAIL_F32_BM == 32;
+#else
+  return (long)((rows + 63) / 64) * (n / kF32BN) < sms;
+#endif
+}
+
+int launch_f32(const Args<float>& a, float* h2, int k, cudaStream_t stream) {
+  const int rows = k * a.bs * a.bs;
+  int err = f32_small_tiles(rows, a.cm)
+                ? launch_f32_stage<32, true>(a, h2, rows, a.cm, stream)
+                : launch_f32_stage<64, true>(a, h2, rows, a.cm, stream);
+  if (err) return err;
+  return f32_small_tiles(rows, a.co)
+             ? launch_f32_stage<32, false>(a, h2, rows, a.co, stream)
+             : launch_f32_stage<64, false>(a, h2, rows, a.co, stream);
 }
 
 template <typename T>
@@ -544,7 +764,7 @@ extern "C" int bottleneck_tail(void* const* ptrs, void* h2_scratch, int k,
     if (cm == 256) return launch_bf16<8, 256>(a, k, s);
     return launch_bf16<8, 128>(a, k, s);
   }
-  tail_f32<<<k, kF32Threads, 0, s>>>(make_args<float>(ptrs, bs, cm, co),
-                                     static_cast<float*>(h2_scratch));
-  return (int)cudaGetLastError();
+  if (cm % kF32BN || co % kF32BN) return (int)cudaErrorInvalidValue;
+  return launch_f32(make_args<float>(ptrs, bs, cm, co),
+                    static_cast<float*>(h2_scratch), k, s);
 }

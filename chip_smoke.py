@@ -10,11 +10,12 @@ Phases (any failure raises and exits non-zero):
 2. halo kernel (both entry points) against its plain versions, bitwise, at
    every main-path shape, bf16 and fp32, pad 1 and 3, on a partial grid with
    padding slots; times at the main-path shapes;
-3. bottleneck-tail kernel against its plain version at the RN50 layer2 and
-   layer3 shapes, bf16 (3e-2) and fp32 (1e-4, TF32 off); times (the weights
-   are prepared by the warm-up calls, as on the main path); then the same at
-   ladder mode's smallest and largest capacities, K = 8 and K = 128, with
-   the time per launch beside its bound;
+3. bottleneck-tail kernel (bf16 3e-2, fp32 1e-4 with TF32 off) against its
+   plain version at the RN50 layer2 and layer3 shapes at K = 8, 64 and 128
+   (ladder mode's smallest capacity, the main path's, ladder mode's
+   largest): time per launch (the weights are prepared by the warm-up
+   calls, as on the main path) beside its bound and the plain version's,
+   each fp32 stage's device time, and the per-frame sums at K = 64;
 4. the main path at full width: SwiftNet-RN50 BlockCopy fixed-capacity step,
    1024x2048 bf16, fast policy, block 128, target 0.5 (64 of 128 blocks),
    REINFORCE every 4th frame; ``init_state``, ``first_step`` and 12 steps,
@@ -43,9 +44,12 @@ Phases (any failure raises and exits non-zero):
    zeroed just before the first clip), policy updates on frames 4 and 8
    only; capacities, ms/frame and peak memory; (b) the semseg CLI
    in-process at the same width, on the ladder engine and with
-   ``--speed-mode``; (c) the ladder engine on the GPU against the CPU (RN50
-   256x512 fp32, 4 frames, injected draws, counts 8, 4, 6, 8) within 1e-3
-   of the largest |CPU output|.
+   ``--speed-mode``, in bf16 (``--half``) and in fp32 (as it ships), launch
+   counts zeroed just before each run; (c) the ladder engine on the GPU
+   against the CPU (RN50 256x512 fp32, 4 frames, injected draws, counts 8,
+   4, 6, 8) within 1e-3 of the largest |CPU output|; (d) RN50 1024x2048
+   ladder frames at block 256 in bf16 and fp32 and at block 128 in fp32,
+   with K2's launches per executed frame asserted (0, 10 and 8).
 
 It needs one CUDA GPU and the repository around it: without either it exits
 non-zero and prints no result.
@@ -77,9 +81,9 @@ HALO_SHAPES = ([(32, 48)] + [(32, 64)] * 3 + [(32, 128), (16, 256),
 # main-path bottleneck-tail launches per step (bs, Cm, Co)
 TAIL_SHAPES = [(16, 128, 512)] * 3 + [(8, 256, 1024)] * 5
 N, GH, GW, K = 1, 8, 16, 64
-# ladder mode's smallest and largest capacities at 1024x2048, block 128,
-# quantum 1/16
-LADDER_KS = (8, 128)
+# K2's capacities: ladder mode's smallest at 1024x2048 (block 128, quantum
+# 1/16), the main path's, and ladder mode's largest
+TAIL_KS = (8, K, 128)
 # (rows, k, n) of the GEMM kernels: the probe's default, then the main
 # path's 3x3 convs as GEMMs (64 blocks x bs^2 rows, 9*C, C): layer2, layer3
 MM_SHAPES = [(16384, 2304, 256), (16384, 1152, 128), (4096, 2304, 256)]
@@ -221,63 +225,42 @@ def tail_cost(bs, cm, co, itemsize, k=K):
     return flops, elems * itemsize
 
 
+def _tail_stage_ms(fn, calls=20):
+    """Device ms per call of each fp32 stage (``tail_f32<BM, true>``: the
+    3x3 conv into h2; ``<BM, false>``: the 1x1 into y), from the profiler's
+    kernel records over ``calls`` calls."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {"3x3": 0.0, "1x1": 0.0}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "tail_f32" in e.name:
+            key = "3x3" if "true>" in e.name else "1x1"
+            out[key] += e.time_range.elapsed_us() / 1e3 / calls
+    return out
+
+
 def phase_tail(gen):
+    """K2 at ``TAIL_KS`` x both RN50 shapes x bf16 (3e-2) and fp32 (1e-4,
+    TF32 off): against the plain version, then the time per launch beside
+    its bound (bf16 against 989 TFLOP/s; fp32 against 67 TFLOP/s, the
+    3xTF32 kernel doing 3x the products on 495 TFLOP/s of TF32), and the
+    fp32 stages' device times; returns the per-frame sums at K = 64."""
     from blockcopy_tpu_torch.ops.kernels import bottleneck as BT
     from blockcopy_tpu_torch.tools.measure import device_ms
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows, worst = {}, 0.0
-    for bs, cm, co in sorted(set(TAIL_SHAPES)):
-        for dtype, tol in ((torch.bfloat16, 3e-2), (torch.float32, 1e-4)):
-            args = _tail_case(gen, bs, cm, co, dtype)
-            ref = BT.bottleneck_tail_plain(*args)
-            got = BT.bottleneck_tail(*args)
-            err = (got.float() - ref.float()).abs().max().item()
-            close = torch.allclose(got.float(), ref.float(), rtol=tol,
-                                   atol=tol)
-            log(f"[3] tail bs={bs} Cm={cm} Co={co} {dtype}: max abs err "
-                f"{err:.3g} (tol {tol}) ok={close}")
-            if not close:
-                raise AssertionError("bottleneck kernel disagrees with its "
-                                     "plain version")
-            if dtype == torch.bfloat16:
-                worst = max(worst, err)
-                flops, nbytes = tail_cost(bs, cm, co, 2)
-                t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
-                t = {"kernel": device_ms(lambda: BT.bottleneck_tail(*args)),
-                     "plain": device_ms(
-                         lambda: BT.bottleneck_tail_plain(*args)),
-                     "bound": max(t_ops, t_bytes) * 1e3,
-                     "by": "operations" if t_ops > t_bytes else "bytes"}
-                rows[(bs, cm, co)] = t
-                log(f"[3] tail bs={bs} Cm={cm} Co={co} bf16 K={K}: kernel "
-                    f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, bound "
-                    f"{t['bound']:.4f} ms ({t['by']}; {flops / 1e9:.2f} "
-                    f"GFLOP, {nbytes / 1e6:.1f} MB); {2 * K} CTAs in "
-                    f"clusters of 2")
-    per_step = {key: sum(rows[s][key] for s in TAIL_SHAPES)
-                for key in ("kernel", "plain", "bound")}
-    by = [rows[s]["by"] for s in TAIL_SHAPES]
-    per_step["by"] = max(set(by), key=by.count)
-    per_step["err"] = worst
-    log(f"[3] tail per main-path step ({len(TAIL_SHAPES)} launches): "
-        f"kernel {per_step['kernel']:.4f} ms, plain {per_step['plain']:.4f} "
-        f"ms, bound {per_step['bound']:.4f} ms")
-    phase_tail_ladder(gen)
-    return per_step
-
-
-def phase_tail_ladder(gen):
-    """K2 at ladder mode's smallest and largest capacities at 1024x2048
-    (K = 8: 16 bf16 CTAs; K = 128: 256 in two waves on 132 SMs), both RN50
-    shapes, bf16 and fp32: against the plain version, then the time per
-    launch beside its bound (fp32 runs scalar FMA: 67 TFLOP/s)."""
-    from blockcopy_tpu_torch.ops.kernels import bottleneck as BT
-    from blockcopy_tpu_torch.tools.measure import device_ms
-    for k in LADDER_KS:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows, worst = {}, {"bf16": 0.0, "f32": 0.0}
+    for k in TAIL_KS:
         for bs, cm, co in sorted(set(TAIL_SHAPES)):
-            for dtype, tol, peak in ((torch.bfloat16, 3e-2, BF16_FLOPS),
-                                     (torch.float32, 1e-4, FP32_FLOPS)):
+            for name, dtype, tol, peak in (
+                    ("bf16", torch.bfloat16, 3e-2, BF16_FLOPS),
+                    ("f32", torch.float32, 1e-4, FP32_FLOPS)):
                 args = _tail_case(gen, bs, cm, co, dtype, k)
                 ref = BT.bottleneck_tail_plain(*args)
                 got = BT.bottleneck_tail(*args)
@@ -287,21 +270,45 @@ def phase_tail_ladder(gen):
                     raise AssertionError(
                         f"bottleneck kernel disagrees with its plain version "
                         f"at K={k} bs={bs} {dtype}: max abs err {err:.3g}")
+                worst[name] = max(worst[name], err)
                 flops, nbytes = tail_cost(bs, cm, co, got.element_size(), k)
                 t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
-                # the fp32 kernel takes tens of ms a launch: fewer samples
-                reps = (50, 10) if dtype == torch.bfloat16 else (5, 1)
-                ms = device_ms(lambda: BT.bottleneck_tail(*args), *reps)
-                plain = device_ms(lambda: BT.bottleneck_tail_plain(*args),
-                                  *reps)
-                bound = max(t_ops, t_bytes) * 1e3
-                ctas = 2 * k if dtype == torch.bfloat16 else k
+                t = {"kernel": device_ms(lambda: BT.bottleneck_tail(*args)),
+                     "plain": device_ms(
+                         lambda: BT.bottleneck_tail_plain(*args)),
+                     "bound": max(t_ops, t_bytes) * 1e3,
+                     "by": "operations" if t_ops > t_bytes else "bytes"}
+                rows[(k, bs, cm, co, name)] = t
+                if name == "bf16":
+                    ctas = f"{2 * k} CTAs in clusters of 2"
+                else:
+                    stage = _tail_stage_ms(lambda: BT.bottleneck_tail(*args))
+                    tiles = [-(-k * bs * bs // 64) * n // 64 for n in (cm, co)]
+                    bm = [32 if n < sms else 64 for n in tiles]
+                    ctas = (f"3x3 stage {stage['3x3']:.4f} ms ({bm[0]}-row "
+                            f"tiles), 1x1 stage {stage['1x1']:.4f} ms "
+                            f"({bm[1]}-row tiles)")
                 log(f"[3] tail K={k:3d} bs={bs} Cm={cm} Co={co} {dtype}: max "
                     f"abs err {err:.3g} (rtol and atol {tol}) ok; kernel "
-                    f"{ms:.4f} ms per launch, plain {plain:.4f} ms, bound "
-                    f"{bound:.4f} ms "
-                    f"({'operations' if t_ops > t_bytes else 'bytes'}), "
-                    f"kernel at {bound / ms:.1%} of it; {ctas} CTAs")
+                    f"{t['kernel']:.4f} ms per launch, plain "
+                    f"{t['plain']:.4f} ms, bound {t['bound']:.4f} ms "
+                    f"({t['by']}; {flops / 1e9:.2f} GFLOP, "
+                    f"{nbytes / 1e6:.1f} MB), kernel at "
+                    f"{t['bound'] / t['kernel']:.1%} of it; {ctas}")
+    out = {}
+    for name in ("bf16", "f32"):
+        per = [rows[(K, *s, name)] for s in TAIL_SHAPES]
+        per_step = {key: sum(r[key] for r in per)
+                    for key in ("kernel", "plain", "bound")}
+        by = [r["by"] for r in per]
+        per_step["by"] = max(set(by), key=by.count)
+        per_step["err"] = worst[name]
+        log(f"[3] tail {name} per main-path frame at K={K} "
+            f"({len(TAIL_SHAPES)} launches): kernel "
+            f"{per_step['kernel']:.4f} ms, plain {per_step['plain']:.4f} ms, "
+            f"bound {per_step['bound']:.4f} ms ({per_step['by']})")
+        out[name] = per_step
+    return out
 
 
 def phase_main():
@@ -564,27 +571,94 @@ def phase_ladder():
 
 def phase_cli():
     """(b) the semseg CLI in-process at full width, on the ladder engine
-    and with ``--speed-mode``; its JSON line is kept off this script's
-    stdout."""
+    and with ``--speed-mode``, in bf16 (``--half``) and as it ships, in
+    fp32; launch counts are zeroed just before each run and read just
+    after.  Its JSON line is kept off this script's stdout."""
     import contextlib
     import io
+    from blockcopy_tpu_torch.ops import kernels
     from blockcopy_tpu_torch.tasks.semseg import eval as cli
 
+    torch.backends.cudnn.allow_tf32 = True
     argv = ["--synthetic", "--res", "1024", "--model-backbone", "resnet50",
-            "--half", "--clip-length", "8", "--num-clips-warmup", "1",
+            "--clip-length", "8", "--num-clips-warmup", "1",
             "--num-clips-eval", "1", "--model-checkpoint", ""]
     out = {}
-    for name, extra in (("ladder", []), ("speed-mode", ["--speed-mode"])):
+    for name, extra in (("ladder", ["--half"]),
+                        ("speed-mode", ["--half", "--speed-mode"]),
+                        ("ladder fp32", []),
+                        ("speed-mode fp32", ["--speed-mode"])):
         buf = io.StringIO()
+        kernels.reset_launches()
         with contextlib.redirect_stdout(buf):
             res = cli.main(argv + extra)
+        launches = dict(kernels.launches)
         line = json.loads(buf.getvalue().strip().splitlines()[-1])
         ok = (line["fps"] > 0 and "Mean IoU" in line
               and line["gmacs_per_image"] > 0 and 0 < line["perc_exec"] <= 1)
-        log(f"[8b] CLI {name}: {json.dumps(line)}")
+        tails = launches["bottleneck_tail"]
+        log(f"[8b] CLI {name}: {json.dumps(line)}; launches {launches}")
         if not ok or line["fps"] != res["fps"]:
             raise AssertionError(f"CLI {name} result {line}")
+        if not launches["halo_strips"] or not tails or tails % 8:
+            raise AssertionError(f"CLI {name} launches {launches}: K1 and "
+                                 f"8 K2 launches per executed frame expected")
+        line["launches"] = launches
         out[name] = line
+    return out
+
+
+def phase_block_sizes():
+    """(d) RN50 1024x2048 ladder frames (the CLI's default settings but the
+    block size) at block 256 in bf16 and fp32 and at block 128 in fp32, 4
+    frames each; launch counts are zeroed just before each run and read
+    just after.  K2 launches per executed frame: none at block 256 in bf16
+    (the bf16 kernel takes none of its blocks, which run unfused), 10 in
+    fp32 (layers 2-4: 3 + 5 + 2), 8 at block 128 (layers 2-3)."""
+    from blockcopy_tpu_torch.core.argparser import default_settings
+    from blockcopy_tpu_torch.core.engine import BlockCopyModel
+    from blockcopy_tpu_torch.models.swiftnet import (SwiftNetConfig,
+                                                     init_swiftnet,
+                                                     make_apply_fn)
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.tools.measure import synthetic_frames
+
+    torch.backends.cudnn.allow_tf32 = True
+    shape = (1, 1024, 2048, 3)
+    cfg = SwiftNetConfig(backbone="resnet50", num_classes=19)
+    out = {}
+    for block, dtype, per_frame in ((256, torch.bfloat16, 0),
+                                    (256, torch.float32, 10),
+                                    (128, torch.float32, 8)):
+        params = init_swiftnet(cfg, seed=0, dtype=dtype, device="cuda")
+        model = BlockCopyModel(make_apply_fn(cfg), params,
+                               default_settings(block_size=block),
+                               device="cuda")
+        frames = synthetic_frames(shape, 4, dtype, seed=5)
+        kernels.reset_launches()
+        counts, tails, ms = [], [], []
+        for frame in frames:
+            before = kernels.launches["bottleneck_tail"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = model(frame)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            counts.append(model.policy_meta["num_exec"])
+            tails.append(kernels.launches["bottleneck_tail"] - before)
+        launches = dict(kernels.launches)
+        log(f"[8d] RN50 1024x2048 {dtype} block {block}: {len(frames)} "
+            f"frames at counts {counts}, K2 launches per frame {tails}, "
+            f"launches {launches}, ms/frame {[round(x, 2) for x in ms]}")
+        if tuple(y.shape) != (1, 256, 512, 19) or \
+                not bool(torch.isfinite(y.float()).all()):
+            raise AssertionError(f"block {block} {dtype}: outputs "
+                                 f"{tuple(y.shape)} not finite")
+        if tails != [per_frame if c else 0 for c in counts] or not counts[0]:
+            raise AssertionError(f"block {block} {dtype}: K2 launches "
+                                 f"{tails}, expected {per_frame} per "
+                                 f"executed frame")
+        out[(block, str(dtype))] = tails
     return out
 
 
@@ -743,6 +817,7 @@ def main() -> int:
     ladder_launches, ladder = phase_ladder()
     cli = phase_cli()
     ladder_err = phase_ladder_modes()
+    phase_block_sizes()
 
     source = "blockcopy_tpu_torch/csrc/"
     common = {"route": "cuda", "library_ms": None, "matched": True}
@@ -764,9 +839,18 @@ def main() -> int:
          "replaces": "blockcopy_tpu/ops/pallas/bottleneck.py:92",
          "path": "main, ladder", "launches": launches["bottleneck_tail"],
          "ladder_launches": ladder_launches["bottleneck_tail"],
-         "max_abs_err": tail["err"], "ms": tail["kernel"],
-         "plain_ms": tail["plain"], "bound_ms": tail["bound"],
-         "bound_by": tail["by"], **common},
+         "max_abs_err": tail["bf16"]["err"], "ms": tail["bf16"]["kernel"],
+         "plain_ms": tail["bf16"]["plain"], "bound_ms": tail["bf16"]["bound"],
+         "bound_by": tail["bf16"]["by"], **common},
+        {"name": "bottleneck_tail_f32", "source": source + "bottleneck.cu",
+         "replaces": "blockcopy_tpu/ops/pallas/bottleneck.py:92",
+         "path": "fp32 CLI (ladder, speed-mode)",
+         "launches": cli["ladder fp32"]["launches"]["bottleneck_tail"],
+         "speed_mode_launches":
+             cli["speed-mode fp32"]["launches"]["bottleneck_tail"],
+         "max_abs_err": tail["f32"]["err"], "ms": tail["f32"]["kernel"],
+         "plain_ms": tail["f32"]["plain"], "bound_ms": tail["f32"]["bound"],
+         "bound_by": tail["f32"]["by"], **common},
     ] + [
         {"name": name, "source": source + "mm.cu",
          "replaces": "tools/probe_int8.py:38", "path": "probe_int8",
@@ -780,7 +864,10 @@ def main() -> int:
         f"ms/frame; ladder path {ladder['ms']:.2f} ms/frame at capacities "
         f"{ladder['capacities']}, peak {ladder['peak_gib']:.2f} GiB; CLI fps "
         f"ladder {cli['ladder']['fps']:.2f}, speed-mode "
-        f"{cli['speed-mode']['fps']:.2f}; ladder GPU vs CPU {ladder_err:.3g}; "
+        f"{cli['speed-mode']['fps']:.2f}, fp32 ladder "
+        f"{cli['ladder fp32']['fps']:.2f}, fp32 speed-mode "
+        f"{cli['speed-mode fp32']['fps']:.2f}; ladder GPU vs CPU "
+        f"{ladder_err:.3g}; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kern}))

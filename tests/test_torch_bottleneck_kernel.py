@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import blockcopy_tpu.models.swiftnet as JS
 import blockcopy_tpu_torch.models.swiftnet as TS
@@ -292,3 +293,99 @@ def test_gate_asks_the_kernel(block, stride, planes, f32, bf16, dtype,
     assert out.data.shape == (gh * gw, bs, bs, 4 * planes)
     assert out.data.dtype == dtype
     assert calls == ([1] if fused else [])
+
+
+@pytest.mark.parametrize("block,dtype,per_frame", [
+    (256, torch.bfloat16, 0), (256, torch.float32, 10),
+    (128, torch.bfloat16, 8), (128, torch.float32, 8)])
+def test_rn50_fused_tails_per_frame(block, dtype, per_frame, monkeypatch):
+    """The tails RN50 hands the fused kernel per executed ladder frame
+    (256x512, 3 frames), routed on the CPU as on the card: at block 256
+    bf16 runs every bottleneck unfused, fp32 fuses layers 2-4 (3 + 5 + 2);
+    at block 128 both fuse layers 2-3 (3 + 5)."""
+    from blockcopy_tpu_torch.core.argparser import default_settings
+    from blockcopy_tpu_torch.core.engine import BlockCopyModel
+    from blockcopy_tpu_torch.tools.measure import synthetic_frames
+    calls = []
+    real = TS.bottleneck_tail
+    monkeypatch.setattr(TS, "bottleneck_tail",
+                        lambda *a: calls.append(1) or real(*a))
+    monkeypatch.setattr(TS, "FUSED_BOTTLENECK", None)   # port default: on
+    cfg = TS.SwiftNetConfig(backbone="resnet50", num_classes=19)
+    params = TS.init_swiftnet(cfg, seed=0, dtype=dtype, device="cpu")
+    blocks = (256 // block) * (512 // block)
+    model = BlockCopyModel(TS.make_apply_fn(cfg), params, default_settings(
+        block_size=block, block_quantize_number_exec=1 / blocks),
+        device="cpu")
+    frames = synthetic_frames((1, 256, 512, 3), 3, dtype, device="cpu")
+    per = []
+    for t, frame in enumerate(frames):
+        u = torch.full((1, 256 // block, 512 // block), 2.0)
+        u.view(-1)[t % blocks] = -1.0                   # one block after 1
+        before = len(calls)
+        out = model(frame, None if t == 0 else (u, torch.rand((blocks,))))
+        per.append(len(calls) - before)
+        assert bool(torch.isfinite(out.float()).all())
+    assert [model.policy_meta["num_exec"]] == [1]
+    assert per == [per_frame] * 3
+
+
+def _tf32(t):
+    """fp32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(a, b, op, products):
+    """``op(a, b)`` on TF32 operands, as the fp32 kernel's ``mma.sync``
+    sums them: 3 products (3xTF32: each operand split as hi = rna(v), lo =
+    rna(v - hi); lo hi + hi lo, then hi hi) or 1 (hi hi alone)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if products == 1:
+        return op(a_hi, b_hi)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return op(a_lo, b_hi) + op(a_hi, b_lo) + op(a_hi, b_hi)
+
+
+def _tail_tf32(h1, x, pieces, w2, s2, b2, w3, s3, b3, products):
+    """The fp32 kernel's arithmetic in torch: the 3x3 conv over the padded
+    tile and the 1x1 over h2 from TF32 operands, each epilogue rounding as
+    ``bottleneck_tail_plain``."""
+    full = BT._padded(h1, pieces).permute(0, 3, 1, 2)
+    acc = _tf32_product(full, w2, F.conv2d, products).permute(0, 2, 3, 1)
+    h2 = torch.clamp_min(acc * s2 + b2, 0)
+    y = _tf32_product(h2, w3[:, :, 0, 0].t(), torch.matmul, products)
+    return torch.clamp_min(y * s3 + b3 + x, 0)
+
+
+def test_tf32_rounding_ties_away():
+    """``_tf32`` keeps 10 mantissa bits and rounds a tie away from zero."""
+    one = 1.0
+    v = torch.tensor([one + 2 ** -11, -(one + 2 ** -11), one + 2 ** -12,
+                      one + 3 * 2 ** -12, 3.0, 0.0])
+    want = torch.tensor([one + 2 ** -10, -(one + 2 ** -10), one,
+                         one + 2 ** -10, 3.0, 0.0])
+    assert torch.equal(_tf32(v), want)
+
+
+@pytest.mark.parametrize("bs", [8, 16])
+def test_3xtf32_scheme_holds_fp32_tolerance(bs):
+    """The fp32 kernel's numerical scheme, emulated: 3xTF32 holds 1e-4
+    against ``bottleneck_tail_plain`` and the Pallas ``bottleneck_tail``
+    (interpret mode); one TF32 product does not."""
+    rs = np.random.RandomState(bs + 2)
+    h1, x, pieces, w2, s2, b2, w3, s3, b3 = _tail_inputs(rs, 3, bs, 128,
+                                                         256, np.float32)
+    ref = jtail(jnp.asarray(h1), jnp.asarray(x),
+                {k: jnp.asarray(v) for k, v in pieces.items()},
+                *map(jnp.asarray, (w2, s2, b2, w3, s3, b3)))
+    oihw = lambda w: tt(w).permute(3, 2, 0, 1)
+    args = (tt(h1), tt(x), {k: tt(v) for k, v in pieces.items()},
+            oihw(w2), tt(s2), tt(b2), oihw(w3[None, None]), tt(s3), tt(b3))
+    plain = BT.bottleneck_tail_plain(*args)
+    got = _tail_tf32(*args, products=3)
+    assert_close(plain, got, 1e-4)
+    assert_close(ref, got, 1e-4)
+    with pytest.raises(AssertionError):
+        assert_close(plain, _tail_tf32(*args, products=1), 1e-4)

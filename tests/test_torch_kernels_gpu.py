@@ -190,6 +190,114 @@ def test_bottleneck_kernel_refuses_unsupported_width(cuda_device):
         BT.bottleneck_tail(*_gpu(args, cuda_device, torch.bfloat16))
 
 
+def _tail_inputs_cuda(seed, k, bs, cm, co):
+    """``_tail_inputs``' distributions, drawn on the card (the block-256
+    shapes at K = 128 are hundreds of MB)."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+
+    def arr(*shape, relu=False, scale=1.0):
+        a = torch.randn(shape, generator=gen, device="cuda") * scale
+        return a.clamp_min(0) if relu else a
+
+    shapes = {"top": (k, 1, bs, cm), "bottom": (k, 1, bs, cm),
+              "left": (k, bs, 1, cm), "right": (k, bs, 1, cm)}
+    pieces = {name: arr(*shapes.get(name, (k, 1, 1, cm)), relu=True)
+              for name in BT.PIECES}
+    return [arr(k, bs, bs, cm, relu=True), arr(k, bs, bs, co), pieces,
+            arr(cm, cm, 3, 3, scale=(9 * cm) ** -0.5), 1 + arr(cm, scale=0.1),
+            arr(cm, scale=0.1), arr(co, cm, 1, 1, scale=cm ** -0.5),
+            1 + arr(co, scale=0.1), arr(co, scale=0.1)]
+
+
+# RN50's fused blocks at block 128 (layer2, layer3) and at block 256
+# (layer2, layer3, layer4)
+F32_SHAPES = [(16, 128, 512), (8, 256, 1024), (32, 128, 512),
+              (16, 256, 1024), (8, 512, 2048)]
+
+
+@pytest.mark.parametrize("bs,cm,co", F32_SHAPES)
+@pytest.mark.parametrize("k", [1, 5, 8, 64, 65, 128])
+def test_bottleneck_f32_matches_plain(cuda_device, k, bs, cm, co):
+    """The 3xTF32 kernel within 1e-4 of the plain version (TF32 off) from
+    1 to 128 blocks: one launch of the wrapper, two kernels."""
+    args = _tail_inputs_cuda(k * 7 + bs + cm, k, bs, cm, co)
+    before = kernels.launches["bottleneck_tail"]
+    got = BT.bottleneck_tail(*args)
+    assert kernels.launches["bottleneck_tail"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (k, bs, bs, co)
+    torch.testing.assert_close(got, BT.bottleneck_tail_plain(*args),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("k,bs,cm,co", [(1, 12, 128, 256), (3, 12, 64, 128),
+                                        (5, 4, 512, 2048), (2, 3, 256, 192)])
+def test_bottleneck_f32_ragged_rows(cuda_device, k, bs, cm, co):
+    """K bs^2 not a multiple of the row tile (144, 432, 80 and 18 rows):
+    the last tile's rows past the end are masked."""
+    args = _tail_inputs_cuda(k + bs, k, bs, cm, co)
+    torch.testing.assert_close(BT.bottleneck_tail(*args),
+                               BT.bottleneck_tail_plain(*args),
+                               rtol=1e-4, atol=1e-4)
+
+
+def _ladder_rn50(device, dtype, block, frames, draws):
+    """RN50 256x512 ladder engine at ``block`` over ``frames`` with
+    injected draws: outputs, executed counts and K2 launches per frame."""
+    from blockcopy_tpu_torch.core.argparser import default_settings
+    from blockcopy_tpu_torch.core.engine import BlockCopyModel
+    from blockcopy_tpu_torch.models.swiftnet import (SwiftNetConfig,
+                                                     init_swiftnet,
+                                                     make_apply_fn)
+    cfg = SwiftNetConfig(backbone="resnet50", num_classes=19)
+    params = init_swiftnet(cfg, seed=0, dtype=dtype, device=device)
+    blocks = (256 // block) * (512 // block)
+    model = BlockCopyModel(make_apply_fn(cfg), params, default_settings(
+        block_size=block, block_quantize_number_exec=1 / blocks),
+        device=device)
+    outs, counts, tails = [], [], []
+    for frame, d in zip(frames, draws):
+        d = None if d is None else tuple(x.to(device) for x in d)
+        before = kernels.launches["bottleneck_tail"]
+        outs.append(model(frame.to(device, dtype), d).float().cpu())
+        counts.append(model.policy_meta["num_exec"])
+        tails.append(kernels.launches["bottleneck_tail"] - before)
+    return outs, counts, tails
+
+
+@pytest.mark.parametrize("block,dtype,per_frame,tol", [
+    (256, torch.bfloat16, 0, 3e-2), (256, torch.float32, 10, 1e-3),
+    (128, torch.bfloat16, 8, 3e-2), (128, torch.float32, 8, 1e-3)])
+def test_rn50_ladder_frames_by_block_size(cuda_device, monkeypatch, block,
+                                          dtype, per_frame, tol):
+    """RN50 ladder frames on the card against the CPU run (plain versions),
+    within ``tol`` of the largest |CPU output| (bf16: 3e-2; fp32: 1e-3, a
+    3-frame clip through the whole net), with K2's launches per executed
+    frame: at block 256 the bf16 kernel takes none of the fused blocks,
+    which run unfused (0), the fp32 kernel all of layers 2-4 (3 + 5 + 2);
+    at block 128 both take layers 2-3 (3 + 5)."""
+    from blockcopy_tpu_torch.policy import net as policy_net
+    from blockcopy_tpu_torch.tools.measure import synthetic_frames
+    monkeypatch.setattr(policy_net, "COMPUTE_DTYPE", torch.float32)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    gh, gw = 256 // block, 512 // block
+    frames = synthetic_frames((1, 256, 512, 3), 3, torch.float32, seed=2,
+                              device="cpu")
+    gen = torch.Generator().manual_seed(block)
+    draws = [None]
+    for n_exec in (1, gh * gw - 1):
+        u = torch.full((gh * gw,), 2.0)
+        u[torch.randperm(gh * gw, generator=gen)[:n_exec]] = -1.0
+        draws.append((u.view(1, gh, gw), torch.rand((gh * gw,),
+                                                    generator=gen)))
+    gpu, counts, tails = _ladder_rn50("cuda", dtype, block, frames, draws)
+    cpu, cpu_counts, _ = _ladder_rn50("cpu", dtype, block, frames, draws)
+    assert counts == cpu_counts == [gh * gw, 1, gh * gw - 1]
+    assert tails == [per_frame] * 3
+    for a, b in zip(gpu, cpu):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= tol * b.abs().max().item()
+
+
 @pytest.mark.parametrize("rows,k,n", [(128, 64, 8), (128, 160, 136),
                                       (384, 1152, 128), (16896, 96, 24),
                                       (512, 1152, 136), (4096, 2304, 256),
