@@ -496,7 +496,10 @@ bool bf16_block(int bs, int cm) {
 // Products run on mma.sync m16n8k8 TF32, 3 per product (3xTF32): each
 // operand v splits into hi = rna(v) and lo = rna(v - hi), and lo hi + hi lo
 // is accumulated before hi hi (lo lo is dropped); one TF32 product keeps
-// about 3 digits and misses 1e-4.  The epilogues round as the plain
+// about 3 digits and misses 1e-4.  The tensor cores round their fp32 sums
+// toward zero, an error that grows with the depth (2304 at layer3), so each
+// 32-deep stage is summed on its own and added to the total with
+// round-to-nearest fp32 adds.  The epilogues round as the plain
 // version: acc * s + b in two roundings, (+ x), ReLU.  Row tiles past K
 // bs^2 are masked: loads clamp to the last row, stores are skipped.
 
@@ -626,6 +629,13 @@ tail_f32(Args<float> a, float* h2, int rows) {
     const int s = it % kF32Stages;
     const float* as = As + (s * BM + wm * (BM / 2)) * kF32Ld;
     const float* bsm = Bs + (s * kF32BN + wn * 32) * kF32Ld;
+    float part[kMT][kNT][4];  // this stage's products
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < kF32BK; kk += 8) {
       uint32_t ahi[kMT][4], alo[kMT][4], bhi[kNT][2], blo[kNT][2];
@@ -649,11 +659,18 @@ tail_f32(Args<float> a, float* h2, int rows) {
       for (int i = 0; i < kMT; ++i)
 #pragma unroll
         for (int j = 0; j < kNT; ++j) {
-          mma_tf32(acc[i][j], alo[i], bhi[j]);
-          mma_tf32(acc[i][j], ahi[i], blo[j]);
-          mma_tf32(acc[i][j], ahi[i], bhi[j]);
+          mma_tf32(part[i][j], alo[i], bhi[j]);
+          mma_tf32(part[i][j], ahi[i], blo[j]);
+          mma_tf32(part[i][j], ahi[i], bhi[j]);
         }
     }
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[i][j][e] = __fadd_rn(acc[i][j][e], part[i][j][e]);
   }
   cp_async_wait<0>();
 

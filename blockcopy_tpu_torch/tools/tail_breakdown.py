@@ -14,6 +14,12 @@ launches, median of 30 replays), and prints one JSON line with the parts:
 * ``rest``          = the tile fill, w2 chunk loads, barriers, 3x3 epilogue
   and the exchange of h2 between the block's two CTAs.
 
+Then the fp32 path's row tiles: builds with ``TAIL_F32_BM=64`` and ``=32``
+(every stage on 64-row or on 32-row tiles) against the library's rule
+(32-row tiles where 64-row ones would not fill one wave), each timed in
+fp32 at K = 8, 64 and 128 at the same shapes: ``f32_row_tiles``, us per
+launch.
+
 The variants are written to ``_build/ablation/``; the outputs of a variant
 are not checked (they are wrong by design).
 """
@@ -32,9 +38,11 @@ from blockcopy_tpu_torch.ops.kernels import build
 from blockcopy_tpu_torch.tools.measure import device_ms
 
 VARIANTS = {"full": [], "no_1x1_stage": ["-DTAIL_NO_1X1_STAGE"],
-            "no_3x3_products": ["-DTAIL_NO_3X3_PRODUCTS"]}
+            "no_3x3_products": ["-DTAIL_NO_3X3_PRODUCTS"],
+            "f32_bm64": ["-DTAIL_F32_BM=64"], "f32_bm32": ["-DTAIL_F32_BM=32"]}
 SHAPES = [(16, 128, 512), (8, 256, 1024)]   # RN50 layer2, layer3
 K = 64
+F32_KS = (8, 64, 128)
 
 
 def _build_variants():
@@ -56,20 +64,28 @@ def _build_variants():
     return libs
 
 
-def _inputs(bs, cm, co, gen):
+def _inputs(bs, cm, co, gen, k=K, dtype=torch.bfloat16):
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(
-            torch.bfloat16)
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    shapes = {"top": (K, 1, bs, cm), "bottom": (K, 1, bs, cm),
-              "left": (K, bs, 1, cm), "right": (K, bs, 1, cm)}
-    pieces = [rnd(*shapes.get(n, (K, 1, 1, cm))) for n in BT.PIECES]
-    tensors = [rnd(K, bs, bs, cm), rnd(K, bs, bs, co), *pieces,
+    shapes = {"top": (k, 1, bs, cm), "bottom": (k, 1, bs, cm),
+              "left": (k, bs, 1, cm), "right": (k, bs, 1, cm)}
+    pieces = [rnd(*shapes.get(n, (k, 1, 1, cm))) for n in BT.PIECES]
+    tensors = [rnd(k, bs, bs, cm), rnd(k, bs, bs, co), *pieces,
                rnd(3, 3, cm, cm), rnd(co, cm), rnd(cm), rnd(cm), rnd(co),
-               rnd(co), torch.empty((K, bs, bs, co), dtype=torch.bfloat16,
+               rnd(co), torch.empty((k, bs, bs, co), dtype=dtype,
                                     device="cuda")]
     return tensors, (ctypes.c_void_p * len(tensors))(
         *[t.data_ptr() for t in tensors])
+
+
+def _launch_us(lib, name, ptrs, scratch, k, bs, cm, co, dtype_code):
+    def launch():
+        err = lib.bottleneck_tail(
+            ptrs, scratch, k, bs, cm, co, dtype_code,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        build.check(err, f"bottleneck_tail ({name})")
+    return device_ms(launch, samples=30) * 1e3
 
 
 def main() -> int:
@@ -81,14 +97,8 @@ def main() -> int:
     rows = []
     for bs, cm, co in SHAPES:
         tensors, ptrs = _inputs(bs, cm, co, gen)
-        t = {}
-        for name, lib in libs.items():
-            def launch(lib=lib):
-                err = lib.bottleneck_tail(
-                    ptrs, None, K, bs, cm, co, 1,
-                    ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-                build.check(err, f"bottleneck_tail ({name})")
-            t[name] = device_ms(launch, samples=30) * 1e3
+        t = {name: _launch_us(libs[name], name, ptrs, None, K, bs, cm, co, 1)
+             for name in ("full", "no_1x1_stage", "no_3x3_products")}
         rows.append({
             "bs": bs, "cm": cm, "co": co, "full_us": t["full"],
             "3x3_products_us": t["full"] - t["no_3x3_products"],
@@ -96,8 +106,19 @@ def main() -> int:
             "rest_us": t["no_1x1_stage"] - (t["full"]
                                             - t["no_3x3_products"]),
         })
+    tiles = []
+    for k in F32_KS:
+        for bs, cm, co in SHAPES:
+            tensors, ptrs = _inputs(bs, cm, co, gen, k, torch.float32)
+            scratch = torch.empty((k, bs * bs, cm), device="cuda")
+            tiles.append({"k": k, "bs": bs, "cm": cm, "co": co, **{
+                name: _launch_us(libs[lib], lib, ptrs,
+                                 ctypes.c_void_p(scratch.data_ptr()), k, bs,
+                                 cm, co, 0)
+                for name, lib in (("rule_us", "full"), ("bm64_us", "f32_bm64"),
+                                  ("bm32_us", "f32_bm32"))}})
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "tail_breakdown": rows}))
+                      "tail_breakdown": rows, "f32_row_tiles": tiles}))
     return 0
 
 

@@ -264,9 +264,11 @@ def phase_tail(gen):
                 args = _tail_case(gen, bs, cm, co, dtype, k)
                 ref = BT.bottleneck_tail_plain(*args)
                 got = BT.bottleneck_tail(*args)
-                err = (got.float() - ref.float()).abs().max().item()
-                if not torch.allclose(got.float(), ref.float(), rtol=tol,
-                                      atol=tol):
+                diff = (got.float() - ref.float()).abs()
+                err = diff.max().item()
+                # the largest error as a share of allclose's bound
+                share = (diff / (tol + tol * ref.float().abs())).max().item()
+                if share > 1:
                     raise AssertionError(
                         f"bottleneck kernel disagrees with its plain version "
                         f"at K={k} bs={bs} {dtype}: max abs err {err:.3g}")
@@ -289,7 +291,8 @@ def phase_tail(gen):
                             f"tiles), 1x1 stage {stage['1x1']:.4f} ms "
                             f"({bm[1]}-row tiles)")
                 log(f"[3] tail K={k:3d} bs={bs} Cm={cm} Co={co} {dtype}: max "
-                    f"abs err {err:.3g} (rtol and atol {tol}) ok; kernel "
+                    f"abs err {err:.3g} (rtol and atol {tol}; {share:.1%} of "
+                    f"the bound) ok; kernel "
                     f"{t['kernel']:.4f} ms per launch, plain "
                     f"{t['plain']:.4f} ms, bound {t['bound']:.4f} ms "
                     f"({t['by']}; {flops / 1e9:.2f} GFLOP, "
