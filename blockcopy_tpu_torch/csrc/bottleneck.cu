@@ -41,11 +41,11 @@
 //   into y in place, and a TMA store writes the boxes out.
 // - Warpgroup work: where bs^2 >= 128 each warpgroup owns half of the m64
 //   tiles, else both share the one m64 tile and split n.
-// Two ablation switches, never set by the library build, let
+// Three switches, never set by the library build, let
 // blockcopy_tpu_torch/tools/tail_breakdown.py time the parts:
 // TAIL_NO_3X3_PRODUCTS drops the 3x3 conv's products (fragment loads,
 // barriers and epilogue stay), TAIL_NO_1X1_STAGE ends the kernel once h2 is
-// built and exchanged.
+// built and exchanged; TAIL_F32_BM (64 or 32) fixes the fp32 row tile.
 // bf16 blocks: (bs, Cm) in (16, 128), (8, 256), (8, 128) and Co a multiple
 // of 256 (the others do not fit in shared memory); the launch refuses the
 // rest (cudaErrorInvalidValue) and the wrapper raises before.

@@ -227,8 +227,8 @@ def tail_cost(bs, cm, co, itemsize, k=K):
 
 def _tail_stage_ms(fn, calls=20):
     """Device ms per call of each fp32 stage (``tail_f32<BM, true>``: the
-    3x3 conv into h2; ``<BM, false>``: the 1x1 into y), from the profiler's
-    kernel records over ``calls`` calls."""
+    3x3 conv into h2; ``<BM, false>``: the 1x1 into y) and the row tile BM
+    it ran, from the profiler's kernel records over ``calls`` calls."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -236,12 +236,14 @@ def _tail_stage_ms(fn, calls=20):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out = {"3x3": 0.0, "1x1": 0.0}
+    out = {"3x3": [0.0, set()], "1x1": [0.0, set()]}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA and "tail_f32" in e.name:
-            key = "3x3" if "true>" in e.name else "1x1"
-            out[key] += e.time_range.elapsed_us() / 1e3 / calls
-    return out
+        found = re.search(r"tail_f32<(\d+), (true|false)>", e.name)
+        if e.device_type == DeviceType.CUDA and found:
+            key = "3x3" if found.group(2) == "true" else "1x1"
+            out[key][0] += e.time_range.elapsed_us() / 1e3 / calls
+            out[key][1].add(found.group(1))
+    return {key: (ms, "/".join(sorted(bm))) for key, (ms, bm) in out.items()}
 
 
 def phase_tail(gen):
@@ -254,7 +256,6 @@ def phase_tail(gen):
     from blockcopy_tpu_torch.tools.measure import device_ms
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows, worst = {}, {"bf16": 0.0, "f32": 0.0}
     for k in TAIL_KS:
         for bs, cm, co in sorted(set(TAIL_SHAPES)):
@@ -285,11 +286,9 @@ def phase_tail(gen):
                     ctas = f"{2 * k} CTAs in clusters of 2"
                 else:
                     stage = _tail_stage_ms(lambda: BT.bottleneck_tail(*args))
-                    tiles = [-(-k * bs * bs // 64) * n // 64 for n in (cm, co)]
-                    bm = [32 if n < sms else 64 for n in tiles]
-                    ctas = (f"3x3 stage {stage['3x3']:.4f} ms ({bm[0]}-row "
-                            f"tiles), 1x1 stage {stage['1x1']:.4f} ms "
-                            f"({bm[1]}-row tiles)")
+                    ctas = ", ".join(
+                        f"{key} stage {ms:.4f} ms ({bm}-row tiles)"
+                        for key, (ms, bm) in stage.items())
                 log(f"[3] tail K={k:3d} bs={bs} Cm={cm} Co={co} {dtype}: max "
                     f"abs err {err:.3g} (rtol and atol {tol}; {share:.1%} of "
                     f"the bound) ok; kernel "
@@ -599,13 +598,15 @@ def phase_cli():
         line = json.loads(buf.getvalue().strip().splitlines()[-1])
         ok = (line["fps"] > 0 and "Mean IoU" in line
               and line["gmacs_per_image"] > 0 and 0 < line["perc_exec"] <= 1)
-        tails = launches["bottleneck_tail"]
         log(f"[8b] CLI {name}: {json.dumps(line)}; launches {launches}")
         if not ok or line["fps"] != res["fps"]:
             raise AssertionError(f"CLI {name} result {line}")
-        if not launches["halo_strips"] or not tails or tails % 8:
-            raise AssertionError(f"CLI {name} launches {launches}: K1 and "
-                                 f"8 K2 launches per executed frame expected")
+        # 16 frames, each executing at least 8 blocks (quantum 1/16)
+        if (launches["halo_strips"] != 16 * len(HALO_SHAPES)
+                or launches["bottleneck_tail"] != 16 * len(TAIL_SHAPES)):
+            raise AssertionError(f"CLI {name} launches {launches}, expected "
+                                 f"{len(HALO_SHAPES)} K1 and "
+                                 f"{len(TAIL_SHAPES)} K2 a frame")
         line["launches"] = launches
         out[name] = line
     return out

@@ -361,11 +361,10 @@ def _tail_tf32(h1, x, pieces, w2, s2, b2, w3, s3, b3, products):
 
 def test_tf32_rounding_ties_away():
     """``_tf32`` keeps 10 mantissa bits and rounds a tie away from zero."""
-    one = 1.0
-    v = torch.tensor([one + 2 ** -11, -(one + 2 ** -11), one + 2 ** -12,
-                      one + 3 * 2 ** -12, 3.0, 0.0])
-    want = torch.tensor([one + 2 ** -10, -(one + 2 ** -10), one,
-                         one + 2 ** -10, 3.0, 0.0])
+    v = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -12,
+                      1 + 3 * 2 ** -12, 3.0, 0.0])
+    want = torch.tensor([1 + 2 ** -10, -(1 + 2 ** -10), 1.0, 1 + 2 ** -10,
+                         3.0, 0.0])
     assert torch.equal(_tf32(v), want)
 
 

@@ -191,8 +191,8 @@ def test_bottleneck_kernel_refuses_unsupported_width(cuda_device):
 
 
 def _tail_inputs_cuda(seed, k, bs, cm, co):
-    """``_tail_inputs``' distributions, drawn on the card (the block-256
-    shapes at K = 128 are hundreds of MB)."""
+    """``_tail_inputs``' tensors with weights scaled by their fan-in, drawn
+    on the card (the block-256 shapes at K = 128 are hundreds of MB)."""
     gen = torch.Generator("cuda").manual_seed(seed)
 
     def arr(*shape, relu=False, scale=1.0):
