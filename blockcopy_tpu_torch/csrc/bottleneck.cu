@@ -477,10 +477,11 @@ bool bf16_block(int bs, int cm) {
 // ---------------------------------------------------------------- fp32 ----
 //
 // Replaces the same Pallas kernel (bottleneck.py bottleneck_tail :92) in
-// fp32.  Bound: operations, 2 K bs^2 Cm (9 Cm + Co) over 67 TFLOP/s fp32
-// (0.104 ms at K = 64 for either RN50 shape), or 3x that over 495 TFLOP/s
-// TF32 on the tensor cores (0.042 ms); the bytes (h1, x, y, the pieces, the
-// weights, each once) take 0.013-0.024 ms at 3.35 TB/s.
+// fp32.  Bound: operations, 3 x 2 K bs^2 Cm (9 Cm + Co) over 495 TFLOP/s
+// of TF32 (this route: 3 TF32 products per fp32 product; 0.042 ms at K = 64
+// for either RN50 shape, where fp32 outside the tensor cores, 67 TFLOP/s,
+// would take 0.104 ms); the bytes (h1, x, y, the pieces, the weights, each
+// once) take 0.013-0.024 ms at 3.35 TB/s.
 // Design: the tail as two GEMMs over rows m = (block, pixel) flattened
 // across blocks, so every launch spreads over all SMs whatever K is:
 // - stage A: h2 (K bs^2 x Cm) = relu(bn2(A w2)), depth 9 Cm as (tap, ci),

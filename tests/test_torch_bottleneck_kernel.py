@@ -295,6 +295,19 @@ def test_gate_asks_the_kernel(block, stride, planes, f32, bf16, dtype,
     assert calls == ([1] if fused else [])
 
 
+@pytest.mark.parametrize("dtype,bs,cm,co,takes", [
+    (torch.float32, 1, 64, 64, True), (torch.float32, 3, 192, 320, True),
+    (torch.float32, 8, 96, 512, False), (torch.float32, 8, 128, 480, False),
+    (torch.bfloat16, 16, 128, 768, True), (torch.bfloat16, 16, 128, 640, False),
+    (torch.bfloat16, 32, 128, 512, False), (torch.float16, 8, 128, 512, False),
+])
+def test_kernel_takes_widths(dtype, bs, cm, co, takes):
+    """The fp32 kernel takes Cm and Co multiples of its 64-column tile at
+    any bs (the C entry's own rule); the bf16 kernel its (bs, Cm) table at
+    Co a multiple of 256; no other dtype has a kernel."""
+    assert BT.kernel_takes(dtype, bs, cm, co) == takes
+
+
 @pytest.mark.parametrize("block,dtype,per_frame", [
     (256, torch.bfloat16, 0), (256, torch.float32, 10),
     (128, torch.bfloat16, 8), (128, torch.float32, 8)])
