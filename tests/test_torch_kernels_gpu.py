@@ -182,7 +182,8 @@ def test_bottleneck_weight_update_in_place(cuda_device):
 
 
 def test_bottleneck_kernel_refuses_unsupported_width(cuda_device):
-    args = _tail_inputs(np.random.RandomState(0), 2, 8, 192, 256)
+    # fp32: Cm not a multiple of the kernel's 64-column tile
+    args = _tail_inputs(np.random.RandomState(0), 2, 8, 96, 256)
     with pytest.raises(ValueError, match="Cm"):
         BT.bottleneck_tail(*_gpu(args, cuda_device, torch.float32))
     args = _tail_inputs(np.random.RandomState(0), 2, 16, 256, 1024)
@@ -230,10 +231,12 @@ def test_bottleneck_f32_matches_plain(cuda_device, k, bs, cm, co):
 
 
 @pytest.mark.parametrize("k,bs,cm,co", [(1, 12, 128, 256), (3, 12, 64, 128),
-                                        (5, 4, 512, 2048), (2, 3, 256, 192)])
+                                        (5, 4, 512, 2048), (2, 3, 256, 192),
+                                        (3, 5, 192, 320)])
 def test_bottleneck_f32_ragged_rows(cuda_device, k, bs, cm, co):
-    """K bs^2 not a multiple of the row tile (144, 432, 80 and 18 rows):
-    the last tile's rows past the end are masked."""
+    """K bs^2 not a multiple of the row tile (144, 432, 80, 18 and 75
+    rows): the last tile's rows past the end are masked.  Any Cm and Co
+    that are multiples of 64 are taken (192 and 320 included)."""
     args = _tail_inputs_cuda(k + bs, k, bs, cm, co)
     torch.testing.assert_close(BT.bottleneck_tail(*args),
                                BT.bottleneck_tail_plain(*args),
