@@ -1,5 +1,5 @@
 """Blocked / dense layer set (counterpart of ``blockcopy_tpu/ops/layers.py``,
-the subset on the SwiftNet path).
+the subset on the SwiftNet and CSP paths).
 
 Every layer takes an ``ExecCtx`` where it needs one and handles both a dense
 NHWC tensor and a ``BlockPack``.  Activations are NHWC; conv weights are
@@ -54,6 +54,11 @@ def add(a: Arrayish, b: Arrayish) -> Arrayish:
     return emap(lambda x, y: x + y, a, b)
 
 
+def concat_channels(xs) -> Arrayish:
+    """Concatenate along channels; the result wraps like ``xs[0]``."""
+    return _rewrap(xs[0], torch.cat([_data(x) for x in xs], dim=-1))
+
+
 def nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
@@ -96,6 +101,71 @@ def conv2d(ctx: ExecCtx, name: str, x: Arrayish, w: torch.Tensor,
     # output elements x (Cin/groups) x taps, as ``layers.py:456-460``
     ctx.add_macs(_data(out).numel() * w.shape[1] * kh * w.shape[3], name)
     return out
+
+
+def conv_transpose2d(ctx: ExecCtx, name: str, x: Arrayish, w: torch.Tensor,
+                     b: Optional[torch.Tensor] = None, stride: int = 2,
+                     padding: int = 0, output_padding: int = 0) -> Arrayish:
+    """Transposed convolution (the CSP neck's upsampling heads,
+    ``layers.py:464``), ``w`` in torch's (in, out, kh, kw) layout: JAX's HWIO
+    kernel permuted (2, 3, 0, 1), with no spatial flip (JAX flips because it
+    lowers the op as an input-dilated conv).
+
+    Blocked input runs per block with no halo, as the reference does: for
+    padding > 0 the blocked output differs from the dense one along block
+    seams.  That quirk is kept deliberately."""
+    def run(data: torch.Tensor) -> torch.Tensor:
+        dt = data.dtype
+        out = nhwc(F.conv_transpose2d(nchw(data), w.to(dt), None, stride,
+                                      padding, output_padding))
+        if b is not None:
+            out = out + b.to(dt)
+        return out
+
+    out = _rewrap(x, run(_data(x)))
+    cin, kh, kw = w.shape[0], w.shape[2], w.shape[3]
+    ctx.add_macs(_data(out).numel() * cin * kh * kw / (stride * stride), name)
+    return out
+
+
+def group_norm(x: Arrayish, num_groups: int, gamma: torch.Tensor,
+               beta: torch.Tensor, eps: float = 1e-5) -> Arrayish:
+    """GroupNorm with statistics over the whole image, per image
+    (``layers.py:525``), moments in fp32, the output cast back to the
+    activation dtype.  On a ``BlockPack`` the statistics are joint over the
+    image's executed blocks, segmented per image; padding slots
+    (``idx == total``) are left out."""
+    g = num_groups
+    if isinstance(x, BlockPack):
+        d = x.data.float()
+        k, bs, _, c = d.shape
+        dev = d.device
+        valid = (x.idx < x.total).float()
+        img = (x.idx // (x.gh * x.gw)).clamp(0, x.n - 1)
+        dg = d.reshape(k, bs, bs, g, c // g)
+        blk_sum = dg.sum(dim=(1, 2, 4)) * valid[:, None]
+        img_sum = torch.zeros((x.n, g), device=dev).index_add_(0, img,
+                                                               blk_sum)
+        cnt = torch.zeros((x.n,), device=dev).index_add_(0, img, valid) \
+            * (bs * bs * (c // g))
+        cnt = cnt.clamp_min(1.0)
+        mean = img_sum / cnt[:, None]
+        cent = dg - mean.index_select(0, img)[:, None, None, :, None]
+        blk_sq = (cent * cent).sum(dim=(1, 2, 4)) * valid[:, None]
+        var = torch.zeros((x.n, g), device=dev).index_add_(0, img, blk_sq) \
+            / cnt[:, None]
+        inv = torch.rsqrt(var + eps).index_select(0, img)
+        out = cent * inv[:, None, None, :, None]
+        out = out.reshape(k, bs, bs, c) * gamma + beta
+        return x.with_data(out.to(x.data.dtype))
+    d = x.float()
+    n, h, w, c = d.shape
+    dg = d.reshape(n, h, w, g, c // g)
+    mean = dg.mean(dim=(1, 2, 4), keepdim=True)
+    var = ((dg - mean) ** 2).mean(dim=(1, 2, 4), keepdim=True)
+    out = (dg - mean) * torch.rsqrt(var + eps)
+    out = out.reshape(n, h, w, c) * gamma + beta
+    return out.to(x.dtype)
 
 
 def batch_norm(x: Arrayish, scale: torch.Tensor,

@@ -7,8 +7,10 @@ gives them, so this module never imports JAX.  bfloat16 arrays (the
 ``ml_dtypes`` dtype numpy reports as ``bfloat16``) are carried bit for bit.
 
 Layout rules: every conv weight (a 4-D ``"w"`` leaf) is HWIO in JAX and OIHW
-here; everything else (folded BN, biases, BN statistics, canvases in NHWC
-block layout) keeps its shape.
+here, except the CSP neck's transposed convs (``neck.p3/p4/p5.w``), whose
+HWIO kernel (I = in, O = out) becomes torch's (in, out, kh, kw) with no
+flip; everything else (folded BN, biases, GN, BN statistics, 0-d scales,
+canvases in NHWC block layout) keeps its shape.
 """
 
 from __future__ import annotations
@@ -45,30 +47,47 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _map(tree, fn, key=None):
+def _map(tree, fn, path=()):
+    """Map ``fn(leaf, path)`` over a tree; ``path`` holds the dict keys
+    from the root (list positions are not part of it)."""
     if isinstance(tree, dict):
-        return {k: _map(v, fn, k) for k, v in tree.items()}
+        return {k: _map(v, fn, path + (k,)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_map(v, fn, key) for v in tree]
-    return fn(tree, key)
+        return [_map(v, fn, path) for v in tree]
+    return fn(tree, path)
+
+
+# HWIO -> the port's layout, by the leaf's path: (in, out, kh, kw) for the
+# CSP neck's transposed convs, OIHW for every other 4-D "w"
+_TRANSPOSED = {("neck", p, "w") for p in ("p3", "p4", "p5")}
+
+
+def _to_port(path) -> tuple:
+    return (2, 3, 0, 1) if path[-3:] in _TRANSPOSED else (3, 2, 0, 1)
+
+
+def _to_jax(path) -> tuple:
+    return (2, 3, 0, 1) if path[-3:] in _TRANSPOSED else (2, 3, 1, 0)
 
 
 def params_from_jax(tree, device=None):
-    """SwiftNet or policy parameters (or any tree shaped like them, such as
-    RMSprop moments): HWIO conv weights -> OIHW, on ``device`` (``None``:
-    CUDA, as ``to_torch``)."""
-    def conv(a, key):
+    """SwiftNet, CSP or policy parameters (or any tree shaped like them,
+    such as RMSprop moments): HWIO conv weights -> the port's layout, on
+    ``device`` (``None``: CUDA, as ``to_torch``)."""
+    def conv(a, path):
         t = to_torch(a, device)
-        return t.permute(3, 2, 0, 1).contiguous() \
-            if key == "w" and t.dim() == 4 else t
+        return t.permute(*_to_port(path)).contiguous() \
+            if path[-1:] == ("w",) and t.dim() == 4 else t
     return _map(tree, conv)
 
 
 def params_to_numpy(tree):
-    """Inverse of ``params_from_jax``: OIHW -> HWIO numpy (bf16 as fp32)."""
-    def conv(t, key):
+    """Inverse of ``params_from_jax``: back to HWIO numpy (bf16 as
+    fp32)."""
+    def conv(t, path):
         a = to_numpy(t)
-        return a.transpose(2, 3, 1, 0) if key == "w" and a.ndim == 4 else a
+        return a.transpose(*_to_jax(path)) \
+            if path[-1:] == ("w",) and a.ndim == 4 else a
     return _map(tree, conv)
 
 
@@ -100,9 +119,16 @@ def ladder_policy_state_from_jax(state: Dict, device=None) -> Dict:
     }
 
 
+def _task_keys(state: Dict):
+    """The task outputs a stepper state carries (semseg ``outputs``,
+    detection ``dets``/``labels``/``valid``) and their ``_prev`` copies."""
+    return [f"{k}{s}" for k in ("outputs", "dets", "labels", "valid")
+            for s in ("", "_prev") if f"{k}{s}" in state]
+
+
 def stepper_state_from_jax(state: Dict, device=None) -> Dict:
     """Carried stepper state: canvases by name (tensors or strip dicts),
-    task outputs, ``prev_grid``, ``frame_idx`` (a host int here) and the
+    the task outputs, ``prev_grid``, ``frame_idx`` (a host int here) and the
     policy state.  The port's ``generator`` is not part of the JAX state;
     the caller adds it."""
     out = {
@@ -112,9 +138,8 @@ def stepper_state_from_jax(state: Dict, device=None) -> Dict:
         "frame_idx": int(np.asarray(state["frame_idx"])),
         "policy": policy_state_from_jax(state["policy"], device),
     }
-    for key in ("outputs", "outputs_prev"):
-        if key in state:
-            out[key] = to_torch(state[key], device)
+    for key in _task_keys(state):
+        out[key] = to_torch(state[key], device)
     return out
 
 
@@ -134,7 +159,6 @@ def stepper_state_to_numpy(state: Dict) -> Dict:
             "running_cost": to_numpy(pol["running_cost"]),
         },
     }
-    for key in ("outputs", "outputs_prev"):
-        if key in state:
-            out[key] = to_numpy(state[key])
+    for key in _task_keys(state):
+        out[key] = to_numpy(state[key])
     return out
