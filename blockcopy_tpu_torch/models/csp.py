@@ -287,17 +287,16 @@ def csp_height2bbox(points, heights, offsets, stride=1, wh_ratio=0.41,
     return torch.stack([x1, y1, x2, y2], -1)
 
 
-def csp_decode(cls_score, bbox_pred, offset_pred, img_shape, cfg: CSPConfig,
-               rescale_factor: float = 1.0, nms_impl: str = None):
-    """``get_bboxes_single`` (``csp_head.py:232-284``) at fixed shapes:
-    sigmoid scores -> the top ``nms_pre`` -> ``csp_height2bbox`` -> per-class
-    NMS.  Maps are NHWC with N == 1.  Returns (dets (max_per_img, 5),
-    labels, valid).
+def decode_candidates(cls_score, bbox_pred, offset_pred, img_shape,
+                      cfg: CSPConfig, rescale_factor: float = 1.0):
+    """The first half of the decode (``csp.py:421-461``): sigmoid scores,
+    the top ``nms_pre`` positions, their boxes.  Returns (flat indices
+    (nms_pre,), boxes (nms_pre, 4), scores (nms_pre, C)).
 
     The top ``nms_pre`` come from a stable descending sort, which breaks ties
-    to the lowest index as ``lax.top_k`` does (``csp.py:443``, the 'sort'
-    lowering); ``torch.topk`` leaves the order of ties unspecified.  The
-    candidates' points are computed from their flat index (the lean form of
+    to the lowest index as ``lax.top_k`` does (the 'sort' lowering);
+    ``torch.topk`` leaves the order of ties unspecified.  The candidates'
+    points are computed from their flat index (the lean form of
     ``DECODE_LEAN_POINTS``, bit-exact with gathering them)."""
     stride = cfg.head_stride
     w = cls_score.shape[2]
@@ -317,6 +316,16 @@ def csp_decode(cls_score, bbox_pred, offset_pred, img_shape, cfg: CSPConfig,
     bboxes = csp_height2bbox(points, heights, offsets, stride=stride,
                              wh_ratio=cfg.wh_ratio,
                              max_shape=img_shape) / rescale_factor
+    return topk, bboxes, scores
+
+
+def csp_decode(cls_score, bbox_pred, offset_pred, img_shape, cfg: CSPConfig,
+               rescale_factor: float = 1.0, nms_impl: str = None):
+    """``get_bboxes_single`` (``csp_head.py:232-284``) at fixed shapes:
+    ``decode_candidates``, then per-class NMS.  Maps are NHWC with N == 1.
+    Returns (dets (max_per_img, 5), labels, valid)."""
+    _, bboxes, scores = decode_candidates(cls_score, bbox_pred, offset_pred,
+                                          img_shape, cfg, rescale_factor)
     return _nms.multiclass_nms_fixed(bboxes, scores, cfg.score_thr,
                                      cfg.nms_iou, cfg.max_per_img,
                                      impl=nms_impl)
