@@ -1,5 +1,6 @@
 """What ``chip_smoke.py`` and the tools share: the synthetic clip, the
-SwiftNet stepper they drive, and device timing by CUDA graph replay."""
+SwiftNet and CSP steppers they drive, a small detection clip for GPU-CPU
+comparisons, and device timing by CUDA graph replay."""
 
 from __future__ import annotations
 
@@ -38,6 +39,96 @@ def swiftnet_stepper(backbone, frame_shape, capacity, dtype, device,
     return params, FixedCapacityStepper(make_apply_fn(cfg), scfg, frame_shape,
                                         capacity=capacity, dtype=dtype,
                                         device=device)
+
+
+def csp_stepper(frame_shape, capacity, dtype, device, cfg=None,
+                train_interval=4):
+    """Random CSP parameters (seed 0; ``CSPConfig()`` unless ``cfg``) and a
+    detection stepper with the fast policy, block 128, target 0.3: the
+    workload of ``bench_detection.py``."""
+    from blockcopy_tpu_torch.core.stepper import StepperConfig
+    from blockcopy_tpu_torch.models.csp import CSPConfig, init_csp
+    from blockcopy_tpu_torch.tasks.detection.stepper import DetectionStepper
+    cfg = CSPConfig() if cfg is None else cfg
+    params = init_csp(cfg, seed=0, dtype=dtype, device=device)
+    scfg = StepperConfig(block_size=128, block_target=0.3,
+                         train_interval=train_interval, num_classes=1,
+                         policy_arch="fast")
+    return params, DetectionStepper(cfg, scfg, frame_shape, capacity,
+                                    dtype=dtype, device=device)
+
+
+def detection_clip(device, frames=3, seed=2):
+    """A 256x512 fp32 clip through the detection stepper, CSP with
+    ``stage_blocks=(1, 2, 2, 1)`` at full widths, capacity 4 of 8,
+    REINFORCE every 2nd frame.  The injected draws are -1 (execute) or 2
+    (skip) for exactly 4 blocks, so the grids do not depend on the policy's
+    probabilities; the ``csp_cls`` bias is 0 and ``score_thr`` 0.6, so some
+    dets are valid.  Returns, per frame on the CPU: the canvases, the grid
+    and the (dets, labels, valid)."""
+    from blockcopy_tpu_torch.models.csp import CSPConfig
+    from blockcopy_tpu_torch.policy.optim import tree_map
+    shape = (1, 256, 512, 3)
+    cfg = CSPConfig(stage_blocks=(1, 2, 2, 1), score_thr=0.6)
+    params, stepper = csp_stepper(shape, 4, torch.float32, device, cfg,
+                                  train_interval=2)
+    params["head"]["csp_cls"]["b"].zero_()
+    # made on the CPU, so runs on either device get the same frames
+    clip = [f.to(device) for f in synthetic_frames(
+        shape, frames, torch.float32, seed=seed, device="cpu")]
+    gen = torch.Generator().manual_seed(seed)
+    draws = []
+    for _ in range(frames - 1):
+        u = torch.full((8,), 2.0)
+        u[torch.randperm(8, generator=gen)[:4]] = -1.0
+        draws.append((u.view(1, 2, 4).to(device),
+                      torch.rand((8,), generator=gen).to(device)))
+    state = stepper.init_state(params, seed=1)
+    out = []
+    for t, frame in enumerate(clip):
+        state = stepper.first_step(params, state, frame) if t == 0 else \
+            stepper.step(params, state, frame, draws=draws[t - 1])
+        out.append({"canvases": tree_map(lambda x: x.float().cpu(),
+                                         state["canvases"]),
+                    "grid": state["prev_grid"].cpu(),
+                    "dets": tuple(x.cpu()
+                                  for x in stepper.fetch_outputs(state))})
+    return out
+
+
+def compare_clips(got, ref):
+    """Two ``detection_clip`` results: whether the grids are equal; the
+    largest abs difference of every carried canvas relative to that canvas's
+    largest |ref value|; and per frame the dets' error, None where
+    ``valid`` or ``labels`` differ, else the largest difference of the valid
+    dets (each matched to the ref det with the nearest box: two dets whose
+    scores nearly tie may swap places) relative to the largest |ref det|."""
+    grids = all(torch.equal(a["grid"], b["grid"]) for a, b in zip(got, ref))
+    canvas_err = 0.0
+    for a, b in zip(got, ref):
+        for name, r in b["canvases"].items():
+            g = a["canvases"][name]
+            pairs = [(g[k], r[k]) for k in r] if isinstance(r, dict) \
+                else [(g, r)]
+            for x, y in pairs:
+                scale = max(y.abs().max().item(), 1e-30)
+                canvas_err = max(canvas_err,
+                                 (x - y).abs().max().item() / scale)
+    dets_err = []
+    for a, b in zip(got, ref):
+        (gd, gl, gv), (rd, rl, rv) = a["dets"], b["dets"]
+        if not (torch.equal(gv, rv) and torch.equal(gl, rl)):
+            dets_err.append(None)
+            continue
+        gd, rd = gd[gv], rd[rv]
+        near = (gd[:, None, :4] - rd[None, :, :4]).abs().amax(-1).argmin(1) \
+            if len(rd) else torch.zeros(0, dtype=torch.long)
+        if len(set(near.tolist())) != len(near):
+            dets_err.append(None)
+        else:
+            dets_err.append(((gd - rd[near]).abs().max() / rd.abs().max())
+                            .item() if len(rd) else 0.0)
+    return grids, canvas_err, dets_err
 
 
 def device_ms(fn, samples=50, inner=10):

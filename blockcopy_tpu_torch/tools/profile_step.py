@@ -1,15 +1,17 @@
 """Where one steady step of the main path spends its time, on the GPU.
 
     python3 -m blockcopy_tpu_torch.tools.profile_step [--steps 8]
-        [--engine stepper|ladder]
+        [--engine stepper|ladder] [--model swiftnet|csp]
 
 Runs the main path of ``chip_smoke.py`` (SwiftNet-RN50, 1024x2048 bf16, fast
 policy, block 128, target 0.5, REINFORCE every 4th frame), warms up past the
 first two train frames, then traces ``--steps`` steps with
-``torch.profiler`` and prints one JSON line.  ``--engine ladder`` runs the
-ladder engine of ``chip_smoke.py`` phase 8a instead (``BlockCopyModel`` with
-the CLI's default settings, one clip) and adds the capacities of the traced
-frames.  The line holds:
+``torch.profiler`` and prints one JSON line.  ``--model csp`` runs the
+detection step of ``chip_smoke.py`` phase 9a instead (CSP-R50, 1024x2048
+bf16, fast policy, block 128, target 0.3: 38 of 128 blocks).
+``--engine ladder`` runs the ladder engine of ``chip_smoke.py`` phase 8a
+(``BlockCopyModel`` with the CLI's default settings, one clip; SwiftNet
+only) and adds the capacities of the traced frames.  The line holds:
 
 * ``wall_ms_per_step``: host clock over the traced steps, fenced by
   ``torch.cuda.synchronize()`` (the profiler's own cost included);
@@ -33,7 +35,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from blockcopy_tpu_torch.tools.measure import (swiftnet_stepper,
+from blockcopy_tpu_torch.tools.measure import (csp_stepper, swiftnet_stepper,
                                                synthetic_frames)
 
 
@@ -47,10 +49,13 @@ def _busy_us(intervals):
     return busy
 
 
-def _stepper(shape):
-    """The main path's per-frame call: ``first_step`` then ``step``."""
-    params, stepper = swiftnet_stepper("resnet50", shape, 64, torch.bfloat16,
-                                       "cuda")
+def _stepper(shape, model):
+    """The stepper's per-frame call: ``first_step`` then ``step``."""
+    if model == "csp":
+        params, stepper = csp_stepper(shape, 38, torch.bfloat16, "cuda")
+    else:
+        params, stepper = swiftnet_stepper("resnet50", shape, 64,
+                                           torch.bfloat16, "cuda")
     box = {"state": stepper.init_state(params, seed=1)}
 
     def run(t, frame):
@@ -87,12 +92,17 @@ def main() -> int:
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--engine", choices=("stepper", "ladder"),
                     default="stepper")
+    ap.add_argument("--model", choices=("swiftnet", "csp"),
+                    default="swiftnet")
     args = ap.parse_args()
+    if args.engine == "ladder" and args.model != "swiftnet":
+        ap.error("the ladder engine runs SwiftNet only")
     if not torch.cuda.is_available():
         print("profile_step: CUDA is not available", file=sys.stderr)
         return 2
     shape = (1, 1024, 2048, 3)
-    run = (_stepper if args.engine == "stepper" else _ladder)(shape)
+    run = _stepper(shape, args.model) if args.engine == "stepper" \
+        else _ladder(shape)
     frames = synthetic_frames(shape, args.warmup + args.steps + 1,
                               torch.bfloat16)
     for t in range(args.warmup + 1):
@@ -110,7 +120,7 @@ def main() -> int:
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     steps = args.steps
     result = {"device": torch.cuda.get_device_name(0), "steps": steps,
-              "engine": args.engine,
+              "engine": args.engine, "model": args.model,
               "wall_ms_per_step": wall_ms / steps,
               "device_busy_ms_per_step": None, "device_idle_share": None,
               "kernels_per_step": None, "top": None}

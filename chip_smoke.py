@@ -49,7 +49,23 @@ Phases (any failure raises and exits non-zero):
    against the CPU (RN50 256x512 fp32, 4 frames, injected draws, counts 8,
    4, 6, 8) within 1e-3 of the largest |CPU output|; (d) RN50 1024x2048
    ladder frames at block 256 in bf16 and fp32 and at block 128 in fp32,
-   with K2's launches per executed frame asserted (0, 10 and 8).
+   with K2's launches per executed frame asserted (0, 10 and 8);
+9. detection, before the JSON lines: (a) ``DetectionStepper`` on CSP-R50 at
+   full width and depth (``CSPConfig()``), 1024x2048 bf16, fast policy,
+   block 128, target 0.3 (38 of 128 blocks), REINFORCE every 4th frame,
+   random weights from seed 0 (the workload of ``bench_detection.py``):
+   ``init_state``, ``first_step`` and 12 steps, each under
+   ``set_sync_debug_mode("error")``; 38 blocks a step, finite (100, 5) dets,
+   policy updates at frames 4, 8 and 12 only, and 13 K1 and 8 K2 launches a
+   frame (``DET_HALO_SHAPES``, ``DET_TAIL_SHAPES``; counts zeroed just
+   before ``init_state``); ms/frame, peak memory, valid dets a frame; (b) the
+   detection step on the GPU against the CPU (plain versions), CSP
+   ``stage_blocks=(1, 2, 2, 1)`` 256x512 fp32, capacity 4, 3 frames,
+   injected draws: grids, ``valid`` and ``labels`` equal, canvases and dets
+   within 1e-3; (c) K1 against its plain version, bitwise, at the two shapes
+   the semseg path never makes (bs 8, C 512, pad 2; bs 32, C 768, pad 1),
+   both entry points and dtypes, then K1 and K2 timed at every detection
+   shape at K = 38 (per-frame sums beside their bounds).
 
 It needs one CUDA GPU and the repository around it: without either it exits
 non-zero and prints no result.
@@ -81,6 +97,18 @@ HALO_SHAPES = ([(32, 48)] + [(32, 64)] * 3 + [(32, 128), (16, 256),
 # main-path bottleneck-tail launches per step (bs, Cm, Co)
 TAIL_SHAPES = [(16, 128, 512)] * 3 + [(8, 256, 1024)] * 5
 N, GH, GW, K = 1, 8, 16, 64
+# detection path (phase 9) K1 launches per step (bs, C, pad) at K = 38, bf16;
+# see the exchange sites in models/csp.py: the stem's s2d planes, layer1's
+# three 3x3s, the strided first blocks of layer2 and layer3, layer4's three
+# dilated 3x3s (pad 2), the head's fused branch conv (768 channels) and its
+# three blocked final convs
+DET_HALO_SHAPES = ([(32, 48, 1)] + [(32, 64, 1)] * 3
+                   + [(32, 128, 1), (16, 256, 1)] + [(8, 512, 2)] * 3
+                   + [(32, 768, 1)] + [(32, 256, 1)] * 3)
+# its K2 launches: layer2 blocks 1-3 and layer3 blocks 1-5 (layer1 has Cm 64,
+# layer4 is dilated), the semseg path's eight
+DET_TAIL_SHAPES = TAIL_SHAPES
+DET_K = 38
 # K2's capacities: ladder mode's smallest at 1024x2048 (block 128, quantum
 # 1/16), the main path's, and ladder mode's largest
 TAIL_KS = (8, K, 128)
@@ -114,7 +142,7 @@ def phase_card():
     return smi
 
 
-def _halo_case(gen, bs, c, p, dtype, n_set):
+def _halo_case(gen, bs, c, p, dtype, n_set, k=K):
     from blockcopy_tpu_torch.core import grid as G
     dev = "cuda"
     total = N * GH * GW
@@ -128,16 +156,16 @@ def _halo_case(gen, bs, c, p, dtype, n_set):
     order = torch.randperm(total, generator=gen, device=dev)
     grid = torch.zeros(total, dtype=torch.bool, device=dev)
     grid[order[:n_set]] = True
-    idx = G.exec_indices(grid.view(N, GH, GW), K)
-    center = torch.randn((K, bs, bs, c), generator=gen, device=dev).to(dtype)
+    idx = G.exec_indices(grid.view(N, GH, GW), k)
+    center = torch.randn((k, bs, bs, c), generator=gen, device=dev).to(dtype)
     return canvas, strips, idx, center
 
 
-def halo_bytes(bs, c, p, itemsize):
-    interior = K * bs * bs * c
-    halo = K * (4 * p * bs + 4 * p * p) * c
-    out = K * (bs + 2 * p) ** 2 * c
-    return (interior + halo + out) * itemsize + 8 * K
+def halo_bytes(bs, c, p, itemsize, k=K):
+    interior = k * bs * bs * c
+    halo = k * (4 * p * bs + 4 * p * p) * c
+    out = k * (bs + 2 * p) ** 2 * c
+    return (interior + halo + out) * itemsize + 8 * k
 
 
 def phase_halo(gen):
@@ -724,6 +752,181 @@ def phase_ladder_modes():
     return err
 
 
+def phase_detection():
+    """(a) the detection step at full width; launch counts are zeroed just
+    before ``init_state`` and read after the last step."""
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.tools.measure import csp_stepper, synthetic_frames
+
+    torch.backends.cudnn.allow_tf32 = True
+    frame_shape, steps, dtype = (1, 1024, 2048, 3), 12, torch.bfloat16
+    capacity = int(round(0.3 * (1024 // 128) * (2048 // 128)))
+    params, stepper = csp_stepper(frame_shape, capacity, dtype, "cuda")
+    frames = synthetic_frames(frame_shape, steps + 1, dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state = stepper.init_state(params, seed=1)
+    built = dict(kernels.launches)
+    state = stepper.first_step(params, state, frames[0])
+    torch.cuda.synchronize()
+    first = {k: v - built[k] for k, v in kernels.launches.items()}
+    log(f"[9a] init_state + first_step {time.perf_counter() - t0:.2f} s "
+        f"(capacity {capacity} of {stepper.total}); launches: init_state "
+        f"{built}, first_step {first}")
+    ms, executed, heads, frame_ids, n_valid = [], [], [], [], []
+    for t in range(1, steps + 1):
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state = stepper.step(params, state, frames[t])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        executed.append(state["prev_grid"].sum())
+        heads.append(state["policy"]["params"]["head1"]["w"].clone())
+        frame_ids.append(state["frame_idx"])
+        n_valid.append(state["valid"].sum())
+    launches = dict(kernels.launches)
+    dets, labels, valid = stepper.fetch_outputs(state)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    if (tuple(dets.shape) != (100, 5) or tuple(labels.shape) != (100,)
+            or tuple(valid.shape) != (100,)):
+        raise AssertionError(f"dets {tuple(dets.shape)}, labels "
+                             f"{tuple(labels.shape)}, valid "
+                             f"{tuple(valid.shape)}")
+    if not bool(torch.isfinite(dets).all()):
+        raise AssertionError("non-finite dets")
+    blocks = [int(e.item()) for e in executed]
+    if any(b != capacity for b in blocks):
+        raise AssertionError(f"executed blocks per step {blocks}")
+    per_frame = {"halo_strips": len(DET_HALO_SHAPES), "halo_canvas": 0,
+                 "bottleneck_tail": len(DET_TAIL_SHAPES), "mm_bf16": 0,
+                 "mm_int8": 0}
+    want = {k: v * (steps + 1) for k, v in per_frame.items()}
+    if any(built.values()) or first != per_frame or launches != want:
+        raise AssertionError(f"detection launch counts {launches} (first "
+                             f"step {first}), expected {want}")
+    trained = []
+    for i in range(1, len(heads)):
+        changed = not torch.equal(heads[i], heads[i - 1])
+        if changed != (frame_ids[i] % 4 == 0):
+            raise AssertionError(
+                f"policy params changed={changed} at frame {frame_ids[i]}")
+        if changed:
+            trained.append(frame_ids[i])
+    steady = ms[2:]
+    med = statistics.median(steady)
+    valid_per_frame = [int(v.item()) for v in n_valid]
+    log(f"[9a] CSP-R50 1024x2048 bf16 detection step: {steps} steps, no host "
+        f"sync, {blocks[0]} blocks/step, dets {tuple(dets.shape)} finite, "
+        f"policy updated at frames {trained}, valid dets per frame "
+        f"{valid_per_frame} (random weights)")
+    log(f"[9a] launches over first_step + {steps} steps: {launches} (per "
+        f"frame: halo {len(DET_HALO_SHAPES)}, bottleneck tail "
+        f"{len(DET_TAIL_SHAPES)})")
+    log(f"[9a] ms/frame (host clock, synchronize-fenced, steps 3-{steps}): "
+        f"median {med:.2f}, min {min(steady):.2f}, max {max(steady):.2f}; "
+        f"all {[round(x, 2) for x in ms]}; peak memory {peak:.2f} GiB")
+    return launches, {"ms": med, "peak_gib": peak}
+
+
+def phase_detection_modes():
+    """(b) the detection step on the GPU against the CPU (plain versions)."""
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.policy import net as policy_net
+    from blockcopy_tpu_torch.tools.measure import (compare_clips,
+                                                   detection_clip)
+    policy_net.COMPUTE_DTYPE = torch.float32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    kernels.reset_launches()
+    gpu = detection_clip("cuda")
+    used = dict(kernels.launches)
+    cpu = detection_clip("cpu")
+    torch.backends.cudnn.deterministic = False
+    policy_net.COMPUTE_DTYPE = torch.bfloat16
+    grids, canvas_err, dets_err = compare_clips(gpu, cpu)
+    n_valid = [int(f["dets"][2].sum()) for f in cpu]
+    log(f"[9b] CSP (1, 2, 2, 1) 256x512 fp32 capacity 4, 3 frames, GPU "
+        f"(kernels {used}) vs CPU (plain versions): grids equal {grids}; "
+        f"canvases max abs err / max |CPU canvas| {canvas_err:.3g}; valid and "
+        f"labels equal, dets err {dets_err} (None: valid or labels differ), "
+        f"valid dets per frame {n_valid}; tol 1e-3")
+    if (not grids or canvas_err > 1e-3 or None in dets_err
+            or max(dets_err) > 1e-3 or not used["halo_strips"]
+            or not used["bottleneck_tail"]):
+        raise AssertionError("GPU detection step disagrees with the CPU")
+    return canvas_err, max(dets_err)
+
+
+def phase_detection_kernels(gen):
+    """(c) K1 bitwise against its plain version at the detection path's two
+    new shapes, then K1 and K2 (bf16) timed at every detection shape at
+    K = 38; returns the per-frame sums."""
+    from blockcopy_tpu_torch.ops.kernels import bottleneck as BT
+    from blockcopy_tpu_torch.ops.kernels import halo as H
+    from blockcopy_tpu_torch.tools.measure import device_ms
+    for bs, c, p in ((8, 512, 2), (32, 768, 1)):
+        for dtype in (torch.bfloat16, torch.float32):
+            canvas, strips, idx, center = _halo_case(gen, bs, c, p, dtype,
+                                                     DET_K - 3, DET_K)
+            args = (idx, p, N, GH, GW, center)
+            ref = H.halo_gather_canvas_plain(canvas, *args)
+            same = (torch.equal(H.halo_gather_canvas(canvas, *args), ref)
+                    and torch.equal(H.halo_gather_strips(strips, *args), ref)
+                    and torch.equal(H.halo_gather_strips_plain(strips, *args),
+                                    ref))
+            log(f"[9c] halo bs={bs} C={c} pad {p} {dtype} K={DET_K} (3 "
+                f"padding slots): both entry points bitwise == plain: {same}")
+            if not same:
+                raise AssertionError("halo kernel disagrees with its plain "
+                                     "version at a detection shape")
+    halo = {}
+    for bs, c, p in sorted(set(DET_HALO_SHAPES)):
+        canvas, strips, idx, center = _halo_case(gen, bs, c, p,
+                                                 torch.bfloat16, DET_K, DET_K)
+        args = (idx, p, N, GH, GW, center)
+        halo[(bs, c, p)] = {
+            "ms": device_ms(lambda: H.halo_gather_strips(strips, *args)),
+            "plain_ms": device_ms(
+                lambda: H.halo_gather_strips_plain(strips, *args)),
+            "bound_ms": halo_bytes(bs, c, p, 2, DET_K) / HBM_BYTES_PER_S
+            * 1e3}
+        t = halo[(bs, c, p)]
+        log(f"[9c] halo strips bs={bs:2d} C={c:3d} pad {p} bf16 K={DET_K}: "
+            f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}), bound "
+            f"{t['bound_ms']:.4f} ms (bytes)")
+    tail = {}
+    for bs, cm, co in sorted(set(DET_TAIL_SHAPES)):
+        args = _tail_case(gen, bs, cm, co, torch.bfloat16, DET_K)
+        flops, nbytes = tail_cost(bs, cm, co, 2, DET_K)
+        t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+        tail[(bs, cm, co)] = {
+            "ms": device_ms(lambda: BT.bottleneck_tail(*args)),
+            "plain_ms": device_ms(lambda: BT.bottleneck_tail_plain(*args)),
+            "bound_ms": max(t_ops, t_bytes) * 1e3}
+        t = tail[(bs, cm, co)]
+        log(f"[9c] tail bs={bs} Cm={cm} Co={co} bf16 K={DET_K}: "
+            f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}), bound "
+            f"{t['bound_ms']:.4f} ms "
+            f"({'operations' if t_ops > t_bytes else 'bytes'})")
+    out = {}
+    for name, rows, shapes in (("halo", halo, DET_HALO_SHAPES),
+                               ("tail", tail, DET_TAIL_SHAPES)):
+        out[name] = {key: sum(rows[s][key] for s in shapes)
+                     for key in ("ms", "plain_ms", "bound_ms")}
+        log(f"[9c] {name} per detection frame ({len(shapes)} launches, "
+            f"K={DET_K}): " + ", ".join(f"{k} {v:.4f}"
+                                        for k, v in out[name].items()))
+    return out
+
+
 def mm_cost(rows, k, n, itemsize, out_itemsize, peak):
     """Operations and the bound of one GEMM launch (each input read once,
     the output written once): (ms, "bytes" or "operations")."""
@@ -826,14 +1029,22 @@ def main() -> int:
     cli = phase_cli()
     ladder_err = phase_ladder_modes()
     blocks = phase_block_sizes()
+    det_launches, det = phase_detection()
+    det_canvas_err, det_dets_err = phase_detection_modes()
+    det_kern = phase_detection_kernels(gen)
 
     source = "blockcopy_tpu_torch/csrc/"
     common = {"route": "cuda", "library_ms": None, "matched": True}
     kern = [
         {"name": "halo_gather_strips", "source": source + "halo.cu",
          "replaces": "blockcopy_tpu/ops/pallas/halo.py:68",
-         "path": "main, ladder", "launches": launches["halo_strips"],
+         "path": "main, ladder, detection",
+         "launches": launches["halo_strips"],
          "ladder_launches": ladder_launches["halo_strips"],
+         "detection_launches": det_launches["halo_strips"],
+         "detection_ms": det_kern["halo"]["ms"],
+         "detection_plain_ms": det_kern["halo"]["plain_ms"],
+         "detection_bound_ms": det_kern["halo"]["bound_ms"],
          "max_abs_err": halo["err"], "ms": halo["strips"],
          "plain_ms": halo["strips_plain"], "bound_ms": halo["bound"],
          "bound_by": "bytes", **common},
@@ -845,8 +1056,13 @@ def main() -> int:
          "bound_by": "bytes", **common},
         {"name": "bottleneck_tail", "source": source + "bottleneck.cu",
          "replaces": "blockcopy_tpu/ops/pallas/bottleneck.py:92",
-         "path": "main, ladder", "launches": launches["bottleneck_tail"],
+         "path": "main, ladder, detection",
+         "launches": launches["bottleneck_tail"],
          "ladder_launches": ladder_launches["bottleneck_tail"],
+         "detection_launches": det_launches["bottleneck_tail"],
+         "detection_ms": det_kern["tail"]["ms"],
+         "detection_plain_ms": det_kern["tail"]["plain_ms"],
+         "detection_bound_ms": det_kern["tail"]["bound_ms"],
          # phase 8d: at block 256 the bf16 kernel takes no RN50 block
          "block256_launches": sum(blocks[(256, str(torch.bfloat16))]),
          "max_abs_err": tail["bf16"]["err"], "ms": tail["bf16"]["kernel"],
@@ -878,7 +1094,10 @@ def main() -> int:
         f"{cli['speed-mode']['fps']:.2f}, fp32 ladder "
         f"{cli['ladder fp32']['fps']:.2f}, fp32 speed-mode "
         f"{cli['speed-mode fp32']['fps']:.2f}; ladder GPU vs CPU "
-        f"{ladder_err:.3g}; "
+        f"{ladder_err:.3g}; detection path {det['ms']:.2f} ms/frame, peak "
+        f"{det['peak_gib']:.2f} GiB, GPU vs CPU canvases {det_canvas_err:.3g}"
+        f", dets {det_dets_err:.3g}; detection_* times are per detection "
+        f"frame at K = {DET_K}; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kern}))

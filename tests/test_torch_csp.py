@@ -212,3 +212,55 @@ def test_converter_round_trip(dtype):
         jnp.asarray(x, dtype))), tp["neck"]["p4"]["w"],
         tp["neck"]["p4"]["b"], stride=4, padding=0)
     close_rel(ref, got, 1e-5 if dtype == jnp.float32 else 3e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_tails_per_frame(monkeypatch, dtype):
+    """The tails CSP hands the fused kernel per frame at block 128, routed on
+    the CPU as on the card: layer2 blocks 1-3 (bs 16, Cm 128) and layer3
+    blocks 1-5 (bs 8, Cm 256), 8 in all; layer1 (Cm 64) and the dilated
+    layer4 stay unfused.  Layers 1 and 4 are cut to one block (they fuse
+    nothing), on a 128x256 frame."""
+    import blockcopy_tpu_torch.models.swiftnet as TS
+    from blockcopy_tpu_torch.tools.measure import csp_stepper
+    calls = []
+    real = TS.bottleneck_tail
+    monkeypatch.setattr(TS, "bottleneck_tail",
+                        lambda *a: calls.append(a[0].shape[1:]) or real(*a))
+    monkeypatch.setattr(TS, "FUSED_BOTTLENECK", None)   # port default: on
+    params, st = csp_stepper((1, 128, 256, 3), 1, dtype, "cpu",
+                             TC.CSPConfig(stage_blocks=(1, 4, 6, 1)))
+    frame = torch.randn((1, 128, 256, 3), generator=torch.Generator()
+                        .manual_seed(0)).to(dtype)
+    state = st.first_step(params, st.init_state(params, seed=1), frame)
+    assert len(calls) == 8
+    state = st.step(params, state, frame)
+    assert [tuple(c) for c in calls[8:]] == [(16, 16, 128)] * 3 \
+        + [(8, 8, 256)] * 5
+    assert bool(torch.isfinite(state["dets"]).all())
+
+
+def test_halo_sites_per_frame(monkeypatch):
+    """The K1 launches CSP makes per frame at block 128, (bs, C, pad) in
+    order, routed on the CPU as on the card: the stem's s2d planes, a 3x3
+    per layer1 block, the strided first blocks of layer2 and layer3, a
+    dilated 3x3 (pad 2) per layer4 block, the head's fused branch conv (768
+    channels) and its three blocked final convs.  ``chip_smoke.py`` holds
+    the full-depth count (13) on the card."""
+    from blockcopy_tpu_torch.tools.measure import csp_stepper
+    calls = []
+    real = TB.halo_gather_strips_kernel
+
+    def record(strips, idx, pad, *rest):
+        calls.append((strips["cols"].shape[1], strips["cols"].shape[-1],
+                      pad))
+        return real(strips, idx, pad, *rest)
+
+    monkeypatch.setattr(TB, "halo_gather_strips_kernel", record)
+    cfg = TC.CSPConfig(stage_blocks=(2, 4, 6, 2))
+    params, st = csp_stepper((1, 128, 256, 3), 1, torch.float32, "cpu", cfg)
+    frame = torch.zeros((1, 128, 256, 3))
+    st.first_step(params, st.init_state(params, seed=1), frame)
+    assert calls == ([(32, 48, 1)] + [(32, 64, 1)] * 2
+                     + [(32, 128, 1), (16, 256, 1)] + [(8, 512, 2)] * 2
+                     + [(32, 768, 1)] + [(32, 256, 1)] * 3)

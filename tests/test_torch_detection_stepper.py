@@ -171,3 +171,31 @@ def test_macs_and_task_shapes(block):
     macs = st.macs_breakdown_per_step(params)
     assert set(macs) == {"backbone", "neck", "head", "policy"}
     assert all(v > 0 for v in macs.values())
+
+
+def test_detection_clip_tool_on_cpu():
+    """``tools/measure.py:detection_clip``, which holds the card against
+    the CPU (``chip_smoke.py`` phase 9b, the GPU tests), on the CPU: the
+    injected draws give 4-block grids, some dets are valid, and the carried
+    canvases include the head's three output maps."""
+    from blockcopy_tpu_torch.tools.measure import compare_clips, detection_clip
+    clip = detection_clip("cpu", frames=2)
+    assert [int(f["grid"].sum()) for f in clip] == [8, 4]
+    for f in clip:
+        dets, labels, valid = f["dets"]
+        assert tuple(dets.shape) == (100, 5) and 0 < int(valid.sum()) < 100
+        assert {"head.csp_cls.out", "head.csp_reg.out",
+                "head.csp_offset.out"} <= set(f["canvases"])
+    assert compare_clips(clip, clip) == (True, 0.0, [0.0, 0.0])
+    # the comparison sees a moved box, a changed label, a changed canvas
+    moved = [{**f, "dets": (f["dets"][0] + 0.5, *f["dets"][1:])}
+             for f in clip]
+    assert compare_clips(moved, clip)[2][0] > 1e-3
+    relabeled = [{**f, "dets": (f["dets"][0], 1 - f["dets"][1],
+                                f["dets"][2])} for f in clip]
+    assert compare_clips(relabeled, clip)[2] == [None, None]
+    name = "head.csp_cls.out"
+    bumped = [{**f, "canvases": {**f["canvases"],
+                                 name: f["canvases"][name] + 1.0}}
+              for f in clip]
+    assert compare_clips(bumped, clip)[1] > 1e-3

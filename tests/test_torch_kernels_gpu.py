@@ -87,6 +87,34 @@ def test_halo_kernel_ladder_capacity_8(cuda_device, bs, c, dtype):
     assert torch.equal(got_c.cpu(), ref) and torch.equal(got_s.cpu(), ref)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,c,pad", [(8, 512, 2), (32, 768, 1)])
+def test_halo_kernel_detection_shapes(cuda_device, bs, c, pad, dtype):
+    """The detection path's shapes the semseg path never makes: CSP
+    layer4's dilated 3x3s (pad 2) and the head's 768-channel branch conv,
+    at 38 of 128 blocks with 3 padding slots, both entry points."""
+    n, gh, gw = 1, 8, 16
+    total = n * gh * gw
+    gen = torch.Generator().manual_seed(bs + c + pad)
+    canvas = torch.randn((total + 1, bs, bs, c), generator=gen).to(dtype)
+    canvas[-1] = 0
+    grid = torch.zeros(total, dtype=torch.bool)
+    grid[torch.randperm(total, generator=gen)[:35]] = True
+    idx = TG.exec_indices(grid.view(n, gh, gw), 38)
+    center = torch.randn((38, bs, bs, c), generator=gen).to(dtype)
+    strips = {"rows": torch.cat([canvas[:, :pad], canvas[:, -pad:]], 1),
+              "cols": torch.cat([canvas[:, :, :pad], canvas[:, :, -pad:]], 2)}
+    ref = H.halo_gather_canvas_plain(canvas, idx, pad, n, gh, gw, center)
+    dev = {"device": cuda_device}
+    got_c = H.halo_gather_canvas(canvas.to(**dev), idx.to(**dev), pad, n,
+                                 gh, gw, center.to(**dev))
+    got_s = H.halo_gather_strips({k: v.contiguous().to(**dev)
+                                  for k, v in strips.items()},
+                                 idx.to(**dev), pad, n, gh, gw,
+                                 center.to(**dev))
+    assert torch.equal(got_c.cpu(), ref) and torch.equal(got_s.cpu(), ref)
+
+
 def test_halo_kernel_refuses_bad_inputs(cuda_device):
     canvas = torch.zeros((9, 4, 4, 8), device=cuda_device)
     idx = torch.arange(2, device=cuda_device)
@@ -299,6 +327,45 @@ def test_rn50_ladder_frames_by_block_size(cuda_device, monkeypatch, block,
     for a, b in zip(gpu, cpu):
         assert torch.isfinite(a).all()
         assert (a - b).abs().max().item() <= tol * b.abs().max().item()
+
+
+def test_detection_step_matches_cpu(cuda_device, monkeypatch):
+    """The detection step on the card (K1, K2) against the CPU (plain
+    versions): CSP (1, 2, 2, 1) 256x512 fp32, capacity 4, 3 frames with
+    injected draws (``tools/measure.py:detection_clip``).  Grids, ``valid``
+    and ``labels`` equal; canvases and dets within 1e-3 of their largest
+    |CPU value|.  Per frame 9 K1 launches (the stem, one per layer1 and
+    layer4 block, layer2/3's strided blocks, the head's 4) and 2 K2."""
+    from blockcopy_tpu_torch.policy import net as policy_net
+    from blockcopy_tpu_torch.tools.measure import compare_clips, detection_clip
+    monkeypatch.setattr(policy_net, "COMPUTE_DTYPE", torch.float32)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    before = dict(kernels.launches)
+    gpu = detection_clip("cuda")
+    used = {k: kernels.launches[k] - before[k] for k in before}
+    cpu = detection_clip("cpu")
+    assert used["halo_strips"] == 27 and used["bottleneck_tail"] == 6
+    grids, canvas_err, dets_err = compare_clips(gpu, cpu)
+    assert grids and canvas_err <= 1e-3
+    assert None not in dets_err and max(dets_err) <= 1e-3
+    assert all(int(f["dets"][2].sum()) > 0 for f in cpu)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_csp_full_depth_launches(cuda_device, dtype):
+    """CSP-R50 at full depth, block 128 (a 256x512 clip, capacity 4): 13 K1
+    and 8 K2 launches a frame, layer2 blocks 1-3 and layer3 blocks 1-5
+    fused in both dtypes."""
+    from blockcopy_tpu_torch.tools.measure import csp_stepper, synthetic_frames
+    shape = (1, 256, 512, 3)
+    params, st = csp_stepper(shape, 4, dtype, cuda_device)
+    frames = synthetic_frames(shape, 2, dtype, device=cuda_device)
+    before = dict(kernels.launches)
+    state = st.first_step(params, st.init_state(params, seed=1), frames[0])
+    state = st.step(params, state, frames[1])
+    used = {k: kernels.launches[k] - before[k] for k in before}
+    assert used["halo_strips"] == 26 and used["bottleneck_tail"] == 16
+    assert bool(torch.isfinite(state["dets"]).all())
 
 
 @pytest.mark.parametrize("rows,k,n", [(128, 64, 8), (128, 160, 136),
