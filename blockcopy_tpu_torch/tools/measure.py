@@ -88,8 +88,10 @@ def detection_clip(device, frames=3, seed=2):
     for t, frame in enumerate(clip):
         state = stepper.first_step(params, state, frame) if t == 0 else \
             stepper.step(params, state, frame, draws=draws[t - 1])
-        out.append({"canvases": tree_map(lambda x: x.float().cpu(),
-                                         state["canvases"]),
+        # copies: the step updates the canvases in place
+        out.append({"canvases": tree_map(
+                        lambda x: x.to("cpu", torch.float32, copy=True),
+                        state["canvases"]),
                     "grid": state["prev_grid"].cpu(),
                     "dets": tuple(x.cpu()
                                   for x in stepper.fetch_outputs(state))})

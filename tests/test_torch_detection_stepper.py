@@ -186,6 +186,9 @@ def test_detection_clip_tool_on_cpu():
         assert tuple(dets.shape) == (100, 5) and 0 < int(valid.sum()) < 100
         assert {"head.csp_cls.out", "head.csp_reg.out",
                 "head.csp_offset.out"} <= set(f["canvases"])
+    # each frame's canvases are a snapshot, not the live buffers
+    fs = TST.FRAME_STATE
+    assert not torch.equal(clip[0]["canvases"][fs], clip[1]["canvases"][fs])
     assert compare_clips(clip, clip) == (True, 0.0, [0.0, 0.0])
     # the comparison sees a moved box, a changed label, a changed canvas
     moved = [{**f, "dets": (f["dets"][0] + 0.5, *f["dets"][1:])}
