@@ -34,6 +34,17 @@ def test_import_leaves_jax_out():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_walk_covers_detection():
+    """The import walk above reaches the detection modules."""
+    import pkgutil
+    import blockcopy_tpu_torch as p
+    names = {m.name for m in pkgutil.walk_packages(p.__path__,
+                                                    p.__name__ + ".")}
+    assert {f"blockcopy_tpu_torch.{m}" for m in (
+        "models.csp", "ops.nms", "tasks.detection.stepper",
+        "tasks.detection.information_gain")} <= names
+
+
 def test_cli_runs_without_jax_or_pil():
     """The semseg CLI on ``--synthetic`` clips imports neither JAX, nor the
     JAX package, nor PIL (the card's machine has no PIL)."""
@@ -117,10 +128,23 @@ def _cli():
     cli.main(["--synthetic", "--res", "128"])
 
 
+def _csp():
+    from blockcopy_tpu_torch.models.csp import CSPConfig, init_csp
+    init_csp(CSPConfig(stage_blocks=(1, 1, 1, 1)))
+
+
+def _detection_stepper():
+    from blockcopy_tpu_torch.core.stepper import StepperConfig
+    from blockcopy_tpu_torch.models.csp import CSPConfig
+    from blockcopy_tpu_torch.tasks.detection.stepper import DetectionStepper
+    DetectionStepper(CSPConfig(), StepperConfig(), (1, 256, 256, 3), 2)
+
+
 @pytest.mark.parametrize("entry", [_swiftnet, _policy, _stepper,
                                    _params_from_jax, _probe, _engine,
                                    _build_policy, _load_checkpoint,
-                                   _load_npz, _cli])
+                                   _load_npz, _cli, _csp,
+                                   _detection_stepper])
 def test_entry_points_default_to_cuda(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
