@@ -105,7 +105,7 @@ def conv2d(ctx: ExecCtx, name: str, x: Arrayish, w: torch.Tensor,
 
 def conv_transpose2d(ctx: ExecCtx, name: str, x: Arrayish, w: torch.Tensor,
                      b: Optional[torch.Tensor] = None, stride: int = 2,
-                     padding: int = 0, output_padding: int = 0) -> Arrayish:
+                     padding: int = 0) -> Arrayish:
     """Transposed convolution (the CSP neck's upsampling heads,
     ``layers.py:464``), ``w`` in torch's (in, out, kh, kw) layout: JAX's HWIO
     kernel permuted (2, 3, 0, 1), with no spatial flip (JAX flips because it
@@ -117,7 +117,7 @@ def conv_transpose2d(ctx: ExecCtx, name: str, x: Arrayish, w: torch.Tensor,
     def run(data: torch.Tensor) -> torch.Tensor:
         dt = data.dtype
         out = nhwc(F.conv_transpose2d(nchw(data), w.to(dt), None, stride,
-                                      padding, output_padding))
+                                      padding))
         if b is not None:
             out = out + b.to(dt)
         return out

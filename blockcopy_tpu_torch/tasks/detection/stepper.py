@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from blockcopy_tpu_torch.core.stepper import FixedCapacityStepper, StepperConfig
+from blockcopy_tpu_torch.core.stepper import (FixedCapacityStepper,
+                                              StepperConfig)
 from blockcopy_tpu_torch.models.csp import CSPConfig, csp_decode, make_apply_fn
 from blockcopy_tpu_torch.tasks.detection.information_gain import (
     SUBSAMPLE,

@@ -345,19 +345,17 @@ def phase_tail(gen):
     return out
 
 
-def phase_main():
-    """The main path at full width; launch counts are zeroed just before
-    ``init_state`` and read after the last step."""
+def _drive_stepper(tag, stepper, params, frames, per_frame, watch=None):
+    """``init_state``, ``first_step`` and a ``step`` per further frame, each
+    step under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync
+    fails the run).  Launch counts are zeroed just before ``init_state`` and
+    read after the last step; it checks that ``init_state`` launches
+    nothing, that every frame launches ``per_frame``, that every step runs
+    ``capacity`` blocks and that the policy is updated exactly at frames
+    = 0 (mod 4).  ``watch(state)`` is kept after each step.  Returns the
+    last state, the launches, ms per step, the trained frames, what
+    ``watch`` kept and the peak memory in GiB."""
     from blockcopy_tpu_torch.ops import kernels
-    from blockcopy_tpu_torch.tools.measure import (swiftnet_stepper,
-                                                   synthetic_frames)
-
-    torch.backends.cudnn.allow_tf32 = True
-    frame_shape, steps, dtype = (1, 1024, 2048, 3), 12, torch.bfloat16
-    capacity = int(round(0.5 * (1024 // 128) * (2048 // 128)))
-    params, stepper = swiftnet_stepper("resnet50", frame_shape, capacity,
-                                       dtype, "cuda", train_interval=4)
-    frames = synthetic_frames(frame_shape, steps + 1, dtype)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -368,15 +366,15 @@ def phase_main():
     state = stepper.first_step(params, state, frames[0])
     torch.cuda.synchronize()
     first = {k: v - built[k] for k, v in kernels.launches.items()}
-    log(f"[4] init_state + first_step {time.perf_counter() - t0:.2f} s "
-        f"(capacity {capacity} of {stepper.total}); launches: init_state "
-        f"{built}, first_step {first}")
-    ms, executed, heads, frame_ids = [], [], [], []
-    for t in range(1, steps + 1):
+    log(f"[{tag}] init_state + first_step {time.perf_counter() - t0:.2f} s "
+        f"(capacity {stepper.capacity} of {stepper.total}); launches: "
+        f"init_state {built}, first_step {first}")
+    ms, executed, heads, frame_ids, kept = [], [], [], [], []
+    for frame in frames[1:]:
         t0 = time.perf_counter()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            state = stepper.step(params, state, frames[t])
+            state = stepper.step(params, state, frame)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
@@ -384,23 +382,18 @@ def phase_main():
         executed.append(state["prev_grid"].sum())
         heads.append(state["policy"]["params"]["head1"]["w"].clone())
         frame_ids.append(state["frame_idx"])
+        if watch is not None:
+            kept.append(watch(state))
     launches = dict(kernels.launches)
-    out = stepper.fetch_outputs(state)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
-    if tuple(out.shape) != (1, 256, 512, 19):
-        raise AssertionError(f"output shape {tuple(out.shape)}")
-    if not bool(torch.isfinite(out.float()).all()):
-        raise AssertionError("non-finite outputs")
     blocks = [int(e.item()) for e in executed]
-    if any(b != capacity for b in blocks):
+    if any(b != stepper.capacity for b in blocks):
         raise AssertionError(f"executed blocks per step {blocks}")
-    per_frame = {"halo_strips": len(HALO_SHAPES), "halo_canvas": 0,
-                 "bottleneck_tail": len(TAIL_SHAPES), "mm_bf16": 0,
-                 "mm_int8": 0}
-    want = {k: v * (steps + 1) for k, v in per_frame.items()}
-    if (any(built.values()) or first != per_frame or launches != want):
-        raise AssertionError(f"launch counts {launches}, expected {want}")
+    want = {k: v * len(frames) for k, v in per_frame.items()}
+    if any(built.values()) or first != per_frame or launches != want:
+        raise AssertionError(f"launch counts {launches} (first step "
+                             f"{first}), expected {want}")
     trained = []
     for i in range(1, len(heads)):
         changed = not torch.equal(heads[i], heads[i - 1])
@@ -409,18 +402,45 @@ def phase_main():
                 f"policy params changed={changed} at frame {frame_ids[i]}")
         if changed:
             trained.append(frame_ids[i])
+    return state, launches, ms, trained, kept, peak
+
+
+def _log_steps(tag, ms, launches, peak):
     steady = ms[2:]
-    med = statistics.median(steady)
+    log(f"[{tag}] launches over first_step + {len(ms)} steps: {launches}")
+    log(f"[{tag}] ms/frame (host clock, synchronize-fenced, steps "
+        f"3-{len(ms)}): median {statistics.median(steady):.2f}, min "
+        f"{min(steady):.2f}, max {max(steady):.2f}; all "
+        f"{[round(x, 2) for x in ms]}; peak memory {peak:.2f} GiB")
+    return statistics.median(steady)
+
+
+def phase_main():
+    """The main path at full width (``_drive_stepper``)."""
+    from blockcopy_tpu_torch.tools.measure import (swiftnet_stepper,
+                                                   synthetic_frames)
+
+    torch.backends.cudnn.allow_tf32 = True
+    frame_shape, steps, dtype = (1, 1024, 2048, 3), 12, torch.bfloat16
+    capacity = int(round(0.5 * (1024 // 128) * (2048 // 128)))
+    params, stepper = swiftnet_stepper("resnet50", frame_shape, capacity,
+                                       dtype, "cuda", train_interval=4)
+    frames = synthetic_frames(frame_shape, steps + 1, dtype)
+    per_frame = {"halo_strips": len(HALO_SHAPES), "halo_canvas": 0,
+                 "bottleneck_tail": len(TAIL_SHAPES), "mm_bf16": 0,
+                 "mm_int8": 0}
+    state, launches, ms, trained, _, peak = _drive_stepper(
+        "4", stepper, params, frames, per_frame)
+    out = stepper.fetch_outputs(state)
+    if tuple(out.shape) != (1, 256, 512, 19):
+        raise AssertionError(f"output shape {tuple(out.shape)}")
+    if not bool(torch.isfinite(out.float()).all()):
+        raise AssertionError("non-finite outputs")
     log(f"[4] RN50 1024x2048 bf16: {steps} steps, no host sync, "
-        f"{blocks[0]} blocks/step, outputs {tuple(out.shape)} finite, "
-        f"policy updated at frames {trained}")
-    log(f"[4] launches over first_step + {steps} steps: {launches} "
-        f"(per frame: halo {len(HALO_SHAPES)}, bottleneck tail "
-        f"{len(TAIL_SHAPES)})")
-    log(f"[4] ms/frame (host clock, synchronize-fenced, steps 3-{steps}): "
-        f"median {med:.2f}, min {min(steady):.2f}, max {max(steady):.2f}; "
-        f"all {[round(x, 2) for x in ms]}; peak memory {peak:.2f} GiB")
-    return launches, med
+        f"{capacity} blocks/step, outputs {tuple(out.shape)} finite, "
+        f"policy updated at frames {trained} (per frame: halo "
+        f"{len(HALO_SHAPES)}, bottleneck tail {len(TAIL_SHAPES)})")
+    return launches, _log_steps("4", ms, launches, peak)
 
 
 def _small_run(backbone, device, steps=2, halo="strips", plane_stem=True):
@@ -753,9 +773,7 @@ def phase_ladder_modes():
 
 
 def phase_detection():
-    """(a) the detection step at full width; launch counts are zeroed just
-    before ``init_state`` and read after the last step."""
-    from blockcopy_tpu_torch.ops import kernels
+    """(a) the detection step at full width (``_drive_stepper``)."""
     from blockcopy_tpu_torch.tools.measure import csp_stepper, synthetic_frames
 
     torch.backends.cudnn.allow_tf32 = True
@@ -763,37 +781,13 @@ def phase_detection():
     capacity = int(round(0.3 * (1024 // 128) * (2048 // 128)))
     params, stepper = csp_stepper(frame_shape, capacity, dtype, "cuda")
     frames = synthetic_frames(frame_shape, steps + 1, dtype)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    state = stepper.init_state(params, seed=1)
-    built = dict(kernels.launches)
-    state = stepper.first_step(params, state, frames[0])
-    torch.cuda.synchronize()
-    first = {k: v - built[k] for k, v in kernels.launches.items()}
-    log(f"[9a] init_state + first_step {time.perf_counter() - t0:.2f} s "
-        f"(capacity {capacity} of {stepper.total}); launches: init_state "
-        f"{built}, first_step {first}")
-    ms, executed, heads, frame_ids, n_valid = [], [], [], [], []
-    for t in range(1, steps + 1):
-        t0 = time.perf_counter()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            state = stepper.step(params, state, frames[t])
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-        executed.append(state["prev_grid"].sum())
-        heads.append(state["policy"]["params"]["head1"]["w"].clone())
-        frame_ids.append(state["frame_idx"])
-        n_valid.append(state["valid"].sum())
-    launches = dict(kernels.launches)
+    per_frame = {"halo_strips": len(DET_HALO_SHAPES), "halo_canvas": 0,
+                 "bottleneck_tail": len(DET_TAIL_SHAPES), "mm_bf16": 0,
+                 "mm_int8": 0}
+    state, launches, ms, trained, n_valid, peak = _drive_stepper(
+        "9a", stepper, params, frames, per_frame,
+        watch=lambda st: st["valid"].sum())
     dets, labels, valid = stepper.fetch_outputs(state)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-
     if (tuple(dets.shape) != (100, 5) or tuple(labels.shape) != (100,)
             or tuple(valid.shape) != (100,)):
         raise AssertionError(f"dets {tuple(dets.shape)}, labels "
@@ -801,37 +795,13 @@ def phase_detection():
                              f"{tuple(valid.shape)}")
     if not bool(torch.isfinite(dets).all()):
         raise AssertionError("non-finite dets")
-    blocks = [int(e.item()) for e in executed]
-    if any(b != capacity for b in blocks):
-        raise AssertionError(f"executed blocks per step {blocks}")
-    per_frame = {"halo_strips": len(DET_HALO_SHAPES), "halo_canvas": 0,
-                 "bottleneck_tail": len(DET_TAIL_SHAPES), "mm_bf16": 0,
-                 "mm_int8": 0}
-    want = {k: v * (steps + 1) for k, v in per_frame.items()}
-    if any(built.values()) or first != per_frame or launches != want:
-        raise AssertionError(f"detection launch counts {launches} (first "
-                             f"step {first}), expected {want}")
-    trained = []
-    for i in range(1, len(heads)):
-        changed = not torch.equal(heads[i], heads[i - 1])
-        if changed != (frame_ids[i] % 4 == 0):
-            raise AssertionError(
-                f"policy params changed={changed} at frame {frame_ids[i]}")
-        if changed:
-            trained.append(frame_ids[i])
-    steady = ms[2:]
-    med = statistics.median(steady)
-    valid_per_frame = [int(v.item()) for v in n_valid]
     log(f"[9a] CSP-R50 1024x2048 bf16 detection step: {steps} steps, no host "
-        f"sync, {blocks[0]} blocks/step, dets {tuple(dets.shape)} finite, "
+        f"sync, {capacity} blocks/step, dets {tuple(dets.shape)} finite, "
         f"policy updated at frames {trained}, valid dets per frame "
-        f"{valid_per_frame} (random weights)")
-    log(f"[9a] launches over first_step + {steps} steps: {launches} (per "
-        f"frame: halo {len(DET_HALO_SHAPES)}, bottleneck tail "
+        f"{[int(v.item()) for v in n_valid]} (random weights; per frame: "
+        f"halo {len(DET_HALO_SHAPES)}, bottleneck tail "
         f"{len(DET_TAIL_SHAPES)})")
-    log(f"[9a] ms/frame (host clock, synchronize-fenced, steps 3-{steps}): "
-        f"median {med:.2f}, min {min(steady):.2f}, max {max(steady):.2f}; "
-        f"all {[round(x, 2) for x in ms]}; peak memory {peak:.2f} GiB")
+    med = _log_steps("9a", ms, launches, peak)
     return launches, {"ms": med, "peak_gib": peak}
 
 

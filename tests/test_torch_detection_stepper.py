@@ -37,8 +37,8 @@ from blockcopy_tpu_torch.utils.convert import (params_from_jax,
                                                params_to_numpy,
                                                policy_state_from_jax,
                                                stepper_state_to_numpy)
-from torch_port_util import assert_same, assert_tree, close_rel, jtree, npf
-from torch_port_util import tt
+from torch_port_util import (assert_same, assert_tree, close_rel, jtree,
+                             moving_square_frames, npf, stepper_draws, tt)
 from torch_port_util import two_torch_threads  # noqa: F401
 
 SHAPE = (1, 256, 256, 3)
@@ -46,24 +46,6 @@ CAPACITY = 2
 TOL = 1e-3
 CFG = dict(stage_blocks=(1, 2, 2, 1))
 SCORE_THR = 0.6
-
-
-def _frames(count, seed=0):
-    base = np.random.RandomState(seed).randn(*SHAPE).astype(np.float32)
-    out = []
-    for t in range(count):
-        f = base.copy()
-        s = 24 * t
-        f[:, s:s + 96, s:s + 96] += 2.0
-        out.append(f)
-    return out
-
-
-def _jax_draws(policy_state, probs_shape, total):
-    _, k_use = jax.random.split(policy_state["key"])
-    k1, k2 = jax.random.split(k_use)
-    return (jax.random.uniform(k1, probs_shape),
-            jax.random.uniform(k2, (total,)))
 
 
 def _match_dets(ref, got, frame):
@@ -131,7 +113,7 @@ def test_detection_clip_matches_jax(monkeypatch):
                                           device="cpu"),
                     "generator": ts["policy"]["generator"]}
 
-    frames = _frames(4)
+    frames = moving_square_frames(SHAPE, 4)
     # jitted: JAX compiles two programs instead of every op of both shapes
     jfirst, jstep = jax.jit(jst.first_step), jax.jit(jst.step)
     js = jfirst(jparams, js, jnp.asarray(frames[0]))
@@ -141,7 +123,7 @@ def test_detection_clip_matches_jax(monkeypatch):
     heads = [npf(ts["policy"]["params"]["head1"]["w"])]
     n, gh, gw = jst.geom
     for t, frame in enumerate(frames[1:], start=2):
-        u, u_rank = _jax_draws(js["policy"], (n, gh, gw), n * gh * gw)
+        u, u_rank = stepper_draws(js["policy"], (n, gh, gw), n * gh * gw)
         js = jstep(jparams, js, jnp.asarray(frame))
         ts = tst.step(tparams, ts, tt(frame), draws=(tt(u), tt(u_rank)))
         _compare(js, ts, t)

@@ -60,24 +60,23 @@ def test_halo_kernel_matches_plain(cuda_device, pad, c, dtype):
     assert kernels.launches["halo_strips"] == before["halo_strips"] + 1
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bs,c", [(32, 48), (16, 256), (8, 512), (4, 512)])
-def test_halo_kernel_ladder_capacity_8(cuda_device, bs, c, dtype):
-    """Ladder mode's smallest capacity at 1024x2048: 8 of 128 blocks, one
-    of them a padding slot, at main-path (bs, C), both entry points."""
-    n, gh, gw, pad = 1, 8, 16, 1
+def _halo_full_grid(device, bs, c, pad, dtype, n_set, k, seed):
+    """Both entry points on a 1024x2048 grid at block 128 (8x16 blocks):
+    ``n_set`` of them executed, ``k - n_set`` padding slots; bitwise against
+    the plain version."""
+    n, gh, gw = 1, 8, 16
     total = n * gh * gw
-    gen = torch.Generator().manual_seed(bs + c)
+    gen = torch.Generator().manual_seed(seed)
     canvas = torch.randn((total + 1, bs, bs, c), generator=gen).to(dtype)
     canvas[-1] = 0
     grid = torch.zeros(total, dtype=torch.bool)
-    grid[torch.randperm(total, generator=gen)[:7]] = True
-    idx = TG.exec_indices(grid.view(n, gh, gw), 8)
-    center = torch.randn((8, bs, bs, c), generator=gen).to(dtype)
+    grid[torch.randperm(total, generator=gen)[:n_set]] = True
+    idx = TG.exec_indices(grid.view(n, gh, gw), k)
+    center = torch.randn((k, bs, bs, c), generator=gen).to(dtype)
     strips = {"rows": torch.cat([canvas[:, :pad], canvas[:, -pad:]], 1),
               "cols": torch.cat([canvas[:, :, :pad], canvas[:, :, -pad:]], 2)}
     ref = H.halo_gather_canvas_plain(canvas, idx, pad, n, gh, gw, center)
-    dev = {"device": cuda_device}
+    dev = {"device": device}
     got_c = H.halo_gather_canvas(canvas.to(**dev), idx.to(**dev), pad, n,
                                  gh, gw, center.to(**dev))
     got_s = H.halo_gather_strips({k: v.contiguous().to(**dev)
@@ -85,6 +84,14 @@ def test_halo_kernel_ladder_capacity_8(cuda_device, bs, c, dtype):
                                  idx.to(**dev), pad, n, gh, gw,
                                  center.to(**dev))
     assert torch.equal(got_c.cpu(), ref) and torch.equal(got_s.cpu(), ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,c", [(32, 48), (16, 256), (8, 512), (4, 512)])
+def test_halo_kernel_ladder_capacity_8(cuda_device, bs, c, dtype):
+    """Ladder mode's smallest capacity at 1024x2048: 8 of 128 blocks, one
+    of them a padding slot, at main-path (bs, C), both entry points."""
+    _halo_full_grid(cuda_device, bs, c, 1, dtype, 7, 8, seed=bs + c)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -93,26 +100,7 @@ def test_halo_kernel_detection_shapes(cuda_device, bs, c, pad, dtype):
     """The detection path's shapes the semseg path never makes: CSP
     layer4's dilated 3x3s (pad 2) and the head's 768-channel branch conv,
     at 38 of 128 blocks with 3 padding slots, both entry points."""
-    n, gh, gw = 1, 8, 16
-    total = n * gh * gw
-    gen = torch.Generator().manual_seed(bs + c + pad)
-    canvas = torch.randn((total + 1, bs, bs, c), generator=gen).to(dtype)
-    canvas[-1] = 0
-    grid = torch.zeros(total, dtype=torch.bool)
-    grid[torch.randperm(total, generator=gen)[:35]] = True
-    idx = TG.exec_indices(grid.view(n, gh, gw), 38)
-    center = torch.randn((38, bs, bs, c), generator=gen).to(dtype)
-    strips = {"rows": torch.cat([canvas[:, :pad], canvas[:, -pad:]], 1),
-              "cols": torch.cat([canvas[:, :, :pad], canvas[:, :, -pad:]], 2)}
-    ref = H.halo_gather_canvas_plain(canvas, idx, pad, n, gh, gw, center)
-    dev = {"device": cuda_device}
-    got_c = H.halo_gather_canvas(canvas.to(**dev), idx.to(**dev), pad, n,
-                                 gh, gw, center.to(**dev))
-    got_s = H.halo_gather_strips({k: v.contiguous().to(**dev)
-                                  for k, v in strips.items()},
-                                 idx.to(**dev), pad, n, gh, gw,
-                                 center.to(**dev))
-    assert torch.equal(got_c.cpu(), ref) and torch.equal(got_s.cpu(), ref)
+    _halo_full_grid(cuda_device, bs, c, pad, dtype, 35, 38, seed=bs + c + pad)
 
 
 def test_halo_kernel_refuses_bad_inputs(cuda_device):

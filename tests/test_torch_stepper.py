@@ -30,32 +30,13 @@ from blockcopy_tpu_torch.utils.convert import (params_from_jax,
                                                policy_state_from_jax,
                                                stepper_state_from_jax,
                                                stepper_state_to_numpy)
-from torch_port_util import assert_same, assert_tree, jtree, npf, tt
+from torch_port_util import (assert_same, assert_tree, jtree,
+                             moving_square_frames, npf, stepper_draws, tt)
 from torch_port_util import two_torch_threads  # noqa: F401
 
 SHAPE = (1, 256, 512, 3)
 CAPACITY = 4
 TOL = 1e-3
-
-
-def _frames(count, seed=0):
-    """Synthetic moving frames: a bright square sliding over fixed noise."""
-    base = np.random.RandomState(seed).randn(*SHAPE).astype(np.float32)
-    out = []
-    for t in range(count):
-        f = base.copy()
-        s = 24 * t
-        f[:, s:s + 96, s:s + 96] += 2.0
-        out.append(f)
-    return out
-
-
-def _jax_draws(policy_state, probs_shape, total):
-    """The uniforms JAX's ``step`` draws from this policy state's key."""
-    _, k_use = jax.random.split(policy_state["key"])
-    k1, k2 = jax.random.split(k_use)
-    return (jax.random.uniform(k1, probs_shape),
-            jax.random.uniform(k2, (total,)))
 
 
 def _close(ref, got, msg):
@@ -111,14 +92,14 @@ def test_clip_matches_jax(monkeypatch):
                                           device="cpu"),
                     "generator": ts["policy"]["generator"]}
 
-    frames = _frames(4)
+    frames = moving_square_frames(SHAPE, 4)
     js = jst.first_step(jparams, js, jnp.asarray(frames[0]))
     ts = tst.first_step(tparams, ts, tt(frames[0]))
     _compare_states(js, ts, 1)
     heads = [npf(ts["policy"]["params"]["head1"]["w"])]
     n, gh, gw = jst.geom
     for t, frame in enumerate(frames[1:], start=2):
-        u, u_rank = _jax_draws(js["policy"], (n, gh, gw), n * gh * gw)
+        u, u_rank = stepper_draws(js["policy"], (n, gh, gw), n * gh * gw)
         js = jst.step(jparams, js, jnp.asarray(frame))
         ts = tst.step(tparams, ts, tt(frame), draws=(tt(u), tt(u_rank)))
         _compare_states(js, ts, t)

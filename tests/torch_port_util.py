@@ -61,6 +61,30 @@ def assert_tree(ref, got, check, path=""):
         check(ref, got, path)
 
 
+# -- the two packages' steppers side by side ---------------------------------
+
+
+def moving_square_frames(shape, count, seed=0):
+    """Synthetic moving frames: a bright square sliding over fixed noise."""
+    base = np.random.RandomState(seed).randn(*shape).astype(np.float32)
+    out = []
+    for t in range(count):
+        f = base.copy()
+        s = 24 * t
+        f[:, s:s + 96, s:s + 96] += 2.0
+        out.append(f)
+    return out
+
+
+def stepper_draws(policy_state, probs_shape, total):
+    """The uniforms the JAX stepper's ``step`` draws from this policy
+    state's key (``stepper.py:456`` split, then ``:367-371``)."""
+    _, k_use = jax.random.split(policy_state["key"])
+    k1, k2 = jax.random.split(k_use)
+    return (jax.random.uniform(k1, probs_shape),
+            jax.random.uniform(k2, (total,)))
+
+
 # -- the two packages' ladder engines side by side ---------------------------
 
 ENGINE_H, ENGINE_W, ENGINE_BS = 256, 512, 128
