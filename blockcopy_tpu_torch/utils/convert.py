@@ -119,11 +119,14 @@ def ladder_policy_state_from_jax(state: Dict, device=None) -> Dict:
     }
 
 
+_STEPPER_KEYS = ("canvases", "prev_grid", "frame_idx", "policy")
+
+
 def _task_keys(state: Dict):
-    """The task outputs a stepper state carries (semseg ``outputs``,
-    detection ``dets``/``labels``/``valid``) and their ``_prev`` copies."""
-    return [f"{k}{s}" for k in ("outputs", "dets", "labels", "valid")
-            for s in ("", "_prev") if f"{k}{s}" in state]
+    """The task outputs a stepper state carries (each key of the task's
+    ``task_keys`` and its ``_prev`` copy): every key but the stepper's
+    own."""
+    return [k for k in state if k not in _STEPPER_KEYS]
 
 
 def stepper_state_from_jax(state: Dict, device=None) -> Dict:

@@ -95,11 +95,13 @@ def test_halo_kernel_ladder_capacity_8(cuda_device, bs, c, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bs,c,pad", [(8, 512, 2), (32, 768, 1)])
+@pytest.mark.parametrize("bs,c,pad", [(8, 512, 2), (32, 256, 1),
+                                      (32, 768, 1)])
 def test_halo_kernel_detection_shapes(cuda_device, bs, c, pad, dtype):
-    """The detection path's shapes the semseg path never makes: CSP
-    layer4's dilated 3x3s (pad 2) and the head's 768-channel branch conv,
-    at 38 of 128 blocks with 3 padding slots, both entry points."""
+    """The detection path's three shapes the semseg path never makes: CSP
+    layer4's dilated 3x3s (pad 2), the head's three blocked final convs
+    (256 channels) and its 768-channel branch conv, at 38 of 128 blocks
+    with 3 padding slots, both entry points."""
     _halo_full_grid(cuda_device, bs, c, pad, dtype, 35, 38, seed=bs + c + pad)
 
 
