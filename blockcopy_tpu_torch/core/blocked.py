@@ -43,9 +43,10 @@ halo_gather_strips = halo_gather_strips_plain
 
 __all__ = [
     "BlockPack", "ExecCtx", "alloc_canvas", "split_dense",
-    "dense_to_block_layout", "block_layout_to_dense", "scatter_pack",
-    "halo_gather", "alloc_strip_canvas", "scatter_strips",
-    "gather_halo_strips", "halo_gather_strips",
+    "split_block_layout", "dense_to_block_layout", "block_layout_to_dense",
+    "scatter_pack", "halo_gather", "alloc_strip_canvas", "scatter_strips",
+    "gather_halo_strips", "halo_gather_strips", "is_block", "combine",
+    "to_dense",
 ]
 
 
@@ -81,6 +82,12 @@ class BlockPack:
 
     def with_data(self, data: torch.Tensor) -> "BlockPack":
         return dataclasses.replace(self, data=data)
+
+
+def is_block(x) -> bool:
+    """Whether ``x`` is packed blocks (reference ``blockcopy.is_block``,
+    ``core/tensorwrapper.py:24``)."""
+    return isinstance(x, BlockPack)
 
 
 def alloc_canvas(n: int, gh: int, gw: int, bs: int, c: int, dtype,
@@ -120,6 +127,22 @@ def split_dense(x: torch.Tensor, idx: torch.Tensor, n: int, gh: int,
         i // (gh * gw), (i % (gh * gw)) // gw, :, i % gw]   # (K, bs, bs, C)
     data = torch.where((idx < total).view(-1, 1, 1, 1), data,
                        torch.zeros((), dtype=data.dtype, device=data.device))
+    return BlockPack(data=data, idx=idx, n=n, gh=gh, gw=gw)
+
+
+def split_block_layout(canvas: torch.Tensor, idx: torch.Tensor, n: int,
+                       gh: int, gw: int) -> BlockPack:
+    """Gather executed blocks straight from a block-layout canvas; the
+    sentinel ``total`` reads the canvas's zero row, or zeros where the
+    layout has none."""
+    total = n * gh * gw
+    if canvas.shape[0] > total:
+        data = canvas.index_select(0, idx)
+    else:
+        data = canvas.index_select(0, idx.clamp(max=total - 1))
+        data = torch.where((idx < total).view(-1, 1, 1, 1), data,
+                           torch.zeros((), dtype=data.dtype,
+                                       device=data.device))
     return BlockPack(data=data, idx=idx, n=n, gh=gh, gw=gw)
 
 
@@ -295,3 +318,23 @@ class ExecCtx:
         # with one block column the rebuild is a view of the canvas, which
         # the next frame updates in place
         return dense.clone() if dense._is_view() else dense
+
+    def split_like(self, x: torch.Tensor) -> BlockPack:
+        """Dense image -> executed blocks with this context's grid (the
+        reference's ``to_blocks_like``, ``core/tensorwrapper.py:325-333``)."""
+        return split_dense(x, self.idx, self.n, self.gh, self.gw)
+
+
+def combine(ctx: ExecCtx, name: str, x: BlockPack) -> torch.Tensor:
+    """Blocks -> dense image through the named persistent canvas."""
+    return ctx.store_dense(name, x)
+
+
+def to_dense(x, ctx: Optional[ExecCtx] = None, name: str = "out"):
+    """Dense tensors pass through; packed blocks are combined through
+    ``ctx`` (the reference's ``blockcopy.to_tensor``)."""
+    if isinstance(x, BlockPack):
+        if ctx is None:
+            raise ValueError("combining packed blocks needs an ExecCtx")
+        return combine(ctx, name, x)
+    return x

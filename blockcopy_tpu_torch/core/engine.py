@@ -7,8 +7,9 @@ policy optimizes every ``train_interval`` frames.  The port runs eagerly,
 so a capacity needs no program of its own; its MAC tally is still recorded
 once per capacity.
 
-The only host sync per frame is the executed-block count
-(``Policy._finalize``), which picks the capacity.  A frame with count 0
+The engine's only host sync per frame is the executed-block count
+(``Policy._finalize``), which picks the capacity; a task's decode may add
+its own (``CSPBlockCopy`` reads its boxes back).  A frame with count 0
 runs no model and returns the previous outputs.  Temporal state is a dict
 of per-layer canvases updated in place.
 """
@@ -43,8 +44,17 @@ def noblocks(ctx: ExecCtx, name: str, x, fn: Callable):
     return split_dense(y, ctx.idx, ctx.n, ctx.gh, ctx.gw)
 
 
+# the reference decorator's name (``core/blockcopy.py:92``)
+blockcopy_noblocks = noblocks
+
+
 class BlockCopyModel:
     """A blocked model's apply function wrapped in the BlockCopy frame loop.
+
+    Subclasses adapt it to a task through two hooks: ``_store_out`` keeps
+    the model's output across frames (by default a canvas named ``OUT``,
+    whose dense image is the frame's output) and ``_decode`` turns that
+    into the frame's outputs (by default itself).
 
     Args:
         apply_fn: ``apply_fn(params, x, ctx)``, ``x`` a ``BlockPack`` or a
@@ -101,7 +111,7 @@ class BlockCopyModel:
             ctx.store_dense(FRAME_STATE, pack)
             out = self.apply_fn(tree_map(lambda t: t.to(meta), self.params),
                                 pack, ctx)
-            ctx.store_dense(OUT, out)
+            self._store_out(ctx, out)
         self.temporal = {"canvases": tree_map(
             lambda t: torch.zeros(t.shape, dtype=t.dtype, device=self.device),
             ctx.canvases)}
@@ -122,10 +132,20 @@ class BlockCopyModel:
             ctx = ExecCtx.blocked(idx, n, gh, gw, self.temporal["canvases"])
             frame_state = ctx.store_dense(FRAME_STATE, pack)
             out = self.apply_fn(self.params, pack, ctx)
-            outputs = ctx.store_dense(OUT, out)
+            outputs = self._store_out(ctx, out)
         if capacity not in self.flops.macs_per_capacity:
             self.flops.record_trace(capacity, ctx.macs_by_module())
         return outputs, frame_state
+
+    # -- task hooks -----------------------------------------------------------
+
+    def _store_out(self, ctx: ExecCtx, out):
+        """Keep the model's output: skipped blocks hold their last value."""
+        return ctx.store_dense(OUT, out)
+
+    def _decode(self, out):
+        """The frame's outputs from ``_store_out``'s result."""
+        return out
 
     # -- checkpoint / resume ------------------------------------------------
 
@@ -167,6 +187,8 @@ class BlockCopyModel:
                     count, meta["num_total"], self.quantum)
                 out, meta["frame_state"] = self._model_step(
                     capacity, inputs, meta["grid"])
+                with torch.no_grad():
+                    out = self._decode(out)
             self.flops.record_frame(
                 capacity, policy_ran=meta.get("_rl_cache") is not None,
                 images=inputs.shape[0])

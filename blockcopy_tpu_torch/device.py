@@ -1,4 +1,5 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and host-to-device
+uploads that do not block the host."""
 
 from __future__ import annotations
 
@@ -13,3 +14,13 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def to_device(a, device) -> torch.Tensor:
+    """A host array or CPU tensor on ``device`` without blocking the host:
+    on CUDA it is staged in pinned memory and copied asynchronously (an
+    upload from pageable memory is a host sync)."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(a)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

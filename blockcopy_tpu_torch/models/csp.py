@@ -1,6 +1,6 @@
 """CSP pedestrian detector (Center-and-Scale Prediction), dense and blocked
-from one definition (counterpart of ``blockcopy_tpu/models/csp.py`` up to
-``dets_to_bbox_results``).
+from one definition, and its BlockCopy ladder engine ``CSPBlockCopy``
+(counterpart of ``blockcopy_tpu/models/csp.py``).
 
 * ResNet-50 backbone with per-stage strides (1, 2, 2, 1), dilations
   (1, 1, 1, 2) and out_indices (1, 2, 3);
@@ -8,7 +8,9 @@ from one definition (counterpart of ``blockcopy_tpu/models/csp.py`` up to
   stride 4), a per-branch L2 norm, channel concat -> 768;
 * head: per-branch 3x3 conv + GN(32) + ReLU, then the final 3x3 convs for
   the center, scale and offset maps;
-* decode: ``csp_height2bbox`` and fixed-size multiclass NMS on the device.
+* decode: ``csp_height2bbox`` and fixed-size multiclass NMS on the device;
+* ``CSPBlockCopy``: ``BlockCopyModel``'s frame loop with the decode as its
+  hook, per-class host box lists as each frame's outputs.
 
 Parameters are nested dicts of tensors with the JAX pytree's structure: conv
 weights OIHW, the neck's transposed-conv weights (in, out, kh, kw), GN
@@ -28,6 +30,7 @@ import torch
 
 from blockcopy_tpu_torch.core import blocked as _blocked
 from blockcopy_tpu_torch.core.blocked import ExecCtx
+from blockcopy_tpu_torch.core.engine import BlockCopyModel
 from blockcopy_tpu_torch.device import resolve_device
 from blockcopy_tpu_torch.models.swiftnet import (_downsample, _Init, _stem,
                                                  maybe_fused_bottleneck)
@@ -331,13 +334,23 @@ def csp_decode(cls_score, bbox_pred, offset_pred, img_shape, cfg: CSPConfig,
                                      impl=nms_impl)
 
 
+def fetch_dets(dets, labels, valid):
+    """(dets, labels, valid) as numpy; device tensors come back in one
+    transfer (one host sync), packed as fp32 columns [dets | label |
+    valid]: int32 labels below 2**24 and bools are exact in fp32."""
+    if not isinstance(dets, torch.Tensor):
+        return np.asarray(dets), np.asarray(labels), np.asarray(valid)
+    packed = torch.cat([dets.detach().float(), labels[:, None].float(),
+                        valid[:, None].float()], 1).cpu().numpy()
+    return (packed[:, :5], packed[:, 5].astype(np.int32),
+            packed[:, 6] > 0)
+
+
 def soft_nms_rescore(dets, labels, valid, cfg: CSPConfig):
     """Host soft-NMS over the fixed-size decode output (reference
     ``soft_nms_cpu.pyx``; config ``nms=dict(type='soft_nms')``).  Returns
     the rescored fixed-size (dets, labels, valid) as numpy."""
-    dets, labels, valid = (t.detach().cpu().numpy()
-                           if isinstance(t, torch.Tensor) else np.asarray(t)
-                           for t in (dets, labels, valid))
+    dets, labels, valid = fetch_dets(dets, labels, valid)
     cand_idx = np.nonzero(valid)[0]
     if len(cand_idx) == 0:
         return dets, labels, valid
@@ -357,8 +370,59 @@ def dets_to_bbox_results(dets, labels, valid, num_classes: int
                          ) -> List[List[np.ndarray]]:
     """Fixed-size dets -> mmdet ``bbox2result`` numpy lists
     (``mmdet/core/bbox/transforms.py:138-156``)."""
-    dets, labels, valid = (t.detach().cpu().numpy()
-                           if isinstance(t, torch.Tensor) else np.asarray(t)
-                           for t in (dets, labels, valid))
+    dets, labels, valid = fetch_dets(dets, labels, valid)
     return [[dets[valid & (labels == c)].astype(np.float32)
              for c in range(num_classes - 1)]]
+
+
+# ---------------------------------------------------------------------------
+# BlockCopy detection engine
+# ---------------------------------------------------------------------------
+
+
+class CSPBlockCopy(BlockCopyModel):
+    """Per-frame BlockCopy pipeline for CSP (reference
+    ``csp_blockcopy.py:46-95``; JAX ``csp.py:508``): policy -> blocked
+    backbone, neck and head -> decode and NMS on the device -> per-class
+    box lists on the host; the policy is optimized with the detection
+    information gain, which paints its masks from those lists.
+
+    The frame loop, canvases, MAC record and frame-shape guard are
+    ``BlockCopyModel``'s.  The head stores its three maps through canvases
+    of its own, so the engine keeps no ``OUT`` canvas.  Host syncs per frame
+    with a model run: the executed-block count and the boxes' one transfer
+    (``fetch_dets``); the gain's masks go up without a sync
+    (``device.py`` ``to_device``).
+    """
+
+    def __init__(self, params, cfg: CSPConfig, settings: dict, policy=None,
+                 device=None):
+        super().__init__(make_apply_fn(cfg), params, settings, policy,
+                         device)
+        self.cfg = cfg
+        self._img_shape = None
+        self._rescale = 1.0
+
+    def _store_out(self, ctx, out):
+        return out
+
+    def _decode(self, maps):
+        dets, labels, valid = csp_decode(*maps, self._img_shape, self.cfg,
+                                         self._rescale)
+        if self.cfg.nms_type == "soft_nms":
+            dets, labels, valid = soft_nms_rescore(dets, labels, valid,
+                                                   self.cfg)
+        return dets_to_bbox_results(dets, labels, valid,
+                                    self.cfg.num_classes)
+
+    def simple_test(self, img, img_shape=None, rescale_factor: float = 1.0,
+                    draws=None):
+        """One frame; ``img`` dense (1, H, W, 3) normalized NHWC on the
+        engine's device.  Returns the per-class (n, 5) box arrays;
+        ``draws`` goes to the policy's ``forward``."""
+        self._img_shape = tuple(img_shape or img.shape[1:3])
+        self._rescale = rescale_factor
+        return BlockCopyModel.__call__(self, img, draws)[0]
+
+    __call__ = simple_test
+    forward = simple_test

@@ -63,11 +63,14 @@ def build_policy_from_settings(settings: dict, device=None):
         return PolicyRandom(bs, verbose=verbose, quantize=quantum, seed=seed,
                             device=device)
     if name.startswith("rl_"):
-        if name == "rl_objectdetection":
-            raise NotImplementedError(
-                "rl_objectdetection needs the detection information gain, "
-                "not ported yet (ROADMAP Queue 1 item 11)")
-        if name != "rl_semseg":
+        num_classes = settings["block_num_classes"]
+        if name == "rl_semseg":
+            ig = SemsegInformationGain(num_classes)
+        elif name == "rl_objectdetection":
+            from blockcopy_tpu_torch.tasks.detection.information_gain import \
+                DetectionInformationGain
+            ig = DetectionInformationGain(num_classes, device)
+        else:
             raise AttributeError(f'Policy with name "{name}" not defined!')
         return PolicyTrainRL(
             block_size=bs,
@@ -77,9 +80,8 @@ def build_policy_from_settings(settings: dict, device=None):
             weight_decay=settings["block_optim_wd"],
             momentum=settings["block_optim_momentum"],
             complexity_weight=settings["block_complexity_weight"],
-            num_classes=settings["block_num_classes"],
-            information_gain=SemsegInformationGain(
-                settings["block_num_classes"]),
+            num_classes=num_classes,
+            information_gain=ig,
             quantize=quantum,
             verbose=verbose,
             seed=seed,
@@ -353,7 +355,7 @@ class PolicyTrainRL(Policy):
             policy_meta["_rl_cache"], grid.float(), signed, self.arch,
             self.lr, self.weight_decay, self.momentum)
         if self.verbose:
-            exec_p, skip_p = (float(p) for p in policy_meta["_rl_probs"])
+            exec_p, skip_p = torch.stack(policy_meta["_rl_probs"]).tolist()
             print(f"BLOCKS/running_cost: {self.running_cost: 0.3f}\n"
                   f"BLOCKS/block_use: {block_use:0.3f}\n"
                   f"BLOCKS/reward_complexity_weighted: {rcw}\n"
@@ -361,7 +363,7 @@ class PolicyTrainRL(Policy):
                   f"BLOCKS/avg_prob_skip: {skip_p:0.3f}\n")
             print(self.stats)
         if self.stats.count_images > 300 and "_rl_probs" in policy_meta:
-            exec_p, skip_p = (float(p) for p in policy_meta["_rl_probs"])
+            exec_p, skip_p = torch.stack(policy_meta["_rl_probs"]).tolist()
             if exec_p - skip_p < 0.3:
                 logger.warning(
                     "Block execution policy seems not well trained yet.")

@@ -16,6 +16,8 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from blockcopy_tpu_torch.device import to_device
+
 SUBSAMPLE = 2
 
 
@@ -173,18 +175,21 @@ def instance_mask_fixed(dets, labels, valid, hw, num_fg_classes: int,
 
 class DetectionInformationGain:
     """The detection reward for a REINFORCE policy: box lists are host
-    data, the policy sees the rasterized maps."""
+    data, painted on the host as the reference does; the policy sees the
+    rasterized fp32 maps on its ``device``."""
 
-    def __init__(self, num_classes: int):
+    def __init__(self, num_classes: int, device="cpu"):
         self.num_classes = num_classes
+        self.device = torch.device(device)
 
     def get_output_repr(self, policy_meta: Dict) -> torch.Tensor:
         n, h, w, _ = policy_meta["inputs"].shape
-        return torch.from_numpy(build_instance_mask(
-            policy_meta["outputs"], (n, h, w, self.num_classes)))
+        return to_device(build_instance_mask(
+            policy_meta["outputs"], (n, h, w, self.num_classes)),
+            self.device)
 
     def compute(self, policy_meta: Dict) -> torch.Tensor:
         n, h, w, _ = policy_meta["inputs"].shape
-        return torch.from_numpy(build_instance_mask_iou_gain(
+        return to_device(build_instance_mask_iou_gain(
             policy_meta["outputs"], policy_meta["outputs_prev"],
-            (n, h, w, self.num_classes)))
+            (n, h, w, self.num_classes)), self.device)

@@ -1,0 +1,111 @@
+"""Detection benchmark: CSP-R50 + BlockCopy FPS of the detection stepper on
+one GPU (counterpart of the root ``bench_detection.py``, same flags and
+JSON keys).
+
+The workload: ``DetectionStepper`` (policy, blocked CSP, decode and NMS and
+the IoU gain on the device, REINFORCE every 4th frame) at 1024x2048, target
+0.3, bf16, random weights from seed 0, frames of a moving square over
+noise.  After the warm-up, windows of ``--frames`` steps are timed on the
+host clock, each fenced by ``torch.cuda.synchronize()``; windows are taken
+until the best has not improved for 5 (6 to 18 windows).
+
+Prints one JSON line: ``metric``, ``value`` (the best window's FPS),
+``unit``, ``vs_baseline`` against ``DETECTION_BASELINE_FPS``, ``estimator``,
+``median_fps`` and ``windows_fps``.
+
+    python3 -m blockcopy_tpu_torch.tools.bench_detection
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import time
+
+import torch
+
+# The reference never reports detection FPS; its CSP BlockCopy config costs
+# 380 GMACs/img against SwiftNet-RN50 BlockCopy's 126 at 17 FPS on the same
+# GPU class, so ~17 * 126 / 380 = 5.6 FPS (the root bench_detection.py's
+# stand-in, kept so the two lines compare).
+DETECTION_BASELINE_FPS = 5.6
+
+
+def build_argparser():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--height", type=int, default=1024)
+    ap.add_argument("--width", type=int, default=2048)
+    ap.add_argument("--target", type=float, default=0.3)
+    ap.add_argument("--frames", type=int, default=150,
+                    help="frames per timed window")
+    ap.add_argument("--warmup", type=int, default=6)
+    ap.add_argument("--dtype", type=str, default="bfloat16")
+    ap.add_argument("--policy-arch", type=str, default="fast",
+                    choices=["ref", "fast"])
+    return ap
+
+
+def main(argv=None):
+    args = build_argparser().parse_args(argv)
+    from blockcopy_tpu_torch.core.stepper import StepperConfig
+    from blockcopy_tpu_torch.device import resolve_device
+    from blockcopy_tpu_torch.models.csp import CSPConfig, init_csp
+    from blockcopy_tpu_torch.tasks.detection.stepper import DetectionStepper
+    from blockcopy_tpu_torch.tools.measure import synthetic_frames
+
+    device = resolve_device()     # the card: raises where it is absent
+    dtype = getattr(torch, args.dtype)
+    frame_shape = (1, args.height, args.width, 3)
+    total = (args.height // 128) * (args.width // 128)
+    capacity = max(1, int(round(args.target * total)))
+
+    csp_cfg = CSPConfig()
+    params = init_csp(csp_cfg, seed=0, dtype=dtype, device=device)
+    scfg = StepperConfig(block_size=128, block_target=args.target,
+                         train_interval=4, num_classes=1,
+                         policy_arch=args.policy_arch)
+    stepper = DetectionStepper(csp_cfg, scfg, frame_shape, capacity,
+                               dtype=dtype, device=device)
+    frames = synthetic_frames(frame_shape, args.warmup + 7, dtype,
+                              device=device)
+    state = stepper.init_state(params, seed=1)
+    state = stepper.first_step(params, state, frames[0])
+    for t in range(1, args.warmup + 1):
+        state = stepper.step(params, state, frames[t])
+    staged = frames[args.warmup + 1:]
+    torch.cuda.synchronize()
+
+    windows = []
+    best, since_best = 0.0, 0
+    min_windows, max_windows, patience = 6, 18, 5
+    while len(windows) < max_windows:
+        t0 = time.perf_counter()
+        for t in range(args.frames):
+            state = stepper.step(params, state, staged[t % len(staged)])
+        torch.cuda.synchronize()
+        w = args.frames / (time.perf_counter() - t0)
+        windows.append(w)
+        if w > best:
+            best, since_best = w, 0
+        else:
+            since_best += 1
+        if len(windows) >= min_windows and since_best >= patience:
+            break
+    if not bool(torch.isfinite(state["dets"]).all()):
+        raise FloatingPointError("non-finite dets")
+    out = {
+        "metric": "csp_r50_blockcopy_fps_1024x2048_t03",
+        "value": round(best, 3),
+        "unit": "frames/s",
+        "vs_baseline": round(best / DETECTION_BASELINE_FPS, 3),
+        "estimator": "max_of_adaptive_fenced_windows",
+        "median_fps": round(statistics.median(windows), 3),
+        "windows_fps": [round(w, 3) for w in windows],
+    }
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -10,8 +10,10 @@ first two train frames, then traces ``--steps`` steps with
 detection step of ``chip_smoke.py`` phase 9a instead (CSP-R50, 1024x2048
 bf16, fast policy, block 128, target 0.3: 38 of 128 blocks).
 ``--engine ladder`` runs the ladder engine of ``chip_smoke.py`` phase 8a
-(``BlockCopyModel`` with the CLI's default settings, one clip; SwiftNet
-only) and adds the capacities of the traced frames.  The line holds:
+(``BlockCopyModel`` with the CLI's default settings, one clip), or with
+``--model csp`` that of phase 10a (``CSPBlockCopy`` from
+``configs/csp/csp_r50_clip_blockcopy_030.py``, the ``csp_cls`` bias 0), and
+adds the capacities of the traced frames.  The line holds:
 
 * ``wall_ms_per_step``: host clock over the traced steps, fenced by
   ``torch.cuda.synchronize()`` (the profiler's own cost included);
@@ -30,6 +32,7 @@ import argparse
 import json
 import sys
 import time
+from pathlib import Path
 
 import torch
 from torch.autograd import DeviceType
@@ -37,6 +40,10 @@ from torch.profiler import ProfilerActivity, profile
 
 from blockcopy_tpu_torch.tools.measure import (csp_stepper, swiftnet_stepper,
                                                synthetic_frames)
+
+
+CSP_CONFIG = (Path(__file__).resolve().parents[2] / "configs" / "csp"
+              / "csp_r50_clip_blockcopy_030.py")
 
 
 def _busy_us(intervals):
@@ -66,18 +73,26 @@ def _stepper(shape, model):
     return run
 
 
-def _ladder(shape):
+def _ladder(shape, model_name):
     """The ladder engine's per-frame call; returns the frame's count."""
-    from blockcopy_tpu_torch.core.argparser import default_settings
-    from blockcopy_tpu_torch.core.engine import BlockCopyModel
-    from blockcopy_tpu_torch.models.swiftnet import (SwiftNetConfig,
-                                                     init_swiftnet,
-                                                     make_apply_fn)
-    cfg = SwiftNetConfig(backbone="resnet50", num_classes=19)
-    model = BlockCopyModel(
-        make_apply_fn(cfg),
-        init_swiftnet(cfg, seed=0, dtype=torch.bfloat16, device="cuda"),
-        default_settings(), device="cuda")
+    if model_name == "csp":
+        from blockcopy_tpu_torch.models.builder import build_detector
+        from blockcopy_tpu_torch.utils.registry import load_config
+        model = build_detector(load_config(str(CSP_CONFIG)),
+                               dtype=torch.bfloat16, device="cuda")
+        # live boxes: random-init scores all sit below score_thr
+        model.params["head"]["csp_cls"]["b"].zero_()
+    else:
+        from blockcopy_tpu_torch.core.argparser import default_settings
+        from blockcopy_tpu_torch.core.engine import BlockCopyModel
+        from blockcopy_tpu_torch.models.swiftnet import (SwiftNetConfig,
+                                                         init_swiftnet,
+                                                         make_apply_fn)
+        cfg = SwiftNetConfig(backbone="resnet50", num_classes=19)
+        model = BlockCopyModel(
+            make_apply_fn(cfg),
+            init_swiftnet(cfg, seed=0, dtype=torch.bfloat16, device="cuda"),
+            default_settings(), device="cuda")
 
     def run(t, frame):
         model(frame)
@@ -95,14 +110,12 @@ def main() -> int:
     ap.add_argument("--model", choices=("swiftnet", "csp"),
                     default="swiftnet")
     args = ap.parse_args()
-    if args.engine == "ladder" and args.model != "swiftnet":
-        ap.error("the ladder engine runs SwiftNet only")
     if not torch.cuda.is_available():
         print("profile_step: CUDA is not available", file=sys.stderr)
         return 2
     shape = (1, 1024, 2048, 3)
     run = _stepper(shape, args.model) if args.engine == "stepper" \
-        else _ladder(shape)
+        else _ladder(shape, args.model)
     frames = synthetic_frames(shape, args.warmup + args.steps + 1,
                               torch.bfloat16)
     for t in range(args.warmup + 1):

@@ -69,7 +69,29 @@ Phases (any failure raises and exits non-zero):
    version, bitwise, at every detection shape (both entry points and
    dtypes), and K2 against its plain version at every detection shape
    (bf16 3e-2, fp32 1e-4); then K1 and K2 timed there in bf16 (per-frame
-   sums beside their bounds).
+   sums beside their bounds);
+10. detection in ladder mode, before the JSON lines: (a) ``CSPBlockCopy``
+   built by ``build_detector`` from ``configs/csp/csp_r50_clip_blockcopy_030.py``
+   (CSP-R50 at full width and depth, ``rl_objectdetection``, ``ref`` policy,
+   target 0.3, quantum 1/16, verbose, REINFORCE every 4th frame), 1024x2048
+   bf16, the ``csp_cls`` bias 0, 2 clips of 8 frames: frame 1 of a clip
+   executes all 128 blocks, every count is on the ladder, the host syncs of
+   each frame are those ``_det_frame_syncs`` names (torch's sync debug
+   mode), 13 K1 and 8 K2 launches per executed frame (counts zeroed just
+   before the first clip), policy updates on frames 4 and 8 only, at least
+   8 boxes a frame inside the image with score >= 0.1; capacities, ms/frame,
+   peak memory and the host ms of painting the masks; (b) the detection
+   CLI in-process (``--synthetic --res 1024 --clip-length 8``, 1 warmup and
+   1 eval clip, the 0.3 config, an npz of random weights with the bias at
+   0) on the ladder and with ``--speed-mode`` in bf16 and on the ladder in
+   fp32: the JSON line's keys and ranges, 13 K1 and 8 K2 launches per frame
+   that ran blocks (counts zeroed just before each run), no host sync in a
+   speed-mode steady frame (torch's sync debug mode); (c)
+   ``CSPBlockCopy`` on the GPU against the CPU, CSP ``stage_blocks=(1, 2,
+   2, 1)`` 256x512 fp32, 4 frames, injected draws: counts, ``valid`` and
+   labels equal, canvases and boxes within 1e-5; (d) K1 bitwise and K2
+   against their plain versions at every detection shape at K = 8 and 128,
+   then both timed there in bf16.
 
 It needs one CUDA GPU and the repository around it: without either it exits
 non-zero and prints no result.
@@ -86,6 +108,7 @@ import time
 import warnings
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -525,23 +548,27 @@ def phase_modes():
     return canvas_launches
 
 
-def _ladder_frame(model, frame):
-    """One ``model(frame)`` with torch's sync debug mode on: returns the
-    output, the number of synchronizing CUDA calls it made, and its host
-    time fenced by ``synchronize``."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+def _count_syncs(fn, *args):
+    """``fn(*args)`` with torch's sync debug mode on: its result and the
+    number of synchronizing CUDA calls it made."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            out = model(frame)
+            out = fn(*args)
         finally:
             torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchronizing" in str(w.message) for w in caught)
+
+
+def _ladder_frame(model, frame):
+    """One ``model(frame)`` under ``_count_syncs``: the output, its host
+    syncs, and its host time fenced by ``synchronize``."""
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
-    syncs = sum("synchronizing" in str(w.message) for w in caught)
-    return out, syncs, ms
+    t0 = time.perf_counter()
+    out, syncs = _count_syncs(model, frame)
+    torch.cuda.synchronize()
+    return out, syncs, (time.perf_counter() - t0) * 1e3
 
 
 def phase_ladder():
@@ -940,6 +967,431 @@ def phase_detection_kernels(gen):
     return out
 
 
+DET_CONFIG = ROOT / "configs" / "csp" / "csp_r50_clip_blockcopy_030.py"
+# the detection ladder's capacities at 1024x2048 (block 128, quantum 1/16):
+# the smallest, and frame 1's, every block
+DET_LADDER_KS = (8, 128)
+
+
+def _det_frame_syncs(t, count, ran, verbose):
+    """Host syncs of one ``CSPBlockCopy`` frame (frame ``t`` of its clip):
+    the executed-block count (``Policy._finalize``); where the policy net
+    ran, its NaN guard (verbose settings only); where blocks ran, the boxes'
+    one transfer (``models/csp.py`` ``fetch_dets``); on a train frame, the
+    verbose print's one read of the two probabilities.  The gain's masks go
+    up without one (pinned, asynchronous)."""
+    trained = ran and t % 4 == 0
+    return 1 + (ran and verbose) + (count > 0) + (trained and verbose)
+
+
+def _det_boxes_ok(boxes, height, width, thr, least=8):
+    """At least ``least`` boxes, each inside the image, score >= ``thr``."""
+    b = boxes[0]
+    return len(b) >= least and bool(np.all(
+        (b[:, 0] >= 0) & (b[:, 1] >= 0) & (b[:, 0] <= b[:, 2])
+        & (b[:, 1] <= b[:, 3]) & (b[:, 2] <= width - 1)
+        & (b[:, 3] <= height - 1) & (b[:, 4] >= thr)))
+
+
+def phase_detection_ladder():
+    """(10a) the detection ladder at full width: ``CSPBlockCopy`` built by
+    ``build_detector`` from the shipped 0.3 config, 2 clips of 8 frames;
+    launch counts are zeroed just before the first clip and read just after
+    the last."""
+    import contextlib
+    import io
+    from blockcopy_tpu_torch.core.grid import capacity_ladder
+    from blockcopy_tpu_torch.models.builder import build_detector
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.tasks.detection import information_gain as IG
+    from blockcopy_tpu_torch.tools.measure import synthetic_frames
+    from blockcopy_tpu_torch.utils.registry import load_config
+
+    torch.backends.cudnn.allow_tf32 = True
+    shape, dtype, clip_len = (1, 1024, 2048, 3), torch.bfloat16, 8
+    model = build_detector(load_config(str(DET_CONFIG)), dtype=dtype,
+                           device="cuda")
+    # at random init every score is below score_thr: a zero bias puts them
+    # near 0.5, so the boxes, the masks and the gain are live
+    model.params["head"]["csp_cls"]["b"].zero_()
+    settings, thr = model.settings, model.cfg.score_thr
+    verbose = settings["block_policy_verbose"]
+    clips = [synthetic_frames(shape, clip_len, dtype, seed=c)
+             for c in range(2)]
+    ladder = set(capacity_ladder(128, settings["block_quantize_number_exec"]))
+    per_exec = {"halo_strips": len(DET_HALO_SHAPES),
+                "bottleneck_tail": len(DET_TAIL_SHAPES)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    printed = io.StringIO()           # the verbose policy's train-frame lines
+    kernels.reset_launches()
+    counts, ms, rows = [], [], []
+    for c, clip in enumerate(clips):
+        model.reset_temporal()
+        for t, frame in enumerate(clip, start=1):
+            before = dict(kernels.launches)
+            head = model.policy.net_params["head2"]["w"].clone()
+            with contextlib.redirect_stdout(printed):
+                boxes, syncs, frame_ms = _ladder_frame(model, frame)
+            meta = model.policy_meta
+            count, ran = meta["num_exec"], meta.get("_rl_cache") is not None
+            used = {k: kernels.launches[k] - before[k] for k in per_exec}
+            trained = not torch.equal(head,
+                                      model.policy.net_params["head2"]["w"])
+            want_syncs = _det_frame_syncs(t, count, ran, verbose)
+            rows.append((c + 1, t, count, syncs, used, trained, len(boxes[0])))
+            counts.append(count)
+            ms.append(frame_ms)
+            if syncs != want_syncs:
+                raise AssertionError(f"clip {c + 1} frame {t}: {syncs} host "
+                                     f"syncs, expected {want_syncs}")
+            if used != (per_exec if count else {k: 0 for k in per_exec}):
+                raise AssertionError(f"clip {c + 1} frame {t}: launches "
+                                     f"{used}, expected {per_exec} per "
+                                     f"executed frame")
+            if t == 1 and count != 128:
+                raise AssertionError(f"frame 1 of clip {c + 1} executed "
+                                     f"{count} of 128 blocks")
+            if count and count not in ladder:
+                raise AssertionError(f"count {count} is not on the ladder")
+            if trained != (t % 4 == 0):
+                raise AssertionError(f"clip {c + 1} frame {t}: policy "
+                                     f"params changed={trained}")
+            if not _det_boxes_ok(boxes, *shape[1:3], thr):
+                raise AssertionError(f"clip {c + 1} frame {t}: "
+                                     f"{len(boxes[0])} boxes, not all inside "
+                                     f"the image with score >= {thr}")
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    train_lines = printed.getvalue().count("BLOCKS/running_cost")
+    if verbose and train_lines != 4:
+        raise AssertionError(f"{train_lines} verbose train-frame prints, "
+                             f"expected 4")
+    ig = model.policy_meta
+    if (ig["output_repr"].device.type != "cuda"
+            or ig["output_repr"].dtype != torch.float32
+            or ig["information_gain"].device.type != "cuda"):
+        raise AssertionError("the detection gain's tensors are not fp32 on "
+                             "the card")
+    # host painting of the last frame's masks at 1024x2048
+    paint = {}
+    for name, fn in (
+            ("output_repr", lambda: IG.build_instance_mask(
+                ig["outputs"], (1, 1024, 2048, 1))),
+            ("gain", lambda: IG.build_instance_mask_iou_gain(
+                ig["outputs"], ig["outputs_prev"], (1, 1024, 2048, 1)))):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        paint[name] = statistics.median(times)
+    for row in rows:
+        log(f"[10a] clip {row[0]} frame {row[1]}: {row[2]} of 128 blocks, "
+            f"{row[3]} host syncs, launches {row[4]}, policy trained "
+            f"{row[5]}, {row[6]} boxes")
+    steady = ms[clip_len + 2:]
+    med = statistics.median(steady)
+    seen = sorted(set(counts))
+    syncs = {"plain": _det_frame_syncs(2, 1, True, verbose),
+             "train": _det_frame_syncs(4, 1, True, verbose)}
+    log(f"[10a] CSP-R50 1024x2048 bf16 detection ladder ({DET_CONFIG.name}, "
+        f"csp_cls bias 0), 2 clips x {clip_len} frames: capacities {seen}, "
+        f"launches {launches}, host syncs a frame {syncs} (frame 1: "
+        f"{_det_frame_syncs(1, 1, False, verbose)}); ms/frame (host clock, "
+        f"synchronize-fenced, frames 3-{clip_len} of clip 2) median "
+        f"{med:.2f}, min {min(steady):.2f}, max {max(steady):.2f}; all "
+        f"{[round(x, 2) for x in ms]}; peak memory {peak:.2f} GiB; host "
+        f"painting of the last frame's masks: output repr "
+        f"{paint['output_repr']:.2f} ms, gain {paint['gain']:.2f} ms")
+    return launches, {"capacities": seen, "ms": med, "peak_gib": peak,
+                      "syncs": syncs, "paint_ms": paint}
+
+
+def phase_detection_cli():
+    """(10b) the detection CLI in-process at full width from the shipped
+    0.3 config and an npz of random weights with the ``csp_cls`` bias at
+    0: on the ladder and with ``--speed-mode`` in bf16, and on the ladder in
+    fp32.  Launch counts are zeroed just before each run and read just
+    after; the frames that ran blocks are counted at the engine's decode.
+    Its JSON line is kept off this script's stdout."""
+    import contextlib
+    import io
+    import tempfile
+    from blockcopy_tpu_torch.models.csp import (CSPBlockCopy, CSPConfig,
+                                                init_csp)
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.tasks.detection import eval as cli
+    from blockcopy_tpu_torch.utils.checkpoint import save_params
+
+    torch.backends.cudnn.allow_tf32 = True
+    out = {}
+    executed = [0]
+    decode = CSPBlockCopy._decode
+    step_only, upload = cli._StepperDetector.step_only, cli.to_device
+    step_syncs = []
+
+    def counted(self, maps):
+        executed[0] += 1
+        return decode(self, maps)
+
+    def watched(self, img):
+        # speed mode: a steady frame (after a clip's first) makes no sync;
+        # its upload is counted with it
+        if self._frame_id == 0:
+            return step_only(self, img)
+        step_syncs[-1] += _count_syncs(step_only, self, img)[1]
+
+    def watched_upload(a, device):
+        out, syncs = _count_syncs(upload, a, device)
+        step_syncs.append(syncs)
+        return out
+
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        params = init_csp(CSPConfig(), seed=0, device="cuda")
+        params["head"]["csp_cls"]["b"].zero_()
+        ckpt = str(Path(tmp) / "csp_r50_bias0.npz")
+        save_params(ckpt, params)
+        del params
+        argv = ["--synthetic", "--res", "1024", "--clip-length", "8",
+                "--num-clips-warmup", "1", "--num-clips-eval", "1",
+                "--config", str(DET_CONFIG), "--checkpoint", ckpt]
+        CSPBlockCopy._decode = counted
+        cli._StepperDetector.step_only = watched
+        try:
+            for name, extra in (("ladder", ["--half"]),
+                                ("speed-mode", ["--half", "--speed-mode"]),
+                                ("ladder fp32", [])):
+                buf = io.StringIO()
+                executed[0] = 0
+                speed = "--speed-mode" in extra
+                cli.to_device = watched_upload if speed else upload
+                kernels.reset_launches()
+                with contextlib.redirect_stdout(buf):
+                    res = cli.main(argv + extra)
+                launches = dict(kernels.launches)
+                frames = 16 if speed else executed[0]
+                line = json.loads(buf.getvalue().strip().splitlines()[-1])
+                mrs = [line[k] for k in line if k.startswith("MR_")]
+                ok = (len(mrs) == 4 and line["fps"] > 0
+                      and line["gmacs_per_image"] > 0
+                      and 0 < line["perc_exec"] <= 1
+                      and line["block_target"] == 0.3
+                      and all(0 <= m <= 100 or m == -1 for m in mrs)
+                      and line["fps"] == res["fps"])
+                log(f"[10b] detection CLI {name}: {json.dumps(line)}; "
+                    f"launches {launches}, frames that ran blocks {frames}")
+                if not ok:
+                    raise AssertionError(f"detection CLI {name} result "
+                                         f"{line}")
+                if (frames < 2
+                        or launches["halo_strips"]
+                        != frames * len(DET_HALO_SHAPES)
+                        or launches["bottleneck_tail"]
+                        != frames * len(DET_TAIL_SHAPES)):
+                    raise AssertionError(
+                        f"detection CLI {name} launches {launches} over "
+                        f"{frames} frames, expected {len(DET_HALO_SHAPES)} "
+                        f"K1 and {len(DET_TAIL_SHAPES)} K2 a frame")
+                line["launches"] = launches
+                line["frames"] = frames
+                out[name] = line
+        finally:
+            CSPBlockCopy._decode = decode
+            cli._StepperDetector.step_only = step_only
+            cli.to_device = upload
+    log(f"[10b] speed mode: host syncs in each of its {len(step_syncs)} "
+        f"frames (upload, and step for a clip's frames 2-8) {step_syncs}")
+    if len(step_syncs) != 16 or any(step_syncs):
+        raise AssertionError(f"speed-mode steady frames made host syncs "
+                             f"{step_syncs}")
+    return out
+
+
+def _det_ladder_clip(device):
+    """CSP (1, 2, 2, 1) 256x512 fp32 through ``CSPBlockCopy``
+    (``rl_objectdetection``, quantum 0.25: ladder {2, 4, 6, 8}, REINFORCE
+    every 2nd frame, ``csp_cls`` bias 0, ``score_thr`` 0.6), 4 frames; the
+    Bernoulli draws are -1 (execute) or 2 (skip), so 3, 5 and 8 blocks round
+    to counts 4, 6 and 8 whatever the policy's probabilities.  Per frame on
+    the CPU: the count, the box lists, copies of the canvases."""
+    from blockcopy_tpu_torch.core.argparser import default_settings
+    from blockcopy_tpu_torch.models.csp import (CSPBlockCopy, CSPConfig,
+                                                init_csp)
+    from blockcopy_tpu_torch.policy.optim import tree_map
+    from blockcopy_tpu_torch.tools.measure import synthetic_frames
+    cfg = CSPConfig(stage_blocks=(1, 2, 2, 1), score_thr=0.6)
+    params = init_csp(cfg, seed=0, device=device)
+    params["head"]["csp_cls"]["b"].zero_()
+    model = CSPBlockCopy(params, cfg, default_settings(
+        block_policy="rl_objectdetection", block_num_classes=1,
+        block_quantize_number_exec=0.25, block_train_interval=2),
+        device=device)
+    frames = synthetic_frames((1, 256, 512, 3), 4, torch.float32, seed=2,
+                              device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    draws = [None]
+    for n_exec in (3, 5, 8):
+        u = torch.full((8,), 2.0)
+        u[torch.randperm(8, generator=gen)[:n_exec]] = -1.0
+        draws.append((u.view(1, 2, 4), torch.rand((8,), generator=gen)))
+    out = []
+    for frame, d in zip(frames, draws):
+        d = None if d is None else tuple(x.to(device) for x in d)
+        boxes = model(frame.to(device), draws=d)
+        out.append({"count": model.policy_meta["num_exec"], "boxes": boxes,
+                    "canvases": tree_map(
+                        lambda x: x.to("cpu", torch.float32, copy=True),
+                        model.temporal["canvases"])})
+    return out
+
+
+def phase_detection_ladder_modes():
+    """(10c) ``CSPBlockCopy`` on the GPU against the CPU (plain versions):
+    counts and box counts per class (``valid`` and labels) equal; each GPU
+    box matched to the CPU box nearest it; canvases and boxes within 1e-5
+    of their largest |CPU value|."""
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.policy import net as policy_net
+    policy_net.COMPUTE_DTYPE = torch.float32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    kernels.reset_launches()
+    gpu = _det_ladder_clip("cuda")
+    used = dict(kernels.launches)
+    cpu = _det_ladder_clip("cpu")
+    torch.backends.cudnn.deterministic = False
+    policy_net.COMPUTE_DTYPE = torch.bfloat16
+    counts = [f["count"] for f in gpu]
+    same = counts == [f["count"] for f in cpu]
+    canvas_err = box_err = 0.0
+    n_boxes = []
+    for g, c in zip(gpu, cpu):
+        for name, r in c["canvases"].items():
+            pairs = [(g["canvases"][name][k], r[k]) for k in r] \
+                if isinstance(r, dict) else [(g["canvases"][name], r)]
+            for x, y in pairs:
+                canvas_err = max(canvas_err, (x - y).abs().max().item()
+                                 / max(y.abs().max().item(), 1e-30))
+        for gb, cb in zip(g["boxes"], c["boxes"]):       # per class
+            same &= gb.shape == cb.shape
+            if gb.shape != cb.shape or not len(cb):
+                continue
+            near = np.abs(gb[:, None, :4] - cb[None, :, :4]).max(-1) \
+                .argmin(1)
+            same &= len(set(near.tolist())) == len(near)
+            box_err = max(box_err, float(np.abs(gb - cb[near]).max()
+                                         / np.abs(cb).max()))
+        n_boxes.append(len(c["boxes"][0][0]))
+    log(f"[10c] CSPBlockCopy CSP (1, 2, 2, 1) 256x512 fp32, 4 frames at "
+        f"counts {counts}, GPU (kernels {used}) vs CPU (plain versions): "
+        f"counts, valid and labels equal {same}; canvases max abs err / max "
+        f"|CPU canvas| {canvas_err:.3g}; boxes {box_err:.3g}; boxes per frame "
+        f"{n_boxes}; tol 1e-5")
+    if (not same or canvas_err > 1e-5 or box_err > 1e-5 or min(n_boxes) < 1
+            or not used["halo_strips"] or not used["bottleneck_tail"]):
+        raise AssertionError("GPU detection ladder disagrees with the CPU")
+    return canvas_err, box_err
+
+
+def phase_detection_ladder_kernels(gen):
+    """(10d) at the detection ladder's extremes, K = 8 (7 blocks and a
+    padding slot) and K = 128 (every block): K1 bitwise against its plain
+    version at every detection shape (both entry points, bf16 and fp32) and
+    K2 against its plain version (bf16 3e-2, fp32 1e-4 with TF32 off;
+    outputs finite); then both timed there in bf16, per-frame sums beside
+    their bounds."""
+    from blockcopy_tpu_torch.ops.kernels import bottleneck as BT
+    from blockcopy_tpu_torch.ops.kernels import halo as H
+    from blockcopy_tpu_torch.tools.measure import device_ms
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tail_err = {"bf16": 0.0, "f32": 0.0}
+    out = {}
+    for k in DET_LADDER_KS:
+        n_set = k - 1 if k < N * GH * GW else k
+        for bs, c, p in sorted(set(DET_HALO_SHAPES)):
+            for dtype in (torch.bfloat16, torch.float32):
+                canvas, strips, idx, center = _halo_case(gen, bs, c, p, dtype,
+                                                         n_set, k)
+                args = (idx, p, N, GH, GW, center)
+                ref = H.halo_gather_canvas_plain(canvas, *args)
+                same = (torch.equal(H.halo_gather_canvas(canvas, *args), ref)
+                        and torch.equal(H.halo_gather_strips(strips, *args),
+                                        ref)
+                        and torch.equal(H.halo_gather_strips_plain(strips,
+                                                                   *args),
+                                        ref))
+                if not same:
+                    raise AssertionError(
+                        f"halo kernel disagrees with its plain version at "
+                        f"K={k} bs={bs} C={c} pad {p} {dtype}")
+                del canvas, strips, center, ref
+        for bs, cm, co in sorted(set(DET_TAIL_SHAPES)):
+            for name, dtype, tol in (("bf16", torch.bfloat16, 3e-2),
+                                     ("f32", torch.float32, 1e-4)):
+                args = _tail_case(gen, bs, cm, co, dtype, k)
+                ref = BT.bottleneck_tail_plain(*args).float()
+                got = BT.bottleneck_tail(*args)
+                err = (got.float() - ref).abs().max().item()
+                if not (bool(torch.isfinite(got).all()) and torch.allclose(
+                        got.float(), ref, rtol=tol, atol=tol)):
+                    raise AssertionError(
+                        f"bottleneck kernel disagrees with its plain version "
+                        f"at K={k} bs={bs} {dtype}: max abs err {err:.3g}")
+                tail_err[name] = max(tail_err[name], err)
+        log(f"[10d] K={k}: halo bitwise == plain at {len(set(DET_HALO_SHAPES))}"
+            f" detection shapes x bf16/fp32 x both entry points; tail within "
+            f"3e-2 bf16 / 1e-4 fp32 at {len(set(DET_TAIL_SHAPES))} shapes")
+        halo, tail = {}, {}
+        for bs, c, p in sorted(set(DET_HALO_SHAPES)):
+            canvas, strips, idx, center = _halo_case(gen, bs, c, p,
+                                                     torch.bfloat16, n_set, k)
+            args = (idx, p, N, GH, GW, center)
+            halo[(bs, c, p)] = {
+                "ms": device_ms(lambda: H.halo_gather_strips(strips, *args)),
+                "plain_ms": device_ms(
+                    lambda: H.halo_gather_strips_plain(strips, *args)),
+                "bound_ms": halo_bytes(bs, c, p, 2, k) / HBM_BYTES_PER_S
+                * 1e3}
+            t = halo[(bs, c, p)]
+            log(f"[10d] halo strips bs={bs:2d} C={c:3d} pad {p} bf16 K={k}: "
+                f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}), bound "
+                f"{t['bound_ms']:.4f} ms (bytes)")
+            del canvas, strips, center
+        for bs, cm, co in sorted(set(DET_TAIL_SHAPES)):
+            args = _tail_case(gen, bs, cm, co, torch.bfloat16, k)
+            flops, nbytes = tail_cost(bs, cm, co, 2, k)
+            t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+            tail[(bs, cm, co)] = {
+                "ms": device_ms(lambda: BT.bottleneck_tail(*args)),
+                "plain_ms": device_ms(lambda: BT.bottleneck_tail_plain(*args)),
+                "bound_ms": max(t_ops, t_bytes) * 1e3}
+            t = tail[(bs, cm, co)]
+            log(f"[10d] tail bs={bs} Cm={cm} Co={co} bf16 K={k}: "
+                f"{t['ms']:.4f} ms (plain {t['plain_ms']:.4f}), bound "
+                f"{t['bound_ms']:.4f} ms "
+                f"({'operations' if t_ops > t_bytes else 'bytes'})")
+        for name, rows, shapes in (("halo", halo, DET_HALO_SHAPES),
+                                   ("tail", tail, DET_TAIL_SHAPES)):
+            out[(name, k)] = {key: sum(rows[s][key] for s in shapes)
+                              for key in ("ms", "plain_ms", "bound_ms")}
+            log(f"[10d] {name} per detection ladder frame at K={k} "
+                f"({len(shapes)} launches): "
+                + ", ".join(f"{key} {v:.4f}"
+                            for key, v in out[(name, k)].items()))
+    out["tail_err"] = tail_err
+    return out
+
+
+def ladder_keys(kern, name):
+    """The kernels line's per-frame detection-ladder times of K1 or K2."""
+    return {f"detection_ladder_{key}_k{k}": kern[(name, k)][key]
+            for k in DET_LADDER_KS for key in ("ms", "plain_ms", "bound_ms")}
+
+
 def mm_cost(rows, k, n, itemsize, out_itemsize, peak):
     """Operations and the bound of one GEMM launch (each input read once,
     the output written once): (ms, "bytes" or "operations")."""
@@ -1045,6 +1497,10 @@ def main() -> int:
     det_launches, det = phase_detection()
     det_canvas_err, det_dets_err = phase_detection_modes()
     det_kern = phase_detection_kernels(gen)
+    dl_launches, dl = phase_detection_ladder()
+    det_cli = phase_detection_cli()
+    dl_canvas_err, dl_box_err = phase_detection_ladder_modes()
+    dl_kern = phase_detection_ladder_kernels(gen)
 
     source = "blockcopy_tpu_torch/csrc/"
     common = {"route": "cuda", "library_ms": None, "matched": True}
@@ -1059,6 +1515,10 @@ def main() -> int:
          "detection_plain_ms": det_kern["halo"]["plain_ms"],
          "detection_bound_ms": det_kern["halo"]["bound_ms"],
          "detection_max_abs_err": 0.0,
+         "detection_ladder_launches": dl_launches["halo_strips"],
+         "detection_cli_launches": {k: v["launches"]["halo_strips"]
+                                    for k, v in det_cli.items()},
+         **ladder_keys(dl_kern, "halo"),
          "max_abs_err": halo["err"], "ms": halo["strips"],
          "plain_ms": halo["strips_plain"], "bound_ms": halo["bound"],
          "bound_by": "bytes", **common},
@@ -1078,6 +1538,12 @@ def main() -> int:
          "detection_plain_ms": det_kern["tail"]["plain_ms"],
          "detection_bound_ms": det_kern["tail"]["bound_ms"],
          "detection_max_abs_err": det_kern["tail"]["err"]["bf16"],
+         "detection_ladder_launches": dl_launches["bottleneck_tail"],
+         "detection_cli_launches": {k: v["launches"]["bottleneck_tail"]
+                                    for k, v in det_cli.items()
+                                    if k != "ladder fp32"},
+         **ladder_keys(dl_kern, "tail"),
+         "detection_ladder_max_abs_err": dl_kern["tail_err"]["bf16"],
          # phase 8d: at block 256 the bf16 kernel takes no RN50 block
          "block256_launches": sum(blocks[(256, str(torch.bfloat16))]),
          "max_abs_err": tail["bf16"]["err"], "ms": tail["bf16"]["kernel"],
@@ -1091,6 +1557,9 @@ def main() -> int:
              cli["speed-mode fp32"]["launches"]["bottleneck_tail"],
          "block256_launches": sum(blocks[(256, str(torch.float32))]),
          "detection_max_abs_err": det_kern["tail"]["err"]["f32"],
+         "detection_cli_launches": det_cli["ladder fp32"]["launches"][
+             "bottleneck_tail"],
+         "detection_ladder_max_abs_err": dl_kern["tail_err"]["f32"],
          "max_abs_err": tail["f32"]["err"], "ms": tail["f32"]["kernel"],
          "plain_ms": tail["f32"]["plain"], "bound_ms": tail["f32"]["bound"],
          "bound_by": tail["f32"]["by"], **common},
@@ -1113,8 +1582,13 @@ def main() -> int:
         f"{ladder_err:.3g}; detection path {det['ms']:.2f} ms/frame, peak "
         f"{det['peak_gib']:.2f} GiB, GPU vs CPU canvases {det_canvas_err:.3g}"
         f", dets {det_dets_err:.3g}; detection_* times are per detection "
-        f"frame at K = {DET_K}; "
-        f"total {time.perf_counter() - t_start:.1f} s")
+        f"frame at K = {DET_K}; detection ladder {dl['ms']:.2f} ms/frame at "
+        f"capacities {dl['capacities']}, host syncs a frame {dl['syncs']}, "
+        f"peak {dl['peak_gib']:.2f} GiB, GPU vs CPU canvases "
+        f"{dl_canvas_err:.3g}, boxes {dl_box_err:.3g}; detection CLI fps "
+        + ", ".join(f"{k} {v['fps']:.2f}" for k, v in det_cli.items())
+        + f"; detection_ladder_* times are per detection ladder frame at "
+        f"K = 8 and 128; total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

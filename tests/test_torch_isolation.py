@@ -41,8 +41,11 @@ def test_walk_covers_detection():
     names = {m.name for m in pkgutil.walk_packages(p.__path__,
                                                     p.__name__ + ".")}
     assert {f"blockcopy_tpu_torch.{m}" for m in (
-        "models.csp", "ops.nms", "tasks.detection.stepper",
-        "tasks.detection.information_gain")} <= names
+        "models.csp", "models.builder", "ops.nms", "utils.registry",
+        "tasks.detection.stepper", "tasks.detection.information_gain",
+        "tasks.detection.eval", "tasks.detection.eval_mr",
+        "tasks.detection.dataset", "tasks.detection.checkpoint",
+        "tools.bench_detection")} <= names
 
 
 def test_cli_runs_without_jax_or_pil():
@@ -59,6 +62,25 @@ def test_cli_runs_without_jax_or_pil():
         "assert not bad, bad\n"
         "assert res['fps'] > 0\n")
     # two intra-op threads, as the other port tests (torch_port_util.py)
+    env = {**os.environ, "OMP_NUM_THREADS": "2"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_detection_cli_runs_without_jax_or_pil():
+    """The detection CLI on ``--synthetic`` clips, ladder engine, imports
+    neither JAX, nor the JAX package, nor PIL."""
+    code = (
+        "import sys\n"
+        "from blockcopy_tpu_torch.tasks.detection import eval as cli\n"
+        "res = cli.main(['--synthetic', '--res', '256', '--clip-length', '2',"
+        " '--num-clips-warmup', '1', '--num-clips-eval', '1',"
+        " '--workers', '1', '--device', 'cpu'])\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'blockcopy_tpu', 'PIL'))\n"
+        "assert not bad, bad\n"
+        "assert res['fps'] > 0 and 'MR_Reasonable' in res\n")
     env = {**os.environ, "OMP_NUM_THREADS": "2"}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
@@ -140,11 +162,42 @@ def _detection_stepper():
     DetectionStepper(CSPConfig(), StepperConfig(), (1, 256, 256, 3), 2)
 
 
+def _csp_blockcopy():
+    from blockcopy_tpu_torch.core.argparser import default_settings
+    from blockcopy_tpu_torch.models.csp import CSPBlockCopy, CSPConfig
+    CSPBlockCopy(None, CSPConfig(), default_settings(block_policy="all"))
+
+
+def _build_detector():
+    from blockcopy_tpu_torch.models.builder import build_detector
+    build_detector({"model": {"type": "CSPBlockCopy",
+                              "backbone": {"stage_blocks": (1, 1, 1, 1)}}})
+
+
+def _load_csp_checkpoint():
+    from blockcopy_tpu_torch.models.csp import CSPConfig
+    from blockcopy_tpu_torch.tasks.detection.checkpoint import \
+        load_csp_torch_checkpoint
+    load_csp_torch_checkpoint("missing.pth", CSPConfig())
+
+
+def _detection_cli():
+    from blockcopy_tpu_torch.tasks.detection import eval as cli
+    cli.main(["--synthetic", "--res", "256"])
+
+
+def _bench_detection():
+    from blockcopy_tpu_torch.tools import bench_detection
+    bench_detection.main([])
+
+
 @pytest.mark.parametrize("entry", [_swiftnet, _policy, _stepper,
                                    _params_from_jax, _probe, _engine,
                                    _build_policy, _load_checkpoint,
                                    _load_npz, _cli, _csp,
-                                   _detection_stepper])
+                                   _detection_stepper, _csp_blockcopy,
+                                   _build_detector, _load_csp_checkpoint,
+                                   _detection_cli, _bench_detection])
 def test_entry_points_default_to_cuda(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

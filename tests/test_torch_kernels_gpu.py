@@ -8,6 +8,8 @@ only PyTorch is installed:
 Without a GPU every case skips (decided when the test runs).
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,8 @@ from blockcopy_tpu_torch.ops.kernels import halo as H
 from blockcopy_tpu_torch.ops.kernels import mm as MM
 
 pytestmark = pytest.mark.cuda
+DET_CONFIG = str(Path(__file__).resolve().parents[1] / "configs" / "csp"
+                 / "csp_r50_clip_blockcopy_030.py")
 
 
 @pytest.fixture
@@ -105,6 +109,26 @@ def test_halo_kernel_detection_shapes(cuda_device, bs, c, pad, dtype):
     _halo_full_grid(cuda_device, bs, c, pad, dtype, 35, 38, seed=bs + c + pad)
 
 
+# the detection path's K1 sites (bs, C, pad): the stem's s2d planes,
+# layer1's 3x3s, the strided first blocks of layer2 and layer3, layer4's
+# dilated 3x3s, the head's fused branch conv and its three final convs
+DET_HALO_SHAPES = [(32, 48, 1), (32, 64, 1), (32, 128, 1), (16, 256, 1),
+                   (8, 512, 2), (32, 768, 1), (32, 256, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,c,pad", DET_HALO_SHAPES)
+@pytest.mark.parametrize("k", [8, 128])
+def test_halo_kernel_detection_ladder_capacities(cuda_device, k, bs, c, pad,
+                                                 dtype):
+    """Every detection shape at the detection ladder's extremes at
+    1024x2048: K = 8 (7 blocks and a padding slot) and K = 128 (frame 1,
+    every block), both entry points.  K2's detection shapes are RN50's
+    layer2 and layer3 ones (``test_bottleneck_kernel_ladder_capacities``)."""
+    _halo_full_grid(cuda_device, bs, c, pad, dtype, k - 1 if k < 128 else k,
+                    k, seed=k + bs + c + pad)
+
+
 def test_halo_kernel_refuses_bad_inputs(cuda_device):
     canvas = torch.zeros((9, 4, 4, 8), device=cuda_device)
     idx = torch.arange(2, device=cuda_device)
@@ -162,7 +186,8 @@ def test_bottleneck_kernel_ladder_capacities(cuda_device, k, bs, cm, co,
                                              dtype):
     """Ladder mode's smallest and largest capacities at 1024x2048: K = 8
     (16 CTAs in bf16) and K = 128 (256 CTAs, two waves on 132 SMs), at 3e-2
-    in bf16 and 1e-4 in fp32."""
+    in bf16 and 1e-4 in fp32.  The shapes are the semseg and the detection
+    ladders' both (RN50 and CSP-R50 layer2 and layer3)."""
     gpu = _gpu(_tail_inputs(np.random.RandomState(k + cm), k, bs, cm, co),
                cuda_device, dtype)
     got = BT.bottleneck_tail(*gpu)
@@ -356,6 +381,107 @@ def test_csp_full_depth_launches(cuda_device, dtype):
     used = {k: kernels.launches[k] - before[k] for k in before}
     assert used["halo_strips"] == 26 and used["bottleneck_tail"] == 16
     assert bool(torch.isfinite(state["dets"]).all())
+
+
+def _frame_syncs(fn):
+    """``fn()`` under torch's sync debug mode: its result and the number
+    of synchronizing CUDA calls it made."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    hits = [w for w in caught if "synchronizing" in str(w.message)]
+    return out, len(hits), [f"{w.filename}:{w.lineno}" for w in hits]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_csp_ladder_frames(cuda_device, dtype):
+    """``CSPBlockCopy`` from the shipped 0.3 config (CSP-R50 at full depth,
+    ``rl_objectdetection``, ``ref`` policy, verbose, REINFORCE every 4th
+    frame) on two 256x512 clips of 5 frames, the ``csp_cls`` bias 0: per
+    frame of the second clip the host syncs are the count, the NaN guard
+    where the policy ran, the boxes' one transfer where blocks ran and the
+    verbose print on a train frame (the first clip warms the process up: a
+    process's first frame makes one more, once); 13 K1 and 8 K2 launches
+    per executed frame; the gain's masks on the card in fp32; boxes inside
+    the image, scores at least the config's ``score_thr`` 0.1."""
+    from blockcopy_tpu_torch.models.builder import build_detector
+    from blockcopy_tpu_torch.tools.measure import synthetic_frames
+    from blockcopy_tpu_torch.utils.registry import load_config
+    model = build_detector(load_config(DET_CONFIG), dtype=dtype,
+                           device=cuda_device)
+    model.params["head"]["csp_cls"]["b"].zero_()
+    frames = synthetic_frames((1, 256, 512, 3), 5, dtype, device=cuda_device)
+    for clip in range(2):
+        model.reset_temporal()
+        for t, frame in enumerate(frames, start=1):
+            _check_ladder_frame(model, frame, t, check_syncs=clip == 1)
+    meta = model.policy_meta
+    assert isinstance(meta["information_gain"], torch.Tensor)
+    assert meta["information_gain"].device.type == "cuda"
+
+
+def _check_ladder_frame(model, frame, t, check_syncs):
+    """One ``CSPBlockCopy`` frame: its syncs (``check_syncs``), launches,
+    gain tensors and boxes."""
+    before = dict(kernels.launches)
+    boxes, syncs, where = _frame_syncs(lambda: model(frame))
+    meta = model.policy_meta
+    count, ran = meta["num_exec"], meta.get("_rl_cache") is not None
+    want = 1 + ran + (count > 0) + (t % 4 == 0)
+    if check_syncs:
+        assert syncs == want, (t, syncs, want, where)
+    used = {k: kernels.launches[k] - before[k]
+            for k in ("halo_strips", "bottleneck_tail")}
+    assert used == ({"halo_strips": 13, "bottleneck_tail": 8} if count
+                    else {"halo_strips": 0, "bottleneck_tail": 0})
+    assert meta["output_repr"].device.type == "cuda"
+    assert meta["output_repr"].dtype == torch.float32
+    if t == 1:
+        assert count == 8 and len(boxes[0]) >= 8
+    live = boxes[0]
+    assert np.all((live[:, 4] >= 0.1) & (live[:, 0] >= 0)
+                  & (live[:, 2] <= 511) & (live[:, 3] <= 255))
+
+
+@pytest.mark.parametrize("extra", [["--half"], ["--half", "--speed-mode"],
+                                   []])
+def test_detection_cli_on_card(cuda_device, extra):
+    """The detection CLI at 256x512 on the card (``--device cuda``) from
+    the shipped 0.3 config, random weights: the JSON line's keys and
+    ranges, 13 K1 and 8 K2 launches per frame that ran blocks (every frame
+    in speed mode)."""
+    from blockcopy_tpu_torch.models.csp import CSPBlockCopy
+    from blockcopy_tpu_torch.tasks.detection import eval as cli
+    executed = [0]
+    decode = CSPBlockCopy._decode
+
+    def counted(self, maps):
+        executed[0] += 1
+        return decode(self, maps)
+
+    CSPBlockCopy._decode = counted
+    before = dict(kernels.launches)
+    try:
+        res = cli.main(["--synthetic", "--res", "256", "--clip-length", "4",
+                        "--num-clips-warmup", "1", "--num-clips-eval", "1",
+                        "--workers", "1", "--device", "cuda", "--config",
+                        DET_CONFIG, *extra])
+    finally:
+        CSPBlockCopy._decode = decode
+    used = {k: kernels.launches[k] - before[k] for k in before}
+    frames = 8 if "--speed-mode" in extra else executed[0]
+    assert frames >= 2
+    assert used["halo_strips"] == 13 * frames
+    assert used["bottleneck_tail"] == 8 * frames
+    assert all(0 <= res[f"MR_{k}"] <= 100 or res[f"MR_{k}"] == -1
+               for k in ("Reasonable", "All"))
+    assert res["fps"] > 0 and res["gmacs_per_image"] > 0
+    assert 0 < res["perc_exec"] <= 1 and res["block_target"] == 0.3
 
 
 @pytest.mark.parametrize("rows,k,n", [(128, 64, 8), (128, 160, 136),
