@@ -1525,6 +1525,7 @@ def main() -> int:
         {"name": "halo_gather_canvas", "source": source + "halo.cu",
          "replaces": "blockcopy_tpu/ops/pallas/halo.py:68",
          "path": "pallas halo mode", "launches": canvas_launches,
+         "detection_ladder_launches": dl_launches["halo_canvas"],
          "max_abs_err": halo["err"], "ms": halo["canvas"],
          "plain_ms": halo["canvas_plain"], "bound_ms": halo["bound"],
          "bound_by": "bytes", **common},
@@ -1557,7 +1558,8 @@ def main() -> int:
              cli["speed-mode fp32"]["launches"]["bottleneck_tail"],
          "block256_launches": sum(blocks[(256, str(torch.float32))]),
          "detection_max_abs_err": det_kern["tail"]["err"]["f32"],
-         "detection_cli_launches": det_cli["ladder fp32"]["launches"][
+         # the fp32 detection ladder: the CLI's fp32 ladder run (10b)
+         "detection_ladder_launches": det_cli["ladder fp32"]["launches"][
              "bottleneck_tail"],
          "detection_ladder_max_abs_err": dl_kern["tail_err"]["f32"],
          "max_abs_err": tail["f32"]["err"], "ms": tail["f32"]["kernel"],
@@ -1566,8 +1568,9 @@ def main() -> int:
     ] + [
         {"name": name, "source": source + "mm.cu",
          "replaces": "tools/probe_int8.py:38", "path": "probe_int8",
-         "launches": probe_launches[name], "route": "cuda", "matched": True,
-         **mm[name]}
+         "launches": probe_launches[name],
+         "detection_ladder_launches": dl_launches[name], "route": "cuda",
+         "matched": True, **mm[name]}
         for name in ("mm_bf16", "mm_int8")]
     log(f"[7] halo and tail times are per main-path frame (sums over its "
         f"launch shapes), their library_ms null: no single PyTorch call "
