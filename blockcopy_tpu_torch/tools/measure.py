@@ -1,11 +1,14 @@
 """What ``chip_smoke.py`` and the tools share: the synthetic clip, the
-SwiftNet and CSP steppers they drive, a small detection clip for GPU-CPU
-comparisons, and device timing by CUDA graph replay."""
+SwiftNet and CSP steppers they drive, a small detection clip and a small
+train step for GPU-CPU comparisons, and device timing by CUDA graph
+replay."""
 
 from __future__ import annotations
 
+import contextlib
 import statistics
 
+import numpy as np
 import torch
 
 
@@ -131,6 +134,134 @@ def compare_clips(got, ref):
             dets_err.append(((gd - rd[near]).abs().max() / rd.abs().max())
                             .item() if len(rd) else 0.0)
     return grids, canvas_err, dets_err
+
+
+@contextlib.contextmanager
+def relu_masks(record=None, force=None, flips=None):
+    """Within the block, ``ops.layers.relu`` appends the sign mask of each
+    input (``x > 0``) to ``record``, or, given ``force``, passes exactly
+    where the next mask of ``force`` is true (numpy or tensors, in call
+    order) and appends to ``flips`` the number of places where that mask
+    and the input's own disagree, and the largest |input| there relative
+    to the input's largest.
+
+    Two devices round differently, so an input within rounding of 0 can fall
+    on either side of the kink, and every gradient upstream of it then
+    differs by up to 1e-2 of its largest value; the same masks on both
+    sides make a gradient comparison hold the arithmetic."""
+    from blockcopy_tpu_torch.ops import layers as L
+
+    plain = L.relu
+    masks = iter(force) if force is not None else None
+
+    def relu(x):
+        d = L._data(x).detach()
+        if masks is None:
+            record.append(d > 0)
+            return plain(x)
+        m = next(masks)
+        want = (m if isinstance(m, torch.Tensor)
+                else torch.from_numpy(np.array(m))).to(d.device)
+        if want.shape != d.shape:
+            raise ValueError(f"mask {tuple(want.shape)} for a ReLU input "
+                             f"{tuple(d.shape)}")
+        off = want != (d > 0)
+        scale = max(d.abs().max().item(), 1e-30)
+        flips.append((int(off.sum()),
+                      d[off].abs().max().item() / scale if off.any()
+                      else 0.0))
+        return L.emap(lambda t: torch.where(want, t, torch.zeros_like(t)), x)
+
+    L.relu = relu
+    try:
+        yield
+    finally:
+        L.relu = plain
+
+
+def leaf_err(got, ref) -> float:
+    """The largest difference of any leaf of two equally shaped trees,
+    relative to that leaf's largest |ref value|."""
+    from blockcopy_tpu_torch.policy.optim import tree_leaves
+
+    err = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(ref)):
+        a, b = a.detach().double().cpu(), b.detach().double().cpu()
+        err = max(err, (a - b).abs().max().item()
+                  / max(b.abs().max().item(), 1e-30))
+    return err
+
+
+def train_parity(steps=2, seed=0, device="cuda"):
+    """The detection train step on ``device`` against the CPU: CSP with
+    ``stage_blocks=(1, 2, 2, 1)`` at full widths, 128x256 fp32 synthetic
+    batches of 2, the validation tool's schedule and loss weights.  Per
+    step, from the same state on both devices: the losses; the gradients
+    with the device's ReLUs given the CPU's masks (``relu_masks``) and
+    without; then each device's Adam + EMA update fed the CPU's gradients.
+    Run with TF32 off.
+    Returns one dict a step: the loss terms' largest relative error, the
+    gradient leaves' largest error relative to the leaf (aligned, and not),
+    whether the key sets are equal, the mask disagreements (count, largest
+    |input| there relative to the input's largest), and the updated state's
+    largest leaf error."""
+    from blockcopy_tpu_torch.models.csp import CSPConfig, init_csp
+    from blockcopy_tpu_torch.policy.optim import tree_map
+    from blockcopy_tpu_torch.tasks.detection import train as T
+    from blockcopy_tpu_torch.tasks.detection.train_dataset import \
+        SyntheticDetTrainDataset
+    from blockcopy_tpu_torch.utils.convert import params_to_numpy
+
+    cfg = CSPConfig(stage_blocks=(1, 2, 2, 1))
+    tcfg = T.TrainConfig(lr=2e-4, warmup_iters=50, warmup_ratio=0.1,
+                         lr_steps=(), iters_per_epoch=10,
+                         loss_weights=(1.0, 1.0, 0.1))
+    ds = SyntheticDetTrainDataset(2 * steps, 128, 256, seed=5)
+    params = init_csp(cfg, seed=seed, device="cpu")
+    states = {"cpu": T.init_train_state(params, tcfg),
+              "dev": T.init_train_state(
+                  tree_map(lambda t: t.to(device, copy=True), params), tcfg)}
+    run = lambda key, b: T.loss_and_grads(
+        states[key]["params"], *_on(b, "cpu" if key == "cpu" else device),
+        cfg, tcfg.loss_weights)
+    report = []
+    for i in range(steps):
+        items = [ds[2 * i], ds[2 * i + 1]]
+        batch = [torch.from_numpy(np.stack([it[j] for it in items]))
+                 for j in range(4)]
+        masks, flips = [], []
+        with relu_masks(record=masks):
+            loss_c, grads_c = run("cpu", batch)
+        _, grads_free = run("dev", batch)
+        with relu_masks(force=masks, flips=flips):
+            loss_g, grads_g = run("dev", batch)
+        keys = sorted(params_to_numpy(grads_g)) == \
+            sorted(params_to_numpy(grads_c))
+        T.adam_ema_update(states["cpu"], grads_c, tcfg)
+        T.adam_ema_update(states["dev"],
+                          tree_map(lambda t: t.to(device), grads_c), tcfg)
+        report.append({
+            "step": i + 1,
+            "loss_err": max(abs(loss_g[k].item() - loss_c[k].item())
+                            / abs(loss_c[k].item()) for k in loss_c),
+            "grad_err": leaf_err(grads_g, grads_c),
+            "grad_err_unaligned": leaf_err(grads_free, grads_c),
+            "grad_keys_equal": keys,
+            "relus": len(masks),
+            "mask_flips": sum(f[0] for f in flips),
+            "flip_max_rel_input": max((f[1] for f in flips), default=0.0),
+            "update_err": leaf_err(
+                {k: states["dev"][k] for k in ("params", "m", "v",
+                                               "ema_params")},
+                {k: states["cpu"][k] for k in ("params", "m", "v",
+                                               "ema_params")}),
+            "loss_total": loss_c["loss_total"].item()})
+    return report
+
+
+def _on(batch, dev):
+    """A (images, maps) batch of CPU tensors on ``dev``."""
+    return batch[0].to(dev), tuple(m.to(dev) for m in batch[1:])
 
 
 def device_ms(fn, samples=50, inner=10):

@@ -1,7 +1,7 @@
 """Where one steady step of the main path spends its time, on the GPU.
 
     python3 -m blockcopy_tpu_torch.tools.profile_step [--steps 8]
-        [--engine stepper|ladder] [--model swiftnet|csp]
+        [--engine stepper|ladder|train] [--model swiftnet|csp]
 
 Runs the main path of ``chip_smoke.py`` (SwiftNet-RN50, 1024x2048 bf16, fast
 policy, block 128, target 0.5, REINFORCE every 4th frame), warms up past the
@@ -13,7 +13,10 @@ bf16, fast policy, block 128, target 0.3: 38 of 128 blocks).
 (``BlockCopyModel`` with the CLI's default settings, one clip), or with
 ``--model csp`` that of phase 10a (``CSPBlockCopy`` from
 ``configs/csp/csp_r50_clip_blockcopy_030.py``, the ``csp_cls`` bias 0), and
-adds the capacities of the traced frames.  The line holds:
+adds the capacities of the traced frames.  ``--engine train`` runs the
+detection train step of ``chip_smoke.py`` phase 11a instead (CSP-R50, fp32,
+640x1280 crops, batch 2, cuDNN TF32 on: the train CLI's defaults).  The
+line holds:
 
 * ``wall_ms_per_step``: host clock over the traced steps, fenced by
   ``torch.cuda.synchronize()`` (the profiler's own cost included);
@@ -101,11 +104,36 @@ def _ladder(shape, model_name):
     return run
 
 
+def _train():
+    """The detection train step at the train CLI's defaults, on one
+    synthetic batch uploaded once."""
+    import numpy as np
+    from blockcopy_tpu_torch.models.csp import CSPConfig, init_csp
+    from blockcopy_tpu_torch.tasks.detection import train as T
+    from blockcopy_tpu_torch.tasks.detection.train_dataset import \
+        SyntheticDetTrainDataset
+    torch.backends.cudnn.allow_tf32 = True
+    cfg, tcfg = CSPConfig(), T.TrainConfig(iters_per_epoch=32)
+    items = [SyntheticDetTrainDataset(2, 640, 1280, seed=0)[i]
+             for i in range(2)]
+    images, *maps = [torch.from_numpy(np.stack([it[k] for it in items]))
+                     .cuda() for k in range(4)]
+    step = T.make_train_step(cfg, tcfg, "cuda")
+    box = {"state": T.init_train_state(init_csp(cfg, seed=0, device="cuda"),
+                                       tcfg)}
+
+    def run(t, frame):
+        box["state"], _ = step(box["state"], images, tuple(maps))
+        return None
+
+    return run
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--warmup", type=int, default=10)
-    ap.add_argument("--engine", choices=("stepper", "ladder"),
+    ap.add_argument("--engine", choices=("stepper", "ladder", "train"),
                     default="stepper")
     ap.add_argument("--model", choices=("swiftnet", "csp"),
                     default="swiftnet")
@@ -114,10 +142,12 @@ def main() -> int:
         print("profile_step: CUDA is not available", file=sys.stderr)
         return 2
     shape = (1, 1024, 2048, 3)
-    run = _stepper(shape, args.model) if args.engine == "stepper" \
-        else _ladder(shape, args.model)
-    frames = synthetic_frames(shape, args.warmup + args.steps + 1,
-                              torch.bfloat16)
+    run = {"stepper": lambda: _stepper(shape, args.model),
+           "ladder": lambda: _ladder(shape, args.model),
+           "train": _train}[args.engine]()
+    frames = [None] * (args.warmup + args.steps + 1) \
+        if args.engine == "train" else synthetic_frames(
+            shape, args.warmup + args.steps + 1, torch.bfloat16)
     for t in range(args.warmup + 1):
         run(t, frames[t])
     torch.cuda.synchronize()
@@ -133,7 +163,8 @@ def main() -> int:
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     steps = args.steps
     result = {"device": torch.cuda.get_device_name(0), "steps": steps,
-              "engine": args.engine, "model": args.model,
+              "engine": args.engine,
+              "model": "csp" if args.engine == "train" else args.model,
               "wall_ms_per_step": wall_ms / steps,
               "device_busy_ms_per_step": None, "device_idle_share": None,
               "kernels_per_step": None, "top": None}

@@ -1,5 +1,5 @@
-"""Convert the JAX package's parameters and carried state into the port's,
-and back for comparisons.
+"""Convert the JAX package's parameters, carried state and detection train
+state into the port's, and back for comparisons.
 
 Inputs are numpy pytrees: nested dicts, lists and tuples (the JAX RMSprop
 state is a NamedTuple) of ``np.ndarray``, as ``jax.tree.map(np.asarray, t)``
@@ -164,4 +164,25 @@ def stepper_state_to_numpy(state: Dict) -> Dict:
     }
     for key in _task_keys(state):
         out[key] = to_numpy(state[key])
+    return out
+
+
+_TRAIN_TREES = ("params", "ema_params", "m", "v")
+
+
+def train_state_from_jax(state: Dict, device=None) -> Dict:
+    """The JAX detection train state ``{params, ema_params, m, v, step}``
+    as the port's: the four trees by the parameters' layout rule (the
+    path-tail rule covers ``m/neck/p3/w`` as well) on ``device``, ``step``
+    a 0-d int32 tensor on the CPU (``tasks/detection/train.py``)."""
+    out = {k: params_from_jax(state[k], device) for k in _TRAIN_TREES}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32)
+    return out
+
+
+def train_state_to_numpy(state: Dict) -> Dict:
+    """Inverse of ``train_state_from_jax``, for comparisons and saving."""
+    out = {k: params_to_numpy(state[k]) for k in _TRAIN_TREES}
+    out["step"] = np.int32(int(state["step"]))
     return out

@@ -91,7 +91,26 @@ Phases (any failure raises and exits non-zero):
    2, 1)`` 256x512 fp32, 4 frames, injected draws: counts, ``valid`` and
    labels equal, canvases and boxes within 1e-5; (d) K1 bitwise and K2
    against their plain versions at every detection shape at K = 8 and 128,
-   then both timed there in bf16.
+   then both timed there in bf16;
+11. detection training, before the JSON lines: (a) the train step on
+   CSP-R50 at full width and depth, fp32, 640x1280 crops, batch 2 (the train
+   CLI's defaults; cuDNN TF32 on, matmul TF32 off, torch's defaults): 12
+   steps timed directly, each under ``set_sync_debug_mode("error")``, no
+   kernel launch; ms/step (median of steps 3-12) and peak memory; then the
+   train CLI in-process (``--synthetic --epochs 1 --steps-per-epoch 8
+   --workers 2 --warmup-iters 0``): no host sync in a train step, finite
+   losses, ``step`` 8, the student, teacher and resume checkpoints
+   written; (b) the detection CLI on that teacher checkpoint, ladder bf16
+   1024x2048 from the 0.3 config: 13 K1 and 8 K2 launches per frame that
+   ran blocks (counts zeroed just before); (c) two train steps of CSP (1,
+   2, 2, 1) 128x256 fp32 on the GPU against the CPU, TF32 off: losses
+   within 1e-4 relative, gradient leaves within 1e-4 of their largest |CPU
+   value| with the GPU's ReLUs given the CPU's sign masks (disagreeing only
+   within 1e-5 of the input's largest value), the update fed the same
+   gradients within 1e-6; (d) ``tools/validate_detection.py`` at
+   ``--train-iters 150 --warmup-clips 4 --eval-clips 4 --skip-flag-ab``:
+   the loss falls at least 10x, MR and F1 against dense per mode, the exec
+   rate, 13 K1 and 8 K2 launches per frame of the BlockCopy mode.
 
 It needs one CUDA GPU and the repository around it: without either it exits
 non-zero and prints no result.
@@ -104,6 +123,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -1386,6 +1406,237 @@ def phase_detection_ladder_kernels(gen):
     return out
 
 
+# phase 11's full-width training: the train CLI's defaults (CSP-R50, fp32,
+# 640x1280 crops, batch 2)
+TRAIN_CROP, TRAIN_BATCH, TRAIN_STEPS = (640, 1280), 2, 12
+
+
+def phase_train():
+    """(11a) the detection train step at full width, timed directly: 12
+    steps, each under ``set_sync_debug_mode("error")`` (the losses are read
+    after the last), launch counts zeroed just before the first; ms/step
+    (median of steps 3-12, synchronize-fenced) and peak memory.  cuDNN's
+    TF32 on, matmul's off: torch's defaults, as the train CLI runs."""
+    from blockcopy_tpu_torch.models.csp import CSPConfig, init_csp
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.tasks.detection import train as T
+    from blockcopy_tpu_torch.tasks.detection.train_dataset import \
+        SyntheticDetTrainDataset
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = CSPConfig()
+    tcfg = T.TrainConfig(iters_per_epoch=32)      # the CLI's lr and warm-up
+    ds = SyntheticDetTrainDataset(TRAIN_STEPS * TRAIN_BATCH, *TRAIN_CROP,
+                                  seed=0)
+    batches = []
+    for i in range(TRAIN_STEPS):
+        items = [ds[TRAIN_BATCH * i + j] for j in range(TRAIN_BATCH)]
+        batches.append([torch.from_numpy(np.stack([it[k] for it in items]))
+                        .cuda() for k in range(4)])
+    state = T.init_train_state(init_csp(cfg, seed=0, device="cuda"), tcfg)
+    step = T.make_train_step(cfg, tcfg, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    ms, totals = [], []
+    for imgs, *maps in batches:
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, losses = step(state, imgs, tuple(maps))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        totals.append(losses["loss_total"])
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    totals = torch.stack(totals).tolist()
+    med = statistics.median(ms[2:])
+    log(f"[11a] train step CSP-R50 fp32 {TRAIN_CROP[0]}x{TRAIN_CROP[1]} "
+        f"batch {TRAIN_BATCH} (cuDNN TF32 on, matmul TF32 off), "
+        f"{TRAIN_STEPS} steps, no host sync: ms/step (host clock, "
+        f"synchronize-fenced, steps 3-{TRAIN_STEPS}) median {med:.2f}, min "
+        f"{min(ms[2:]):.2f}, max {max(ms[2:]):.2f}; all "
+        f"{[round(x, 2) for x in ms]}; peak memory {peak:.2f} GiB; "
+        f"loss_total {[round(x, 4) for x in totals]}; launches {launches}")
+    if (any(launches.values()) or not np.isfinite(totals).all()
+            or int(state["step"]) != TRAIN_STEPS):
+        raise AssertionError(f"train step: launches {launches}, losses "
+                             f"{totals}, step {int(state['step'])}")
+    return launches, {"ms": med, "peak_gib": peak, "syncs": 0}
+
+
+def phase_train_cli(tmp):
+    """(11a) the train CLI in-process at its defaults (``--synthetic
+    --epochs 1 --steps-per-epoch 8 --workers 2 --warmup-iters 0``), each
+    train step counted for host syncs (log steps read the losses after
+    theirs): no sync, finite losses, ``step`` 8, the three checkpoints
+    written.  Returns the teacher checkpoint's path and the launches."""
+    import contextlib
+    import io
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.tasks.detection import train_cli
+
+    make = train_cli.make_train_step
+    syncs = []
+
+    def watched_make(*a, **kw):
+        step = make(*a, **kw)
+
+        def watched(*args):
+            out, n = _count_syncs(step, *args)
+            syncs.append(n)
+            return out
+        return watched
+
+    argv = ["--synthetic", "--epochs", "1", "--steps-per-epoch", "8",
+            "--workers", "2", "--warmup-iters", "0", "--out", str(tmp)]
+    buf = io.StringIO()
+    train_cli.make_train_step = watched_make
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = train_cli.main(argv)
+    finally:
+        train_cli.make_train_step = make
+    launches = dict(kernels.launches)
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    files = {f: (Path(tmp) / f).is_file() for f in (
+        "epoch_1.npz", "epoch_1_teacher.npz", "latest_state.npz")}
+    log(f"[11a] train CLI {' '.join(argv[:-2])}: {json.dumps(line)}; "
+        f"{time.perf_counter() - t0:.1f} s with checkpoints {files}; host "
+        f"syncs per train step {syncs}; launches {launches}")
+    losses = list(line["first_losses"].values()) \
+        + list(line["final_losses"].values())
+    if (line != res or res["step"] != 8 or not all(files.values())
+            or not np.isfinite(losses).all() or any(syncs)
+            or len(syncs) != 8 or any(launches.values())):
+        raise AssertionError(f"train CLI: {line}, files {files}, syncs "
+                             f"{syncs}, launches {launches}")
+    return str(Path(tmp) / "epoch_1_teacher.npz"), launches
+
+
+def phase_trained_detection_cli(teacher):
+    """(11b) the detection CLI on the trained teacher checkpoint, ladder
+    bf16 at 1024x2048 from the shipped 0.3 config: 13 K1 and 8 K2 launches
+    per frame that ran blocks, counts zeroed just before the run."""
+    import contextlib
+    import io
+    from blockcopy_tpu_torch.models.csp import CSPBlockCopy
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.tasks.detection import eval as cli
+
+    torch.backends.cudnn.allow_tf32 = True
+    decode = CSPBlockCopy._decode
+    executed = [0]
+
+    def counted(self, maps):
+        executed[0] += 1
+        return decode(self, maps)
+
+    argv = ["--synthetic", "--res", "1024", "--clip-length", "8",
+            "--num-clips-warmup", "1", "--num-clips-eval", "1", "--config",
+            str(DET_CONFIG), "--checkpoint", teacher, "--half"]
+    buf = io.StringIO()
+    CSPBlockCopy._decode = counted
+    kernels.reset_launches()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = cli.main(argv)
+    finally:
+        CSPBlockCopy._decode = decode
+    launches = dict(kernels.launches)
+    frames = executed[0]
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    log(f"[11b] detection CLI ladder bf16 on the trained teacher "
+        f"checkpoint: {json.dumps(line)}; launches {launches}, frames that "
+        f"ran blocks {frames}")
+    if (line["fps"] != res["fps"] or frames < 2
+            or launches["halo_strips"] != frames * len(DET_HALO_SHAPES)
+            or launches["bottleneck_tail"] != frames * len(DET_TAIL_SHAPES)):
+        raise AssertionError(
+            f"trained-checkpoint CLI launches {launches} over {frames} "
+            f"frames, expected {len(DET_HALO_SHAPES)} K1 and "
+            f"{len(DET_TAIL_SHAPES)} K2 a frame")
+    return {"launches": launches, "frames": frames, "fps": line["fps"]}
+
+
+def phase_train_modes():
+    """(11c) two train steps of CSP (1, 2, 2, 1) at 128x256 fp32 on the GPU
+    against the CPU, TF32 off in cuDNN and matmul
+    (``tools/measure.py`` ``train_parity``): losses within 1e-4 relative,
+    every gradient leaf within 1e-4 of its largest |CPU value| with the
+    GPU's ReLUs given the CPU's masks (which may disagree only within 1e-5
+    of the input's largest value), the same key sets, and the Adam + EMA
+    update fed the CPU's gradients within 1e-6."""
+    from blockcopy_tpu_torch.tools.measure import train_parity
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    report = train_parity(steps=2)
+    torch.backends.cudnn.allow_tf32 = True
+    for r in report:
+        log(f"[11c] train step {r['step']} GPU vs CPU (TF32 off): "
+            f"{json.dumps(r)}")
+    if any(r["loss_err"] > 1e-4 or r["grad_err"] > 1e-4
+           or not r["grad_keys_equal"] or r["flip_max_rel_input"] > 1e-5
+           or r["update_err"] > 1e-6 for r in report):
+        raise AssertionError("GPU train step disagrees with the CPU")
+    return report
+
+
+def phase_validation():
+    """(11d) the validation tool at reduced counts (``--train-iters 150
+    --warmup-clips 4 --eval-clips 4 --skip-flag-ab``): the loss falls at
+    least 10x, and the BlockCopy mode launches 13 K1 and 8 K2 per frame
+    (every frame runs blocks; counts zeroed just before the mode)."""
+    import contextlib
+    import io
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.tools import validate_detection as V
+
+    torch.backends.cudnn.allow_tf32 = True
+    run_mode = V.run_blockcopy_mode
+    seen = {}
+
+    def counted(*a, **kw):
+        kernels.reset_launches()
+        out = run_mode(*a, **kw)
+        seen.update(kernels.launches)
+        return out
+
+    argv = ["--train-iters", "150", "--warmup-clips", "4", "--eval-clips",
+            "4", "--skip-flag-ab"]
+    buf = io.StringIO()
+    V.run_blockcopy_mode = counted
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = V.main(argv)
+    finally:
+        V.run_blockcopy_mode = run_mode
+    frames = (4 + 4) * V.CLIP_LEN
+    train = res["train"]
+    log(f"[11d] validation tool {' '.join(argv)} "
+        f"({time.perf_counter() - t0:.1f} s): train {json.dumps(train)}; "
+        + "; ".join(f"{k}: MR {json.dumps(v['mr'])}, F1 vs dense "
+                    f"{v['agreement_f1_vs_dense']:.4f}"
+                    + (f", exec rate {v['exec_rate_eval']:.4f}"
+                       if "exec_rate_eval" in v else "")
+                    for k, v in res["modes"].items())
+        + f"; BlockCopy mode launches {seen} over {frames} frames")
+    if (not train["loss_first"] >= 10 * train["loss_last"]
+            or seen.get("halo_strips") != frames * len(DET_HALO_SHAPES)
+            or seen.get("bottleneck_tail")
+            != frames * len(DET_TAIL_SHAPES)):
+        raise AssertionError(f"validation tool: train {train}, launches "
+                             f"{seen}")
+    return {"launches": seen, "frames": frames, "result": res}
+
+
 def ladder_keys(kern, name):
     """The kernels line's per-frame detection-ladder times of K1 or K2."""
     return {f"detection_ladder_{key}_k{k}": kern[(name, k)][key]
@@ -1501,6 +1752,19 @@ def main() -> int:
     det_cli = phase_detection_cli()
     dl_canvas_err, dl_box_err = phase_detection_ladder_modes()
     dl_kern = phase_detection_ladder_kernels(gen)
+    train_launches, train = phase_train()
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        teacher, train_cli_launches = phase_train_cli(tmp)
+        trained_cli = phase_trained_detection_cli(teacher)
+    train_err = phase_train_modes()
+    valid = phase_validation()
+
+    def phase11_keys(name):
+        return {"train_launches": train_launches[name],
+                "train_cli_launches": train_cli_launches[name],
+                "trained_checkpoint_cli_launches":
+                    trained_cli["launches"][name],
+                "validation_blockcopy_launches": valid["launches"][name]}
 
     source = "blockcopy_tpu_torch/csrc/"
     common = {"route": "cuda", "library_ms": None, "matched": True}
@@ -1519,6 +1783,7 @@ def main() -> int:
          "detection_cli_launches": {k: v["launches"]["halo_strips"]
                                     for k, v in det_cli.items()},
          **ladder_keys(dl_kern, "halo"),
+         **phase11_keys("halo_strips"),
          "max_abs_err": halo["err"], "ms": halo["strips"],
          "plain_ms": halo["strips_plain"], "bound_ms": halo["bound"],
          "bound_by": "bytes", **common},
@@ -1545,6 +1810,7 @@ def main() -> int:
                                     if k != "ladder fp32"},
          **ladder_keys(dl_kern, "tail"),
          "detection_ladder_max_abs_err": dl_kern["tail_err"]["bf16"],
+         **phase11_keys("bottleneck_tail"),
          # phase 8d: at block 256 the bf16 kernel takes no RN50 block
          "block256_launches": sum(blocks[(256, str(torch.bfloat16))]),
          "max_abs_err": tail["bf16"]["err"], "ms": tail["bf16"]["kernel"],
@@ -1591,7 +1857,13 @@ def main() -> int:
         f"{dl_canvas_err:.3g}, boxes {dl_box_err:.3g}; detection CLI fps "
         + ", ".join(f"{k} {v['fps']:.2f}" for k, v in det_cli.items())
         + f"; detection_ladder_* times are per detection ladder frame at "
-        f"K = 8 and 128; total {time.perf_counter() - t_start:.1f} s")
+        f"K = 8 and 128; train step {train['ms']:.2f} ms, peak "
+        f"{train['peak_gib']:.2f} GiB, GPU vs CPU gradients "
+        f"{max(r['grad_err'] for r in train_err):.3g}; validation "
+        f"(reduced) MR Reasonable "
+        + ", ".join(f"{k} {v['mr']['Reasonable']:.2f}"
+                    for k, v in valid["result"]["modes"].items())
+        + f"; total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

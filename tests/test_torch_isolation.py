@@ -48,6 +48,19 @@ def test_walk_covers_detection():
         "tools.bench_detection")} <= names
 
 
+def test_walk_covers_training():
+    """The import walk reaches the training modules, the extras ops and
+    the validation tool."""
+    import pkgutil
+    import blockcopy_tpu_torch as p
+    names = {m.name for m in pkgutil.walk_packages(p.__path__,
+                                                    p.__name__ + ".")}
+    assert {f"blockcopy_tpu_torch.{m}" for m in (
+        "tasks.detection.train", "tasks.detection.train_cli",
+        "tasks.detection.train_dataset", "data.transforms", "ops.extras",
+        "tools.validate_detection")} <= names
+
+
 def test_cli_runs_without_jax_or_pil():
     """The semseg CLI on ``--synthetic`` clips imports neither JAX, nor the
     JAX package, nor PIL (the card's machine has no PIL)."""
@@ -191,17 +204,35 @@ def _bench_detection():
     bench_detection.main([])
 
 
+def _trainer():
+    from blockcopy_tpu_torch.models.csp import CSPConfig
+    from blockcopy_tpu_torch.tasks.detection.train import (TrainConfig,
+                                                           make_train_step)
+    make_train_step(CSPConfig(), TrainConfig())
+
+
+def _train_cli(tmp_path):
+    from blockcopy_tpu_torch.tasks.detection import train_cli
+    train_cli.main(["--synthetic", "--out", str(tmp_path / "work")])
+
+
+def _validate_detection():
+    from blockcopy_tpu_torch.tools import validate_detection
+    validate_detection.main(["--train-iters", "1"])
+
+
 @pytest.mark.parametrize("entry", [_swiftnet, _policy, _stepper,
                                    _params_from_jax, _probe, _engine,
                                    _build_policy, _load_checkpoint,
                                    _load_npz, _cli, _csp,
                                    _detection_stepper, _csp_blockcopy,
                                    _build_detector, _load_csp_checkpoint,
-                                   _detection_cli, _bench_detection])
-def test_entry_points_default_to_cuda(entry, monkeypatch):
+                                   _detection_cli, _bench_detection,
+                                   _trainer, _train_cli, _validate_detection])
+def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        entry()
+        entry(tmp_path) if entry is _train_cli else entry()
 
 
 def test_kernel_wrappers_refuse_non_cpu_non_cuda():

@@ -484,6 +484,56 @@ def test_detection_cli_on_card(cuda_device, extra):
     assert 0 < res["perc_exec"] <= 1 and res["block_target"] == 0.3
 
 
+def test_train_step_matches_cpu(cuda_device):
+    """Two detection train steps of CSP (1, 2, 2, 1) at 128x256 fp32 on the
+    card against the CPU, TF32 off (``tools/measure.py:train_parity``, as
+    ``chip_smoke.py`` phase 11c): losses within 1e-4 relative, every
+    gradient leaf within 1e-4 of its largest |CPU value| with the card's
+    ReLUs given the CPU's masks (disagreeing only within 1e-5 of the
+    input's largest value), the same key sets, and the Adam + EMA update
+    fed the same gradients within 1e-6; no kernel launch."""
+    from blockcopy_tpu_torch.tools.measure import train_parity
+    before = dict(kernels.launches)
+    report = train_parity(steps=2)
+    assert kernels.launches == before
+    for r in report:
+        assert r["loss_err"] <= 1e-4 and r["grad_err"] <= 1e-4, r
+        assert r["grad_keys_equal"] and r["flip_max_rel_input"] <= 1e-5, r
+        assert r["update_err"] <= 1e-6, r
+
+
+def test_trained_checkpoint_ladder_frames(cuda_device, tmp_path):
+    """A teacher checkpoint written by the train CLI on the card (2 steps at
+    256x512) serves through ``CSPBlockCopy`` from the shipped 0.3 config in
+    bf16: 13 K1 and 8 K2 launches per executed frame of a 256x512 clip."""
+    from blockcopy_tpu_torch.models.builder import build_detector
+    from blockcopy_tpu_torch.tasks.detection import train_cli
+    from blockcopy_tpu_torch.tools.measure import synthetic_frames
+    from blockcopy_tpu_torch.utils.registry import load_config
+    res = train_cli.main([
+        "--synthetic", "--crop-height", "256", "--crop-width", "512",
+        "--epochs", "1", "--steps-per-epoch", "2", "--batch-size", "1",
+        "--num-samples", "2", "--workers", "1", "--warmup-iters", "0",
+        "--out", str(tmp_path)])
+    assert res["step"] == 2
+    model = build_detector(load_config(DET_CONFIG), dtype=torch.bfloat16,
+                           device=cuda_device,
+                           checkpoint=str(tmp_path / "epoch_1_teacher.npz"))
+    frames = synthetic_frames((1, 256, 512, 3), 4, torch.bfloat16,
+                              device=cuda_device)
+    model.reset_temporal()
+    executed = 0
+    for frame in frames:
+        before = dict(kernels.launches)
+        model(frame)
+        used = {k: kernels.launches[k] - before[k]
+                for k in ("halo_strips", "bottleneck_tail")}
+        ran = model.policy_meta["num_exec"] > 0
+        executed += ran
+        assert used == {"halo_strips": 13 * ran, "bottleneck_tail": 8 * ran}
+    assert executed >= 1           # frame 1 runs every block
+
+
 @pytest.mark.parametrize("rows,k,n", [(128, 64, 8), (128, 160, 136),
                                       (384, 1152, 128), (16896, 96, 24),
                                       (512, 1152, 136), (4096, 2304, 256),
