@@ -255,8 +255,11 @@ class FixedCapacityStepper:
             0, order, torch.arange(order.numel(), device=order.device))
         return (rank < self.capacity).reshape(probs.shape)
 
-    def _policy_optim(self, state, grid_f, cache_x):
-        """Running cost, and the REINFORCE update on train frames."""
+    def _policy_optim(self, state, grid_f, cache_x, group=None):
+        """Running cost, and the REINFORCE update on train frames, its
+        gradients averaged over ``group`` where given (only the gradients:
+        the running cost and BN statistics stay per rank, as per device in
+        the JAX package)."""
         cfg = self.cfg
         pol = state["policy"]
         perc = grid_f.mean()
@@ -276,7 +279,8 @@ class FixedCapacityStepper:
 
         params, opt, _ = reinforce_update(
             pol["params"], pol["bn_state"], pol["opt"], cache_x, grid_f,
-            signed, cfg.policy_arch, cfg.lr, cfg.weight_decay, cfg.momentum)
+            signed, cfg.policy_arch, cfg.lr, cfg.weight_decay, cfg.momentum,
+            grad_reduce=None if group is None else group.mean_tree)
         return {**pol, "params": params, "opt": opt, "running_cost": rc}
 
     # -- steps --------------------------------------------------------------
@@ -304,10 +308,15 @@ class FixedCapacityStepper:
             new[f"{k}_prev"] = task[k]
         return new
 
-    def step(self, model_params, state, frame, draws: Optional[Tuple] = None):
+    def step(self, model_params, state, frame, draws: Optional[Tuple] = None,
+             group=None):
         """Steady-state frame: sample a grid of ``capacity`` blocks, run
         them, update the policy.  ``draws`` injects the grid's uniforms (see
-        ``_sample_grid``)."""
+        ``_sample_grid``).  ``group`` (a ``parallel.distributed.Group``,
+        the counterpart of JAX's ``psum_axis``) averages the REINFORCE
+        gradients over clip-parallel ranks: one ``all_reduce`` on a train
+        frame, none on the others (every rank knows the train frames from
+        its host-side frame counter)."""
         n, gh, gw = self.geom
         pol = state["policy"]
         with torch.no_grad():
@@ -337,4 +346,5 @@ class FixedCapacityStepper:
         for k in self.task_keys:
             mid[k] = task[k]
             mid[f"{k}_prev"] = state[k]
-        return {**mid, "policy": self._policy_optim(mid, grid_f, cache_x)}
+        return {**mid, "policy": self._policy_optim(mid, grid_f, cache_x,
+                                                    group)}

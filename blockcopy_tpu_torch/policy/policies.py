@@ -93,9 +93,11 @@ def build_policy_from_settings(settings: dict, device=None):
 
 def reinforce_update(params, bn_state, opt_state, cache_x, grid_f, signed,
                      arch: str, lr: float, weight_decay: float,
-                     momentum: float):
+                     momentum: float, grad_reduce=None):
     """One REINFORCE step: ``loss = mean(-log p(grid) * signed)`` through
-    the policy net (BN statistics not updated), then RMSprop.  Returns
+    the policy net (BN statistics not updated), then RMSprop.
+    ``grad_reduce(grads)``, where given, replaces the gradients before the
+    update (clip-parallel ranks average theirs).  Returns
     ``(params, opt_state, loss)``."""
     leaves = rmsprop.tree_map(lambda t: t.detach().requires_grad_(True),
                               params)
@@ -107,6 +109,8 @@ def reinforce_update(params, bn_state, opt_state, cache_x, grid_f, signed,
         loss = torch.mean(-logp * signed)
         grads = iter(torch.autograd.grad(loss, rmsprop.tree_leaves(leaves)))
     grads = rmsprop.tree_map(lambda _: next(grads), leaves)
+    if grad_reduce is not None:
+        grads = grad_reduce(grads)
     with torch.no_grad():
         params, opt_state = rmsprop.update(
             grads, opt_state, params, lr=lr, weight_decay=weight_decay,

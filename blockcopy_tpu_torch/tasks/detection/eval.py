@@ -11,6 +11,14 @@ engine is the ladder ``CSPBlockCopy``; ``--speed-mode`` runs the
 ``configs/csp/`` (``utils/registry.py``); ``--synthetic`` runs on generated
 clips.
 
+Clip-parallel (``--speed-mode`` only): ``--num-devices D`` spawns D ranks
+(rank r on ``cuda:r``; with ``--device cpu`` D CPU ranks on gloo), or a
+launcher such as ``torchrun`` starts them (``WORLD_SIZE``).  Each rank steps
+clip d of every group of D clips, frame-synchronous, the policy's gradients
+averaged over the ranks; a partial final group is padded by repeating its
+last clip and the padded results are thrown away.  The detections reach
+rank 0, which runs the MR evaluator.
+
     python -m blockcopy_tpu_torch.tasks.detection.eval --synthetic --half \\
         --config configs/csp/csp_r50_clip_blockcopy_030.py      # on the card
     python -m blockcopy_tpu_torch.tasks.detection.eval --synthetic --res 256 \\
@@ -32,11 +40,13 @@ import torch
 
 from blockcopy_tpu_torch.core.argparser import add_argparser_arguments
 from blockcopy_tpu_torch.data.loader import PrefetchLoader
-from blockcopy_tpu_torch.device import resolve_device, to_device
+from blockcopy_tpu_torch.device import to_device
 from blockcopy_tpu_torch.models.builder import build_detector, load_csp_params
 from blockcopy_tpu_torch.models.csp import (CSPBlockCopy, CSPConfig,
                                             dets_to_bbox_results, init_csp,
                                             soft_nms_rescore)
+from blockcopy_tpu_torch.parallel import clip_parallel
+from blockcopy_tpu_torch.parallel.distributed import detect_env
 from blockcopy_tpu_torch.tasks.detection.dataset import CityPersonsClipDataset
 from blockcopy_tpu_torch.tasks.detection.eval_mr import (
     SETUP_LABELS,
@@ -129,9 +139,10 @@ def build_argparser():
                    help="write detection/grid visualization overlays")
     p.add_argument("--timings", type=int, default=0)
     p.add_argument("--policy-checkpoint", type=str, default="",
-                   help="npz path: load the online policy state before "
-                   "warmup if present, save it after warmup (other paths, "
-                   "orbax directories, are not ported: refused)")
+                   help="load the online policy state from this path if it "
+                   "exists, save it after warmup: an .npz holds one "
+                   "replica; in clip-parallel runs any other path is a "
+                   "directory of one file per rank")
     p.add_argument("--checkpoint-start", type=int, default=-1,
                    help="with --checkpoint-end: evaluate the epoch range "
                    "[start, end) of a training run, treating --checkpoint "
@@ -148,8 +159,9 @@ def build_argparser():
                    "CSP, decode, NMS and the IoU gain on the device, no "
                    "steady-state host sync")
     p.add_argument("--num-devices", type=int, default=1,
-                   help="clip-parallel over N devices (not ported: values "
-                   "> 1 are refused)")
+                   help="clip-parallel over N devices (speed mode only): "
+                   "each rank steps one clip on its device, the policy "
+                   "gradients are averaged over the ranks")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default; raises without a GPU) or 'cpu'")
     add_argparser_arguments(p)
@@ -158,25 +170,12 @@ def build_argparser():
     return p
 
 
-def _refuse_unported(args) -> None:
-    """Paths of the JAX CLI this port does not have yet: raise, never run
-    something else in their place."""
-    if args.num_devices > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "clip-parallel and multi-process runs (--num-devices > 1, "
-            "WORLD_SIZE > 1) are not ported yet: ROADMAP Queue 1 item 13")
-    if args.policy_checkpoint and not args.policy_checkpoint.endswith(".npz"):
-        raise NotImplementedError(
-            "policy checkpoints other than .npz files (orbax directories) "
-            "are not ported yet: ROADMAP Queue 1 item 13")
-
-
 class _StepperDetector:
     """``DetectionStepper`` behind the ladder engine's interface
     (``reset_temporal`` / ``simple_test``), so the eval loop is shared."""
 
     def __init__(self, params, csp_cfg, settings, frame_shape, dtype,
-                 device):
+                 device, group=None):
         from blockcopy_tpu_torch.core.stepper import StepperConfig
         from blockcopy_tpu_torch.tasks.detection.stepper import \
             DetectionStepper
@@ -189,7 +188,16 @@ class _StepperDetector:
         self.csp_cfg = csp_cfg
         self.stepper = DetectionStepper(csp_cfg, scfg, frame_shape, capacity,
                                         dtype=dtype, device=device)
-        self.state = self.stepper.init_state(params, seed=1)
+        self.group = group
+        if group is None:
+            self.state = self.stepper.init_state(params, seed=1)
+            self._first, self._step = self.stepper.first_step, \
+                self.stepper.step
+        else:
+            self.state = clip_parallel.init_parallel_state(
+                self.stepper, params, 1, group.rank)
+            self._first, self._step = clip_parallel.build_parallel_steps(
+                self.stepper, group)
         self._frame_id = 0
 
     def reset_temporal(self):
@@ -204,8 +212,7 @@ class _StepperDetector:
         """Step without reading the detections back: only a clip's last,
         annotated frame is evaluated (as the reference), so a steady frame
         makes no host sync."""
-        st = self.stepper
-        fn = st.first_step if self._frame_id == 0 else st.step
+        fn = self._first if self._frame_id == 0 else self._step
         self.state = fn(self.params, self.state, img)
         self._frame_id += 1
 
@@ -224,14 +231,21 @@ class _StepperDetector:
         # the overlays read the grid: the last stepped frame's
         return {"grid": self.state["prev_grid"] > 0}
 
+    # policy persistence, as the semseg CLI's (utils/policy_ckpt.py)
     def load_policy(self, path):
         from blockcopy_tpu_torch.utils.policy_ckpt import load_stepper_policy
+        rank = 0 if self.group is None else self.group.rank
         self.state = {**self.state, "policy": load_stepper_policy(
-            path, self.state["policy"])}
+            path, self.state["policy"], rank=rank)}
 
     def save_policy(self, path):
         from blockcopy_tpu_torch.utils.policy_ckpt import save_stepper_policy
-        save_stepper_policy(path, self.state["policy"])
+        if self.group is None:
+            save_stepper_policy(path, self.state["policy"])
+        else:
+            save_stepper_policy(path, self.state["policy"],
+                                devices=self.group.size,
+                                rank=self.group.rank)
 
 
 def _explicitly_passed(argv) -> set:
@@ -305,8 +319,35 @@ def main(argv=None):
             raise ValueError("epoch-range mode: --checkpoint is the "
                              "training run's directory")
         return _run_epoch_range(args, argv)
-    _refuse_unported(args)
-    device = resolve_device(args.device)
+    if args.num_devices > 1 or detect_env() is not None:
+        if not args.speed_mode:
+            raise ValueError("clip-parallel runs need --speed-mode (the "
+                             "fixed-capacity stepper)")
+        if args.output_dir:
+            raise ValueError("clip-parallel runs write no overlays: drop "
+                             "--output-dir")
+    argv = sys.argv[1:] if argv is None else list(argv)
+    results = clip_parallel.launch(
+        args.num_devices, args.device,
+        lambda device, group: _run(args, argv, device, group), _rank_entry,
+        argv)
+    if results is not None:
+        print(json.dumps(results))
+    return results
+
+
+def _rank_entry(group, argv):
+    """One spawned rank of ``--num-devices``."""
+    return _run(build_argparser().parse_args(argv), argv, group.device,
+                group)
+
+
+def _run(args, argv, device, group):
+    """The CLI's work on ``device``; ``group`` (a
+    ``parallel.distributed.Group``, or None for one process) makes it rank
+    ``group.rank`` of a clip-parallel run.  Returns the results on rank 0,
+    None on the others."""
+    mesh = group is not None
     timings.set_level(args.timings)
     dtype = torch.bfloat16 if args.half else torch.float32
 
@@ -342,7 +383,7 @@ def main(argv=None):
                              "--block-policy rl_objectdetection")
         model = _StepperDetector(model.params, model.cfg, settings,
                                  (1, args.res, args.res * 2, 3), dtype,
-                                 device)
+                                 device, group)
 
     if args.synthetic:
         n_warm = max(args.num_clips_warmup, 0) or 2
@@ -371,7 +412,47 @@ def main(argv=None):
         return to_device(torch.from_numpy(
             np.asarray(frame, np.float32)[None]).to(dtype), device)
 
+    def run_phase_mesh(ds, phase, max_clips):
+        """Clip d of each group of D clips on rank d, frame-synchronous; a
+        partial final group is padded by repeating its last clip, whose
+        results are thrown away, so the MR is exact for any clip count.
+        The detections and image counts are gathered on every rank."""
+        count = len(PrefetchLoader(ds, max_items=max_clips))
+        indices, real = clip_parallel.rank_clips(count, group.rank,
+                                                 group.size, pad=True)
+        loader = PrefetchLoader(clip_parallel.ClipSubset(ds, indices),
+                                num_workers=args.workers)
+        logger.info("## phase %s: %d clips over %d ranks", phase, count,
+                    group.size)
+        detections = []
+        num_images = 0
+        group.barrier()
+        start = time.perf_counter()
+        for (clip, _, meta), is_real in zip(iter(loader), real):
+            if len(set(group.gather_objects(len(clip)))) > 1:
+                raise ValueError("clip-parallel groups step frame-"
+                                 "synchronous and need equal clip lengths")
+            model.reset_temporal()
+            for frame in clip:
+                model.step_only(upload(frame))
+                num_images += int(is_real)
+            if phase == "eval":
+                bbox_results = model.current_results()
+                if is_real:
+                    detections.extend(bbox_results_to_coco(
+                        bbox_results, meta["image_id"]))
+        if phase != "eval":
+            model.current_results()     # fence with a device-to-host read
+        group.barrier()
+        elapsed = time.perf_counter() - start
+        num_images = int(group.sum_array(num_images))
+        detections = [d for part in group.gather_objects(detections)
+                      for d in part]
+        return detections, num_images, elapsed
+
     def run_phase(ds, phase, max_clips):
+        if mesh:
+            return run_phase_mesh(ds, phase, max_clips)
         loader = PrefetchLoader(ds, num_workers=args.workers,
                                 max_items=max_clips if max_clips >= 0 else -1)
         logger.info("## phase %s: %d clips", phase, len(loader))
@@ -424,6 +505,8 @@ def main(argv=None):
     dets, num_images, elapsed = run_phase(ds_eval, "eval",
                                           args.num_clips_eval)
     check_policy_health("eval")
+    if mesh and group.rank != 0:
+        return None
 
     if args.out:
         with open(args.out, "w") as f:
@@ -449,7 +532,6 @@ def main(argv=None):
     logger.info("%s", format_gmacs_breakdown(breakdown))
     if args.timings:
         logger.info("%s", timings)
-    print(json.dumps(results))
     return results
 
 

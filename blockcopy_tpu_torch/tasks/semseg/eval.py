@@ -10,6 +10,14 @@ model build and checkpoint load, then one of three engines: the ladder
 warmup phase then an eval phase, with a temporal reset per clip, streaming
 mIoU, FPS and analytic GMACs; the last stdout line is one JSON object.
 
+Clip-parallel (``--speed-mode`` only): ``--num-devices D`` spawns D ranks
+(rank r on ``cuda:r``; with ``--device cpu`` D CPU ranks on gloo), or a
+launcher such as ``torchrun`` starts them (``WORLD_SIZE``).  Each rank steps
+clip d of every group of D clips, frame-synchronous; the policy's gradients
+are averaged over the ranks.  Rank 0 reports: the confusion matrices and
+image counts summed over the ranks, FPS on its clock after a fence every
+rank passes.
+
     python -m blockcopy_tpu_torch.tasks.semseg.eval --synthetic \\
         --model-backbone resnet50 --half            # on the card
     python -m blockcopy_tpu_torch.tasks.semseg.eval --synthetic --res 256 \\
@@ -23,6 +31,7 @@ import json
 import logging
 import os
 import os.path as osp
+import sys
 import time
 
 import numpy as np
@@ -35,7 +44,8 @@ from blockcopy_tpu_torch.data import transforms as et
 from blockcopy_tpu_torch.data.cityscapes_vid import CityscapesVid
 from blockcopy_tpu_torch.data.demo import DemoImageDataset
 from blockcopy_tpu_torch.data.loader import PrefetchLoader
-from blockcopy_tpu_torch.device import resolve_device
+from blockcopy_tpu_torch.parallel import clip_parallel
+from blockcopy_tpu_torch.parallel.distributed import detect_env
 from blockcopy_tpu_torch.models.swiftnet import (
     SwiftNetConfig,
     init_swiftnet,
@@ -114,8 +124,9 @@ def build_argparser():
                         help="fixed-capacity stepper: every frame runs the "
                         "same shapes with no host sync")
     parser.add_argument("--num-devices", type=int, default=1,
-                        help="clip-parallel over N devices (not ported: "
-                        "values > 1 are refused)")
+                        help="clip-parallel over N devices (speed mode "
+                        "only): each rank steps one clip on its device, "
+                        "the policy gradients are averaged over the ranks")
     parser.add_argument("--timings", type=int, default=0)
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default; raises without a GPU) or "
@@ -127,10 +138,6 @@ def build_argparser():
 def _refuse_unported(args) -> None:
     """Paths of the JAX CLI this port does not have yet: raise, never run
     something else in their place."""
-    if args.num_devices > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            "clip-parallel and multi-process runs (--num-devices > 1, "
-            "WORLD_SIZE > 1) are not ported yet: ROADMAP Queue 1 item 13")
     if args.native_io:
         raise NotImplementedError(
             "--native-io needs the C++ IO library (blockcopy_tpu/native), "
@@ -138,10 +145,38 @@ def _refuse_unported(args) -> None:
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_argparser().parse_args(argv)
     logger.info("Arguments: %s", args)
     _refuse_unported(args)
-    device = resolve_device(args.device)
+    if args.num_devices > 1 or detect_env() is not None:
+        if not args.speed_mode or args.block_policy == "static":
+            raise ValueError("clip-parallel runs need --speed-mode (the "
+                             "fixed-capacity stepper)")
+        if args.batch_size != 1:
+            raise ValueError("clip-parallel runs step one clip per rank: "
+                             "use --batch-size 1")
+    results = clip_parallel.launch(
+        args.num_devices, args.device,
+        lambda device, group: _run(args, device, group), _rank_entry, argv)
+    if results is not None:
+        print(json.dumps({k: (float(v) if isinstance(v, (int, float,
+                                                          np.floating))
+                              else v) for k, v in results.items()}))
+    return results
+
+
+def _rank_entry(group, argv):
+    """One spawned rank of ``--num-devices``."""
+    return _run(build_argparser().parse_args(argv), group.device, group)
+
+
+def _run(args, device, group):
+    """The CLI's work on ``device``; ``group`` (a
+    ``parallel.distributed.Group``, or None for one process) makes it rank
+    ``group.rank`` of a clip-parallel run.  Returns the eval results on
+    rank 0, None on the others."""
+    mesh = group is not None
     num_classes = args.block_num_classes
     timings.set_level(args.timings)
 
@@ -205,7 +240,17 @@ def main(argv=None):
             (args.batch_size, args.res, args.res * 2, 3), capacity,
             dtype=dtype, device=device)
         stepper_state["stepper"] = stepper
-        stepper_state["state"] = stepper.init_state(params, seed=1)
+        if mesh:
+            stepper_state["state"] = clip_parallel.init_parallel_state(
+                stepper, params, 1, group.rank)
+            stepper_state["first"], stepper_state["step"] = \
+                clip_parallel.build_parallel_steps(stepper, group)
+            logger.info("clip-parallel: rank %d of %d on %s", group.rank,
+                        group.size, device)
+        else:
+            stepper_state["state"] = stepper.init_state(params, seed=1)
+            stepper_state["first"] = stepper.first_step
+            stepper_state["step"] = stepper.step
         logger.info("speed mode: capacity %d/%d blocks, %.2f GMACs/frame",
                     stepper.capacity, stepper.total,
                     stepper.macs_per_step(params) / 1e9)
@@ -252,8 +297,8 @@ def main(argv=None):
             timings.add_count(inputs.shape[0])
             with timings.env("process_clip/model", 2):
                 if stepper_state:
-                    st = stepper_state["stepper"]
-                    fn = st.first_step if frame_id == 0 else st.step
+                    fn = stepper_state["first"] if frame_id == 0 \
+                        else stepper_state["step"]
                     stepper_state["state"] = fn(params,
                                                 stepper_state["state"],
                                                 inputs)
@@ -276,10 +321,25 @@ def main(argv=None):
             num_classes, classes=CityscapesVid.fine_classes,
             class_names=CityscapesVid.train_id_to_name)
         timings.reset()
+        if mesh:
+            # clip d of each group of D clips to rank d; a partial final
+            # group is dropped, as the batch collate drops one
+            count = len(PrefetchLoader(dataset, max_items=max_num_clips))
+            if count % group.size and group.rank == 0:
+                logger.warning(
+                    "dropping %d tail clip(s) not filling a group of %d; "
+                    "use a clip count divisible by the group size to "
+                    "evaluate them", count % group.size, group.size)
+            dataset = clip_parallel.ClipSubset(dataset, clip_parallel.
+                                               rank_clips(count, group.rank,
+                                                          group.size)[0])
+            max_num_clips = -1
         loader = PrefetchLoader(dataset, num_workers=args.workers,
                                 max_items=max_num_clips
                                 if max_num_clips >= 0 else -1)
         logger.info("## phase %s: %d clips", phase, len(loader))
+        if mesh:
+            group.barrier()
         start = time.perf_counter()
         num_images = 0
         cached = None
@@ -321,6 +381,9 @@ def main(argv=None):
                     cached = (clip, target, meta)
                 clip, target, meta = cached
             num_images += len(clip) * clip[0].shape[0]
+            if mesh and len(set(group.gather_objects(len(clip)))) > 1:
+                raise ValueError("clip-parallel groups step frame-"
+                                 "synchronous and need equal clip lengths")
             with timings.env("process_dataset/process_clip", 1):
                 preds = process_clip(clip, meta, phase)
             if has_labels and not args.fast and not isinstance(target, int):
@@ -328,10 +391,22 @@ def main(argv=None):
         # fence with a device-to-host read
         if preds is not None:
             float(preds.sum())
+        if mesh:
+            # every rank has finished; then the sums onto every rank
+            group.barrier()
         stop = time.perf_counter()
+        running_cost = float(
+            stepper_state["state"]["policy"]["running_cost"].mean()) \
+            if stepper_state else None
+        if mesh:
+            num_images = int(group.sum_array(num_images))
+            metrics.confusion_matrix = group.sum_array(
+                metrics.confusion_matrix)
+            # the mean over ranks (JAX: over the mesh's devices)
+            running_cost = float(group.sum_array(running_cost)) / group.size
 
         logger.info("Number of images: %d", num_images)
-        if phase != "eval":
+        if phase != "eval" or (mesh and group.rank != 0):
             return None
         fps = num_images / (stop - start)
         results = {"fps": fps}
@@ -357,8 +432,7 @@ def main(argv=None):
             results["gmacs_breakdown"] = {k: v / 1e9
                                           for k, v in breakdown.items()}
             results["perc_exec"] = st.capacity / st.total
-            results["running_cost"] = float(
-                stepper_state["state"]["policy"]["running_cost"].mean())
+            results["running_cost"] = running_cost
         else:
             # the static baseline's cost: exact dense MACs from a shape
             # pass of the same model code on the meta device
@@ -394,7 +468,8 @@ def main(argv=None):
                 load_stepper_policy)
             state = stepper_state["state"]
             stepper_state["state"] = {**state, "policy": load_stepper_policy(
-                args.policy_checkpoint, state["policy"])}
+                args.policy_checkpoint, state["policy"],
+                rank=group.rank if mesh else 0)}
     process_dataset(dataset_warmup, "warmup", args.num_clips_warmup)
     check_policy_health("warmup")
     if args.policy_checkpoint:
@@ -404,15 +479,15 @@ def main(argv=None):
             from blockcopy_tpu_torch.utils.policy_ckpt import (
                 save_stepper_policy)
             save_stepper_policy(args.policy_checkpoint,
-                                stepper_state["state"]["policy"])
+                                stepper_state["state"]["policy"],
+                                devices=group.size if mesh else 0,
+                                rank=group.rank if mesh else 0)
         logger.info("saved policy state to %s", args.policy_checkpoint)
     if model is not None:
         model.flops.reset_frames()
         model.policy.stats = type(model.policy.stats)()
     results = process_dataset(dataset_eval, "eval", args.num_clips_eval)
     check_policy_health("eval")
-    print(json.dumps({k: (float(v) if isinstance(v, (int, float, np.floating))
-                          else v) for k, v in results.items()}))
     return results
 
 

@@ -1,12 +1,13 @@
 """What ``chip_smoke.py`` and the tools share: the synthetic clip, the
 SwiftNet and CSP steppers they drive, a small detection clip and a small
-train step for GPU-CPU comparisons, and device timing by CUDA graph
-replay."""
+train step for GPU-CPU comparisons, device timing by CUDA graph replay, and
+the body of one clip-parallel rank."""
 
 from __future__ import annotations
 
 import contextlib
 import statistics
+import time
 
 import numpy as np
 import torch
@@ -295,3 +296,150 @@ def device_times(fn, samples, inner):
         stop.synchronize()
         times.append(start.elapsed_time(stop) / inner)
     return times
+
+
+# -- clip-parallel ranks (chip_smoke.py phase 12) ----------------------------
+
+
+@contextlib.contextmanager
+def _stderr_count(pattern: str):
+    """Count the lines of file descriptor 2 that hold ``pattern`` while the
+    block runs (threads of C++ libraries, such as gloo's, report there and
+    not through Python's warnings), then pass the text on."""
+    import os
+    import sys
+    import tempfile
+    sys.stderr.flush()
+    saved = os.dup(2)
+    box = [0]
+    with tempfile.TemporaryFile() as tmp:
+        os.dup2(tmp.fileno(), 2)
+        try:
+            yield box
+        finally:
+            os.dup2(saved, 2)
+            os.close(saved)
+            tmp.seek(0)
+            text = tmp.read().decode(errors="replace")
+            box[0] = text.count(pattern)
+            sys.stderr.write(text)
+
+
+def count_syncs(fn, *args):
+    """``fn(*args)`` with torch's sync debug mode warning: its result and
+    the number of synchronizing CUDA calls it made, in this thread (as
+    Python warnings) and in the threads of the libraries it calls (on
+    stderr)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught, \
+            _stderr_count("called a synchronizing CUDA operation") as other:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, other[0] + sum("synchronizing" in str(w.message)
+                               for w in caught)
+
+
+def _flat(tree):
+    from blockcopy_tpu_torch.policy.optim import tree_leaves
+    return torch.cat([t.reshape(-1).float() for t in tree_leaves(tree)])
+
+
+def parallel_stepper_rank(group, model="swiftnet", steps=12,
+                          syncs_allowed_on_train=True,
+                          shape=(1, 1024, 2048, 3)):
+    """One clip-parallel rank at full width: the main path's stepper
+    (SwiftNet-RN50, capacity 64) or the detection stepper (CSP-R50,
+    capacity 38, ``csp_cls`` bias 0), 1024x2048 bf16, fast policy,
+    REINFORCE every 4th frame, its gradients averaged over ``group``;
+    ``init_parallel_state``, ``first_step``, ``steps`` steps of its own
+    clip (seeded by rank); ``shape`` smaller only to rehearse on the CPU,
+    where the CUDA-only checks are skipped.  A steady frame runs under
+    ``set_sync_debug_mode("error")``; a train frame too unless
+    ``syncs_allowed_on_train``, where its syncs are counted instead (gloo
+    stages a CUDA all_reduce through the host).  Returns, on the CPU: the
+    launch counts (zeroed just before ``init_state``), ms per step (host
+    clock, synchronize-fenced) with each step's start and end on the
+    host's monotonic clock (``time.perf_counter``, shared by the processes
+    of one host), the train
+    frames with their sync counts and policy digests, the rank's own and
+    the averaged gradient of the first train frame, and the peak memory in
+    GiB."""
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.parallel import clip_parallel
+    from blockcopy_tpu_torch.parallel.distributed import Group
+
+    class Keeping(Group):
+        """Keeps the first average's input and output, on the card."""
+        kept = ()
+
+        def mean_tree(self, tree):
+            out = super().mean_tree(tree)
+            if not self.kept:
+                self.kept = (_flat(tree), _flat(out))
+            return out
+
+    from blockcopy_tpu_torch.policy.optim import tree_map
+    cuda = group.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    torch.backends.cudnn.allow_tf32 = True
+    dtype = torch.bfloat16
+    blocks = (shape[1] // 128) * (shape[2] // 128)
+    if model == "swiftnet":
+        params, stepper = swiftnet_stepper("resnet50", shape,
+                                           round(0.5 * blocks), dtype,
+                                           group.device)
+    else:
+        params, stepper = csp_stepper(shape, round(0.3 * blocks), dtype,
+                                      group.device)
+        params["head"]["csp_cls"]["b"].zero_()
+    frames = synthetic_frames(shape, steps + 1, dtype, seed=group.rank,
+                              device=group.device)
+    keep = Keeping(group.rank, group.size, group.device, group.pg)
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    state = clip_parallel.init_parallel_state(stepper, params, 1, group.rank)
+    first, step = clip_parallel.build_parallel_steps(stepper, keep)
+    state = first(params, state, frames[0])
+    sync()
+    group.barrier()
+    ms, stamps, trained, kept_params = [], [], [], []
+    for frame in frames[1:]:
+        fi = state["frame_idx"] + 1
+        train = fi % stepper.cfg.train_interval == 0 and fi >= 2
+        t0 = time.perf_counter()
+        if not cuda:
+            state, syncs = step(params, state, frame), 0
+        elif train and syncs_allowed_on_train:
+            state, syncs = count_syncs(step, params, state, frame)
+        else:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                state = step(params, state, frame)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            syncs = 0
+        sync()
+        stamps.append((t0, time.perf_counter()))
+        ms.append((stamps[-1][1] - t0) * 1e3)
+        if train:
+            trained.append((fi, syncs))
+            kept_params.append(tree_map(lambda t: t.clone(),
+                                        state["policy"]["params"]))
+    out = stepper.fetch_outputs(state)
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in
+                 (out if isinstance(out, tuple) else (out,))
+                 if t.is_floating_point())
+    return {"launches": dict(kernels.launches), "ms": ms, "stamps": stamps,
+            "trained": trained, "finite": finite,
+            "digests": [clip_parallel.params_digest(p) for p in kept_params],
+            "grad_own": keep.kept[0].cpu() if keep.kept else None,
+            "grad_mean": keep.kept[1].cpu() if keep.kept else None,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30
+            if cuda else None,
+            "capacity": stepper.capacity}

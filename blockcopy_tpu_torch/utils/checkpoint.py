@@ -190,14 +190,19 @@ def load_params(path: str, cfg, dtype=torch.float32, device=None) -> Dict:
     raise ValueError(f"unknown checkpoint format: {path}")
 
 
-def save_orbax(path: str, tree) -> None:
-    raise NotImplementedError(
-        "orbax checkpoints (sharded mesh state) are not ported yet: ROADMAP "
-        "Queue 1 item 13")
+# files an orbax checkpoint directory (the JAX package's
+# ``utils/checkpoint.py`` ``save_orbax``) holds at its top level
+ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt")
 
 
-def load_orbax(path: str, like) -> Dict:
-    raise NotImplementedError(
-        "orbax checkpoints (sharded mesh state) are not ported yet: ROADMAP "
-        "Queue 1 item 13")
-
+def refuse_orbax(path: str) -> None:
+    """Raise where ``path`` is an orbax checkpoint directory: the port does
+    not read orbax (the card's machine has no orbax package); its own
+    mesh-mode layout is one npz per rank (``utils/policy_ckpt.py``)."""
+    if os.path.isdir(path) and any(
+            os.path.exists(os.path.join(path, m)) for m in ORBAX_MARKERS):
+        raise ValueError(
+            f"{path} is an orbax checkpoint directory of the JAX package: "
+            f"the port reads .npz files and its own per-rank directories "
+            f"only; re-save the state as an .npz with the JAX package's "
+            f"utils/policy_ckpt.py save_stepper_policy")

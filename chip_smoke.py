@@ -110,7 +110,26 @@ Phases (any failure raises and exits non-zero):
    gradients within 1e-6; (d) ``tools/validate_detection.py`` at
    ``--train-iters 150 --warmup-clips 4 --eval-clips 4 --skip-flag-ab``:
    the loss falls at least 10x, MR and F1 against dense per mode, the exec
-   rate, 13 K1 and 8 K2 launches per frame of the BlockCopy mode.
+   rate, 13 K1 and 8 K2 launches per frame of the BlockCopy mode;
+12. clip-parallel, before the JSON lines: (a) two ranks on ``cuda:0``
+   (spawned processes joined on gloo: NCCL takes one rank per GPU), each
+   stepping its own clip through phase 4's path (SwiftNet-RN50 1024x2048
+   bf16, capacity 64, REINFORCE every 4th frame), ``first_step`` and 12
+   steps, the REINFORCE gradients averaged in one all_reduce a train
+   frame: 12 K1 and 8 K2 launches a frame on each rank (counts zeroed just
+   before each rank's ``init_state``), updates at frames 4, 8, 12, the
+   policy parameters bitwise equal across the ranks after every one, no
+   host sync on a steady frame (``set_sync_debug_mode("error")``); the
+   syncs each train frame reports, ms/frame per rank, the two ranks'
+   aggregate frames/s against phase 4's one rank, peak memory per rank;
+   (b) the same step in a world of one on NCCL, every frame (train frames
+   too) with no host sync; (c) the averaged gradient of (a)'s first train
+   frame against the mean of the two ranks' own gradients, taken in this
+   process; (d) the semseg CLI at full width with ``--speed-mode
+   --num-devices 1`` under ``WORLD_SIZE=1`` (12 K1 and 8 K2 launches a
+   frame), and the detection stepper (phase 9's workload) on two gloo
+   ranks on ``cuda:0``: ``first_step`` and 8 steps, 13 K1 and 8 K2 a frame
+   on each rank, the parameters bitwise equal after every update.
 
 It needs one CUDA GPU and the repository around it: without either it exits
 non-zero and prints no result.
@@ -1637,6 +1656,144 @@ def phase_validation():
     return {"launches": seen, "frames": frames, "result": res}
 
 
+def _check_ranks(tag, ranks, per_frame, frames):
+    """The ranks of one clip-parallel run: each rank launched ``per_frame``
+    kernels a frame over ``frames`` frames and nothing else, its outputs
+    are finite, it trained at frames 4, 8, ... only, and after every
+    update the policy parameters are bitwise equal across the ranks and
+    moved.  Returns per rank: the launches, the median ms/frame of steps
+    3 on, the train frames' syncs and the peak memory."""
+    want = {k: per_frame.get(k, 0) * frames for k in ranks[0]["launches"]}
+    train = [f for f in range(2, frames + 1) if f % 4 == 0]
+    for r, res in enumerate(ranks):
+        if res["launches"] != want or not res["finite"]:
+            raise AssertionError(f"[{tag}] rank {r}: launches "
+                                 f"{res['launches']} (expected {want}), "
+                                 f"finite outputs {res['finite']}")
+        if [f for f, _ in res["trained"]] != train:
+            raise AssertionError(f"[{tag}] rank {r} trained at "
+                                 f"{res['trained']}, expected {train}")
+    digests = [res["digests"] for res in ranks]
+    if any(d != digests[0] for d in digests) or \
+            len(set(digests[0])) != len(digests[0]):
+        raise AssertionError(f"[{tag}] policy digests per train frame "
+                             f"{digests}")
+    out = []
+    for r, res in enumerate(ranks):
+        med = statistics.median(res["ms"][2:])
+        out.append({"launches": res["launches"], "ms": med,
+                    "syncs": [n for _, n in res["trained"]],
+                    "peak_gib": res["peak_gib"]})
+        log(f"[{tag}] rank {r}: launches {res['launches']}, ms/frame median "
+            f"{med:.2f} (steps 3-{len(res['ms'])}; all "
+            f"{[round(x, 2) for x in res['ms']]}), train frames (frame, host "
+            f"syncs) "
+            f"{res['trained']}, peak memory {res['peak_gib']:.2f} GiB")
+    log(f"[{tag}] policy parameters bitwise equal across {len(ranks)} "
+        f"ranks after the updates at frames {train}")
+    return out
+
+
+def phase_parallel(single_ms):
+    """Phase 12 (module docstring); ``single_ms`` is phase 4's ms/frame."""
+    import contextlib
+    import io
+    import os
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.parallel import clip_parallel
+    from blockcopy_tpu_torch.tasks.semseg import eval as cli
+    from blockcopy_tpu_torch.tools.measure import parallel_stepper_rank
+
+    steps = 12
+    per_frame = {"halo_strips": len(HALO_SHAPES),
+                 "bottleneck_tail": len(TAIL_SHAPES)}
+    two = clip_parallel.make_group(2, ["cuda:0", "cuda:0"], backend="gloo")
+    t0 = time.perf_counter()
+    ranks = clip_parallel.spawn(two, parallel_stepper_rank, "swiftnet",
+                                steps, True, timeout=600)
+    log(f"[12a] two gloo ranks on cuda:0: spawned, built and stepped in "
+        f"{time.perf_counter() - t0:.1f} s")
+    a = _check_ranks("12a", ranks, per_frame, steps + 1)
+    # steps 3-12 of both ranks over the window from the first rank's start
+    # of step 3 to the last rank's end of step 12 (one host clock)
+    window = max(r["stamps"][-1][1] for r in ranks) \
+        - min(r["stamps"][2][0] for r in ranks)
+    agg = sum(len(r["stamps"]) - 2 for r in ranks) / window
+    one = 1e3 / single_ms
+    log(f"[12a] aggregate {agg:.2f} frames/s over steps 3-{steps} of both "
+        f"ranks ({window:.3f} s window) against {one:.2f} for phase 4's one "
+        f"rank ({agg / one:.3f}x); syncs a train frame per rank "
+        f"{[r['syncs'] for r in a]}")
+
+    own = [r["grad_own"] for r in ranks]
+    mean = ranks[0]["grad_mean"]
+    if not torch.equal(mean, ranks[1]["grad_mean"]):
+        raise AssertionError("[12c] the ranks' averaged gradients differ")
+    want = (own[0] + own[1]) / 2
+    grad_err = (mean - want).abs().max().item()
+    scale = want.abs().max().item()
+    if grad_err > 1e-7 * scale:
+        raise AssertionError(f"[12c] averaged gradient {grad_err:.3g} from "
+                             f"the mean of the ranks' own (scale {scale:.3g})")
+    log(f"[12c] averaged gradient ({mean.numel()} values) against the mean "
+        f"of the two ranks' own gradients: max abs err {grad_err:.3g} "
+        f"(largest |value| {scale:.3g}), bitwise equal on both ranks")
+
+    t0 = time.perf_counter()
+    nccl = clip_parallel.spawn(clip_parallel.make_group(1, ["cuda:0"],
+                                                        backend="nccl"),
+                               parallel_stepper_rank, "swiftnet", steps,
+                               False, timeout=600)
+    b = _check_ranks("12b", nccl, per_frame, steps + 1)
+    log(f"[12b] NCCL world of one: every frame without a host sync, "
+        f"{b[0]['ms']:.2f} ms/frame ({time.perf_counter() - t0:.1f} s)")
+
+    argv = ["--synthetic", "--res", "1024", "--model-backbone", "resnet50",
+            "--half", "--speed-mode", "--num-devices", "1", "--clip-length",
+            "4", "--num-clips-warmup", "1", "--num-clips-eval", "1",
+            "--model-checkpoint", ""]
+    buf = io.StringIO()
+    before = os.environ.get("WORLD_SIZE")
+    os.environ["WORLD_SIZE"] = "1"
+    kernels.reset_launches()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = cli.main(argv)
+    finally:
+        if before is None:
+            del os.environ["WORLD_SIZE"]
+        else:
+            os.environ["WORLD_SIZE"] = before
+    cli_launches = dict(kernels.launches)
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if (torch.distributed.is_initialized() or line["fps"] != res["fps"]
+            or cli_launches["halo_strips"] != 8 * len(HALO_SHAPES)
+            or cli_launches["bottleneck_tail"] != 8 * len(TAIL_SHAPES)):
+        raise AssertionError(f"[12d] CLI under WORLD_SIZE=1: {line}, "
+                             f"launches {cli_launches}")
+    log(f"[12d] semseg CLI --num-devices 1 under WORLD_SIZE=1: "
+        f"{json.dumps(line)}; launches {cli_launches}")
+
+    det_per_frame = {"halo_strips": len(DET_HALO_SHAPES),
+                     "bottleneck_tail": len(DET_TAIL_SHAPES)}
+    det = clip_parallel.spawn(two, parallel_stepper_rank, "csp", 8, True,
+                              timeout=600)
+    d = _check_ranks("12d", det, det_per_frame, 9)
+    return {"two_ranks": a, "aggregate_fps": agg, "single_fps": one,
+            "grad_err": grad_err, "nccl": b, "cli": line,
+            "cli_launches": cli_launches, "detection": d}
+
+
+def parallel_keys(par, name):
+    """The kernels line's phase-12 launches of kernel ``name``."""
+    return {"parallel_launches": [r["launches"][name]
+                                  for r in par["two_ranks"]],
+            "parallel_nccl_launches": par["nccl"][0]["launches"][name],
+            "parallel_cli_launches": par["cli_launches"][name],
+            "parallel_detection_launches": [r["launches"][name]
+                                            for r in par["detection"]]}
+
+
 def ladder_keys(kern, name):
     """The kernels line's per-frame detection-ladder times of K1 or K2."""
     return {f"detection_ladder_{key}_k{k}": kern[(name, k)][key]
@@ -1758,6 +1915,7 @@ def main() -> int:
         trained_cli = phase_trained_detection_cli(teacher)
     train_err = phase_train_modes()
     valid = phase_validation()
+    par = phase_parallel(step_ms)
 
     def phase11_keys(name):
         return {"train_launches": train_launches[name],
@@ -1784,6 +1942,7 @@ def main() -> int:
                                     for k, v in det_cli.items()},
          **ladder_keys(dl_kern, "halo"),
          **phase11_keys("halo_strips"),
+         **parallel_keys(par, "halo_strips"),
          "max_abs_err": halo["err"], "ms": halo["strips"],
          "plain_ms": halo["strips_plain"], "bound_ms": halo["bound"],
          "bound_by": "bytes", **common},
@@ -1791,6 +1950,7 @@ def main() -> int:
          "replaces": "blockcopy_tpu/ops/pallas/halo.py:68",
          "path": "pallas halo mode", "launches": canvas_launches,
          "detection_ladder_launches": dl_launches["halo_canvas"],
+         **parallel_keys(par, "halo_canvas"),
          "max_abs_err": halo["err"], "ms": halo["canvas"],
          "plain_ms": halo["canvas_plain"], "bound_ms": halo["bound"],
          "bound_by": "bytes", **common},
@@ -1811,6 +1971,7 @@ def main() -> int:
          **ladder_keys(dl_kern, "tail"),
          "detection_ladder_max_abs_err": dl_kern["tail_err"]["bf16"],
          **phase11_keys("bottleneck_tail"),
+         **parallel_keys(par, "bottleneck_tail"),
          # phase 8d: at block 256 the bf16 kernel takes no RN50 block
          "block256_launches": sum(blocks[(256, str(torch.bfloat16))]),
          "max_abs_err": tail["bf16"]["err"], "ms": tail["bf16"]["kernel"],
@@ -1828,6 +1989,9 @@ def main() -> int:
          "detection_ladder_launches": det_cli["ladder fp32"]["launches"][
              "bottleneck_tail"],
          "detection_ladder_max_abs_err": dl_kern["tail_err"]["f32"],
+         # phase 12 runs in bf16: the fp32 kernel is not on its path
+         "parallel_launches": [0, 0], "parallel_nccl_launches": 0,
+         "parallel_cli_launches": 0, "parallel_detection_launches": [0, 0],
          "max_abs_err": tail["f32"]["err"], "ms": tail["f32"]["kernel"],
          "plain_ms": tail["f32"]["plain"], "bound_ms": tail["f32"]["bound"],
          "bound_by": tail["f32"]["by"], **common},
@@ -1835,7 +1999,8 @@ def main() -> int:
         {"name": name, "source": source + "mm.cu",
          "replaces": "tools/probe_int8.py:38", "path": "probe_int8",
          "launches": probe_launches[name],
-         "detection_ladder_launches": dl_launches[name], "route": "cuda",
+         "detection_ladder_launches": dl_launches[name],
+         **parallel_keys(par, name), "route": "cuda",
          "matched": True, **mm[name]}
         for name in ("mm_bf16", "mm_int8")]
     log(f"[7] halo and tail times are per main-path frame (sums over its "
@@ -1863,6 +2028,12 @@ def main() -> int:
         f"(reduced) MR Reasonable "
         + ", ".join(f"{k} {v['mr']['Reasonable']:.2f}"
                     for k, v in valid["result"]["modes"].items())
+        + f"; clip-parallel: two gloo ranks on one card "
+        f"{[round(r['ms'], 2) for r in par['two_ranks']]} ms/frame, "
+        f"aggregate {par['aggregate_fps']:.2f} frames/s against one rank's "
+        f"{par['single_fps']:.2f}, averaged gradient err "
+        f"{par['grad_err']:.3g}, NCCL world of one "
+        f"{par['nccl'][0]['ms']:.2f} ms/frame"
         + f"; total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kern}))

@@ -5,9 +5,12 @@ synthetic clips get boxes) through a config file, policy ``all``: the same
 JSON keys, the miss rates equal, ``gmacs_per_image`` to 1e-6 relative.
 
 Then the port alone: ``--speed-mode`` runs and an explicit ``--block-*``
-flag beats the config's ``blockcopy_settings``; the paths not ported raise.
+flag beats the config's ``blockcopy_settings``; the clip-parallel paths
+(an over-count, a launch without its coordinator, a policy directory).
 Policy files and the epoch-range mode: ``test_torch_detection_cli_modes.py``
 (one file would take a minute)."""
+
+import datetime
 
 import numpy as np
 import pytest
@@ -98,12 +101,51 @@ def test_explicitly_passed():
 
 
 @pytest.mark.parametrize("extra, env", [
-    (["--num-devices", "2"], {}),
-    ([], {"WORLD_SIZE": "2"}),
-    (["--policy-checkpoint", "policy_dir"], {}),
+    (["--speed-mode", "--num-devices", "1000"], {}),
+    (["--speed-mode"], {"WORLD_SIZE": "2", "RANK": "1"}),
+    (["--speed-mode", "--policy-checkpoint"], {}),
 ])
-def test_unported_paths_raise(monkeypatch, extra, env):
+def test_unported_paths_raise(monkeypatch, tmp_path, files, extra, env):
+    """The clip-parallel paths this CLI refused before they were ported,
+    each now a case of what it does: more ranks than devices raise; a
+    ``WORLD_SIZE`` launch whose coordinator never answers raises; a policy
+    directory (the mesh-mode layout) loads its rank-0 file and is saved
+    back."""
+    from blockcopy_tpu_torch.core.stepper import (FixedCapacityStepper,
+                                                  StepperConfig)
+    from blockcopy_tpu_torch.parallel import distributed
+    from blockcopy_tpu_torch.utils import policy_ckpt as tpc
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        port(*extra)
+    if env:
+        monkeypatch.setenv("MASTER_PORT", str(_free_port()))
+        monkeypatch.setattr(distributed, "TIMEOUT",
+                            datetime.timedelta(seconds=3))
+        with pytest.raises(RuntimeError):
+            port(*files, *extra)
+    elif "--num-devices" in extra:
+        with pytest.raises(ValueError, match="available"):
+            port(*files, *extra)
+    else:
+        path = str(tmp_path / "policy_dir")
+        pol = FixedCapacityStepper(None, StepperConfig(num_classes=1),
+                                   (1, 256, 512, 3), 4,
+                                   device="cpu").init_policy_state(7)
+        tpc.save_stepper_policy(path, pol, devices=1)
+        saved = dict(np.load(tpc.rank_file(path, 0)))
+        port(*files, *extra, path)
+        with np.load(tpc.rank_file(path, 0)) as back:
+            # it loaded this state (its params, seed 7, untrained in two
+            # frames a clip) and saved it after warmup
+            for key in saved:
+                if key.startswith("params/"):
+                    np.testing.assert_array_equal(back[key], saved[key])
+            assert not all(np.array_equal(back[k], saved[k])
+                           for k in saved if k.startswith("bn_state/"))
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]

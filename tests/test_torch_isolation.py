@@ -61,6 +61,16 @@ def test_walk_covers_training():
         "tools.validate_detection")} <= names
 
 
+def test_walk_covers_parallel():
+    """The import walk reaches the clip-parallel modules."""
+    import pkgutil
+    import blockcopy_tpu_torch as p
+    names = {m.name for m in pkgutil.walk_packages(p.__path__,
+                                                    p.__name__ + ".")}
+    assert {f"blockcopy_tpu_torch.parallel.{m}" for m in (
+        "distributed", "clip_parallel")} <= names
+
+
 def test_cli_runs_without_jax_or_pil():
     """The semseg CLI on ``--synthetic`` clips imports neither JAX, nor the
     JAX package, nor PIL (the card's machine has no PIL)."""
@@ -221,6 +231,23 @@ def _validate_detection():
     validate_detection.main(["--train-iters", "1"])
 
 
+def _dryrun_multichip():
+    from blockcopy_tpu_torch.parallel import clip_parallel
+    clip_parallel.dryrun_multichip(2)
+
+
+def _mesh_cli():
+    from blockcopy_tpu_torch.tasks.semseg import eval as cli
+    cli.main(["--synthetic", "--res", "128", "--speed-mode",
+              "--num-devices", "2"])
+
+
+def _mesh_detection_cli():
+    from blockcopy_tpu_torch.tasks.detection import eval as cli
+    cli.main(["--synthetic", "--res", "256", "--speed-mode",
+              "--num-devices", "2"])
+
+
 @pytest.mark.parametrize("entry", [_swiftnet, _policy, _stepper,
                                    _params_from_jax, _probe, _engine,
                                    _build_policy, _load_checkpoint,
@@ -228,7 +255,9 @@ def _validate_detection():
                                    _detection_stepper, _csp_blockcopy,
                                    _build_detector, _load_csp_checkpoint,
                                    _detection_cli, _bench_detection,
-                                   _trainer, _train_cli, _validate_detection])
+                                   _trainer, _train_cli, _validate_detection,
+                                   _dryrun_multichip, _mesh_cli,
+                                   _mesh_detection_cli])
 def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

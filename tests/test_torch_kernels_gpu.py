@@ -534,6 +534,23 @@ def test_trained_checkpoint_ladder_frames(cuda_device, tmp_path):
     assert executed >= 1           # frame 1 runs every block
 
 
+def test_two_ranks_on_one_card(cuda_device, monkeypatch):
+    """Two gloo ranks on ``cuda:0`` (NCCL takes one rank per GPU), RN18
+    256x512 fp32, each on its own clip: every frame of each rank launches
+    the halo kernel, and the policy stays bitwise equal across the ranks
+    after every frame, the averaged updates (frames 2 and 4) included."""
+    from blockcopy_tpu_torch.parallel import clip_parallel
+    from torch_rank_workers import card_rank
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    spec = clip_parallel.make_group(2, ["cuda:0", "cuda:0"], backend="gloo")
+    (l0, d0), (l1, d1) = clip_parallel.spawn(spec, card_rank, timeout=600)
+    assert d0 == d1
+    assert d0[0] != d0[1] == d0[2] != d0[3]     # trained at frames 2, 4
+    for launches in (l0, l1):
+        assert launches["halo_strips"] > 0 and launches["halo_strips"] % 4 \
+            == 0, launches
+
+
 @pytest.mark.parametrize("rows,k,n", [(128, 64, 8), (128, 160, 136),
                                       (384, 1152, 128), (16896, 96, 24),
                                       (512, 1152, 136), (4096, 2304, 256),
