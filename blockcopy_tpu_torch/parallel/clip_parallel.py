@@ -128,18 +128,21 @@ def spawn(spec: GroupSpec, fn: Callable, *args,
     return results
 
 
-def launch(num_devices: int, device, run: Callable, rank_entry: Callable,
-           argv: list):
-    """Run a CLI as the launch asks, and return rank 0's result (None on
-    the other ranks):
+def _spawned(group: Group, run: Callable, argv: list):
+    return run(argv, group.device, group)
+
+
+def launch(num_devices: int, device, run: Callable, argv: list):
+    """Run a CLI's ``run(argv, device, group)`` as the launch asks, and
+    return rank 0's result (None on the other ranks):
 
     - ``num_devices`` > 1 and no launcher: ``num_devices`` ranks spawned
       here, rank r on ``cuda:r`` (or all on the CPU, on gloo, for
-      ``device`` "cpu"), each calling ``rank_entry(group, argv)``; the
-      CUDA kernels are built once first, so the ranks load them;
+      ``device`` "cpu"); the CUDA kernels are built once first, so the
+      ranks load them; ``run`` must be importable;
     - a launcher's environment (``WORLD_SIZE`` > 1): this process is one
-      rank, on ``cuda:LOCAL_RANK``; ``run(device, group)``;
-    - else one process: ``run(device, None)``.
+      rank, on ``cuda:LOCAL_RANK``;
+    - else one process, with ``group`` None.
 
     Nothing falls back: a rank or a backend that fails raises."""
     device = resolve_device(device)
@@ -149,15 +152,15 @@ def launch(num_devices: int, device, run: Callable, rank_entry: Callable,
         if device.type == "cuda":
             from blockcopy_tpu_torch.ops.kernels import build
             build.build(["halo", "bottleneck"])
-        return spawn(spec, rank_entry, argv)[0]
+        return spawn(spec, _spawned, run, argv)[0]
     if device.type == "cuda" and detect_env() is not None:
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
         torch.cuda.set_device(device)
     owned = not dist.is_initialized() and maybe_initialize(device=device)
     try:
         if not dist.is_initialized():
-            return run(device, None)
-        return run(device, global_group(
+            return run(argv, device, None)
+        return run(argv, device, global_group(
             num_devices if num_devices > 1 else None, device))
     finally:
         if owned:

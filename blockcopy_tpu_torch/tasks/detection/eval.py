@@ -234,18 +234,19 @@ class _StepperDetector:
     # policy persistence, as the semseg CLI's (utils/policy_ckpt.py)
     def load_policy(self, path):
         from blockcopy_tpu_torch.utils.policy_ckpt import load_stepper_policy
-        rank = 0 if self.group is None else self.group.rank
         self.state = {**self.state, "policy": load_stepper_policy(
-            path, self.state["policy"], rank=rank)}
+            path, self.state["policy"], rank=self._rank()[1])}
 
     def save_policy(self, path):
         from blockcopy_tpu_torch.utils.policy_ckpt import save_stepper_policy
-        if self.group is None:
-            save_stepper_policy(path, self.state["policy"])
-        else:
-            save_stepper_policy(path, self.state["policy"],
-                                devices=self.group.size,
-                                rank=self.group.rank)
+        devices, rank = self._rank()
+        save_stepper_policy(path, self.state["policy"], devices=devices,
+                            rank=rank)
+
+    def _rank(self):
+        """(ranks, this rank) of a clip-parallel run; (0, 0) alone."""
+        return (0, 0) if self.group is None else (self.group.size,
+                                                  self.group.rank)
 
 
 def _explicitly_passed(argv) -> set:
@@ -327,26 +328,19 @@ def main(argv=None):
             raise ValueError("clip-parallel runs write no overlays: drop "
                              "--output-dir")
     argv = sys.argv[1:] if argv is None else list(argv)
-    results = clip_parallel.launch(
-        args.num_devices, args.device,
-        lambda device, group: _run(args, argv, device, group), _rank_entry,
-        argv)
+    results = clip_parallel.launch(args.num_devices, args.device, _run,
+                                   argv)
     if results is not None:
         print(json.dumps(results))
     return results
 
 
-def _rank_entry(group, argv):
-    """One spawned rank of ``--num-devices``."""
-    return _run(build_argparser().parse_args(argv), argv, group.device,
-                group)
-
-
-def _run(args, argv, device, group):
+def _run(argv, device, group):
     """The CLI's work on ``device``; ``group`` (a
     ``parallel.distributed.Group``, or None for one process) makes it rank
     ``group.rank`` of a clip-parallel run.  Returns the results on rank 0,
     None on the others."""
+    args = build_argparser().parse_args(argv)
     mesh = group is not None
     timings.set_level(args.timings)
     dtype = torch.bfloat16 if args.half else torch.float32
@@ -417,7 +411,7 @@ def _run(args, argv, device, group):
         partial final group is padded by repeating its last clip, whose
         results are thrown away, so the MR is exact for any clip count.
         The detections and image counts are gathered on every rank."""
-        count = len(PrefetchLoader(ds, max_items=max_clips))
+        count = len(ds) if max_clips < 0 else min(len(ds), max_clips)
         indices, real = clip_parallel.rank_clips(count, group.rank,
                                                  group.size, pad=True)
         loader = PrefetchLoader(clip_parallel.ClipSubset(ds, indices),

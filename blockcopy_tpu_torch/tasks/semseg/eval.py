@@ -44,8 +44,6 @@ from blockcopy_tpu_torch.data import transforms as et
 from blockcopy_tpu_torch.data.cityscapes_vid import CityscapesVid
 from blockcopy_tpu_torch.data.demo import DemoImageDataset
 from blockcopy_tpu_torch.data.loader import PrefetchLoader
-from blockcopy_tpu_torch.parallel import clip_parallel
-from blockcopy_tpu_torch.parallel.distributed import detect_env
 from blockcopy_tpu_torch.models.swiftnet import (
     SwiftNetConfig,
     init_swiftnet,
@@ -53,6 +51,8 @@ from blockcopy_tpu_torch.models.swiftnet import (
     swiftnet_apply,
 )
 from blockcopy_tpu_torch.ops.layers import resize_bilinear
+from blockcopy_tpu_torch.parallel import clip_parallel
+from blockcopy_tpu_torch.parallel.distributed import detect_env
 from blockcopy_tpu_torch.policy.optim import tree_map
 from blockcopy_tpu_torch.utils.checkpoint import load_params
 from blockcopy_tpu_torch.utils.flops import format_gmacs_breakdown
@@ -156,9 +156,8 @@ def main(argv=None):
         if args.batch_size != 1:
             raise ValueError("clip-parallel runs step one clip per rank: "
                              "use --batch-size 1")
-    results = clip_parallel.launch(
-        args.num_devices, args.device,
-        lambda device, group: _run(args, device, group), _rank_entry, argv)
+    results = clip_parallel.launch(args.num_devices, args.device, _run,
+                                   argv)
     if results is not None:
         print(json.dumps({k: (float(v) if isinstance(v, (int, float,
                                                           np.floating))
@@ -166,16 +165,12 @@ def main(argv=None):
     return results
 
 
-def _rank_entry(group, argv):
-    """One spawned rank of ``--num-devices``."""
-    return _run(build_argparser().parse_args(argv), group.device, group)
-
-
-def _run(args, device, group):
+def _run(argv, device, group):
     """The CLI's work on ``device``; ``group`` (a
     ``parallel.distributed.Group``, or None for one process) makes it rank
     ``group.rank`` of a clip-parallel run.  Returns the eval results on
     rank 0, None on the others."""
+    args = build_argparser().parse_args(argv)
     mesh = group is not None
     num_classes = args.block_num_classes
     timings.set_level(args.timings)
@@ -324,7 +319,8 @@ def _run(args, device, group):
         if mesh:
             # clip d of each group of D clips to rank d; a partial final
             # group is dropped, as the batch collate drops one
-            count = len(PrefetchLoader(dataset, max_items=max_num_clips))
+            count = len(dataset) if max_num_clips < 0 \
+                else min(len(dataset), max_num_clips)
             if count % group.size and group.rank == 0:
                 logger.warning(
                     "dropping %d tail clip(s) not filling a group of %d; "
@@ -392,22 +388,25 @@ def _run(args, device, group):
         if preds is not None:
             float(preds.sum())
         if mesh:
-            # every rank has finished; then the sums onto every rank
-            group.barrier()
+            group.barrier()     # every rank has finished
         stop = time.perf_counter()
+        if phase != "eval":
+            logger.info("Number of images: %d", num_images)
+            return None
         running_cost = float(
             stepper_state["state"]["policy"]["running_cost"].mean()) \
             if stepper_state else None
         if mesh:
+            # the sums onto every rank; the running cost's mean over the
+            # ranks (JAX: over the mesh's devices)
             num_images = int(group.sum_array(num_images))
             metrics.confusion_matrix = group.sum_array(
                 metrics.confusion_matrix)
-            # the mean over ranks (JAX: over the mesh's devices)
             running_cost = float(group.sum_array(running_cost)) / group.size
+            if group.rank != 0:
+                return None
 
         logger.info("Number of images: %d", num_images)
-        if phase != "eval" or (mesh and group.rank != 0):
-            return None
         fps = num_images / (stop - start)
         results = {"fps": fps}
         if has_labels and not args.fast:

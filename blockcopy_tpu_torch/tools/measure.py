@@ -349,15 +349,13 @@ def _flat(tree):
 
 
 def parallel_stepper_rank(group, model="swiftnet", steps=12,
-                          syncs_allowed_on_train=True,
-                          shape=(1, 1024, 2048, 3)):
+                          syncs_allowed_on_train=True):
     """One clip-parallel rank at full width: the main path's stepper
     (SwiftNet-RN50, capacity 64) or the detection stepper (CSP-R50,
     capacity 38, ``csp_cls`` bias 0), 1024x2048 bf16, fast policy,
     REINFORCE every 4th frame, its gradients averaged over ``group``;
     ``init_parallel_state``, ``first_step``, ``steps`` steps of its own
-    clip (seeded by rank); ``shape`` smaller only to rehearse on the CPU,
-    where the CUDA-only checks are skipped.  A steady frame runs under
+    clip (seeded by rank), on a CUDA device.  A steady frame runs under
     ``set_sync_debug_mode("error")``; a train frame too unless
     ``syncs_allowed_on_train``, where its syncs are counted instead (gloo
     stages a CUDA all_reduce through the host).  Returns, on the CPU: the
@@ -383,39 +381,31 @@ def parallel_stepper_rank(group, model="swiftnet", steps=12,
             return out
 
     from blockcopy_tpu_torch.policy.optim import tree_map
-    cuda = group.device.type == "cuda"
-    sync = torch.cuda.synchronize if cuda else (lambda: None)
     torch.backends.cudnn.allow_tf32 = True
-    dtype = torch.bfloat16
-    blocks = (shape[1] // 128) * (shape[2] // 128)
+    shape, dtype = (1, 1024, 2048, 3), torch.bfloat16
     if model == "swiftnet":
-        params, stepper = swiftnet_stepper("resnet50", shape,
-                                           round(0.5 * blocks), dtype,
+        params, stepper = swiftnet_stepper("resnet50", shape, 64, dtype,
                                            group.device)
     else:
-        params, stepper = csp_stepper(shape, round(0.3 * blocks), dtype,
-                                      group.device)
+        params, stepper = csp_stepper(shape, 38, dtype, group.device)
         params["head"]["csp_cls"]["b"].zero_()
     frames = synthetic_frames(shape, steps + 1, dtype, seed=group.rank,
                               device=group.device)
     keep = Keeping(group.rank, group.size, group.device, group.pg)
-    sync()
-    if cuda:
-        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     state = clip_parallel.init_parallel_state(stepper, params, 1, group.rank)
     first, step = clip_parallel.build_parallel_steps(stepper, keep)
     state = first(params, state, frames[0])
-    sync()
+    torch.cuda.synchronize()
     group.barrier()
     ms, stamps, trained, kept_params = [], [], [], []
     for frame in frames[1:]:
         fi = state["frame_idx"] + 1
         train = fi % stepper.cfg.train_interval == 0 and fi >= 2
         t0 = time.perf_counter()
-        if not cuda:
-            state, syncs = step(params, state, frame), 0
-        elif train and syncs_allowed_on_train:
+        if train and syncs_allowed_on_train:
             state, syncs = count_syncs(step, params, state, frame)
         else:
             torch.cuda.set_sync_debug_mode("error")
@@ -424,7 +414,7 @@ def parallel_stepper_rank(group, model="swiftnet", steps=12,
             finally:
                 torch.cuda.set_sync_debug_mode(0)
             syncs = 0
-        sync()
+        torch.cuda.synchronize()
         stamps.append((t0, time.perf_counter()))
         ms.append((stamps[-1][1] - t0) * 1e3)
         if train:
@@ -440,6 +430,5 @@ def parallel_stepper_rank(group, model="swiftnet", steps=12,
             "digests": [clip_parallel.params_digest(p) for p in kept_params],
             "grad_own": keep.kept[0].cpu() if keep.kept else None,
             "grad_mean": keep.kept[1].cpu() if keep.kept else None,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30
-            if cuda else None,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "capacity": stepper.capacity}

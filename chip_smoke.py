@@ -121,7 +121,8 @@ Phases (any failure raises and exits non-zero):
    policy parameters bitwise equal across the ranks after every one, no
    host sync on a steady frame (``set_sync_debug_mode("error")``); the
    syncs each train frame reports, ms/frame per rank, the two ranks'
-   aggregate frames/s against phase 4's one rank, peak memory per rank;
+   aggregate frames/s after the first update (steps 4-12) against phase
+   4's one rank and (b)'s, peak memory per rank;
    (b) the same step in a world of one on NCCL, every frame (train frames
    too) with no host sync; (c) the averaged gradient of (a)'s first train
    frame against the mean of the two ranks' own gradients, taken in this
@@ -144,7 +145,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import warnings
 from pathlib import Path
 
 import numpy as np
@@ -506,7 +506,7 @@ def phase_main():
         f"{capacity} blocks/step, outputs {tuple(out.shape)} finite, "
         f"policy updated at frames {trained} (per frame: halo "
         f"{len(HALO_SHAPES)}, bottleneck tail {len(TAIL_SHAPES)})")
-    return launches, _log_steps("4", ms, launches, peak)
+    return launches, _log_steps("4", ms, launches, peak), ms
 
 
 def _small_run(backbone, device, steps=2, halo="strips", plane_stem=True):
@@ -588,16 +588,10 @@ def phase_modes():
 
 
 def _count_syncs(fn, *args):
-    """``fn(*args)`` with torch's sync debug mode on: its result and the
-    number of synchronizing CUDA calls it made."""
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            out = fn(*args)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    return out, sum("synchronizing" in str(w.message) for w in caught)
+    """``fn(*args)`` and the synchronizing CUDA calls it made
+    (``tools/measure.py`` ``count_syncs``)."""
+    from blockcopy_tpu_torch.tools.measure import count_syncs
+    return count_syncs(fn, *args)
 
 
 def _ladder_frame(model, frame):
@@ -1694,8 +1688,18 @@ def _check_ranks(tag, ranks, per_frame, frames):
     return out
 
 
-def phase_parallel(single_ms):
-    """Phase 12 (module docstring); ``single_ms`` is phase 4's ms/frame."""
+def _steady_fps(ranks):
+    """Frames a second of steps 4 on (after the first update, whose first
+    backward pass warms up for ~0.5 s) of every rank together: their
+    frames over the window from the first rank's start of step 4 to the
+    last rank's end (one host clock)."""
+    window = max(r["stamps"][-1][1] for r in ranks) \
+        - min(r["stamps"][3][0] for r in ranks)
+    return sum(len(r["stamps"]) - 3 for r in ranks) / window
+
+
+def phase_parallel(main_ms):
+    """Phase 12 (module docstring); ``main_ms`` are phase 4's step times."""
     import contextlib
     import io
     import os
@@ -1714,16 +1718,11 @@ def phase_parallel(single_ms):
     log(f"[12a] two gloo ranks on cuda:0: spawned, built and stepped in "
         f"{time.perf_counter() - t0:.1f} s")
     a = _check_ranks("12a", ranks, per_frame, steps + 1)
-    # steps 3-12 of both ranks over the window from the first rank's start
-    # of step 3 to the last rank's end of step 12 (one host clock)
-    window = max(r["stamps"][-1][1] for r in ranks) \
-        - min(r["stamps"][2][0] for r in ranks)
-    agg = sum(len(r["stamps"]) - 2 for r in ranks) / window
-    one = 1e3 / single_ms
-    log(f"[12a] aggregate {agg:.2f} frames/s over steps 3-{steps} of both "
-        f"ranks ({window:.3f} s window) against {one:.2f} for phase 4's one "
-        f"rank ({agg / one:.3f}x); syncs a train frame per rank "
-        f"{[r['syncs'] for r in a]}")
+    agg = _steady_fps(ranks)
+    one = (len(main_ms) - 3) / (sum(main_ms[3:]) / 1e3)
+    log(f"[12a] aggregate {agg:.2f} frames/s over steps 4-{steps} of both "
+        f"ranks against {one:.2f} for phase 4's one rank ({agg / one:.3f}x); "
+        f"syncs a train frame per rank {[r['syncs'] for r in a]}")
 
     own = [r["grad_own"] for r in ranks]
     mean = ranks[0]["grad_mean"]
@@ -1745,8 +1744,11 @@ def phase_parallel(single_ms):
                                parallel_stepper_rank, "swiftnet", steps,
                                False, timeout=600)
     b = _check_ranks("12b", nccl, per_frame, steps + 1)
+    one_nccl = _steady_fps(nccl)
     log(f"[12b] NCCL world of one: every frame without a host sync, "
-        f"{b[0]['ms']:.2f} ms/frame ({time.perf_counter() - t0:.1f} s)")
+        f"{b[0]['ms']:.2f} ms/frame, {one_nccl:.2f} frames/s over steps "
+        f"4-{steps} (12a's two ranks: {agg / one_nccl:.3f}x) "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     argv = ["--synthetic", "--res", "1024", "--model-backbone", "resnet50",
             "--half", "--speed-mode", "--num-devices", "1", "--clip-length",
@@ -1780,6 +1782,7 @@ def phase_parallel(single_ms):
                               timeout=600)
     d = _check_ranks("12d", det, det_per_frame, 9)
     return {"two_ranks": a, "aggregate_fps": agg, "single_fps": one,
+            "nccl_fps": one_nccl,
             "grad_err": grad_err, "nccl": b, "cli": line,
             "cli_launches": cli_launches, "detection": d}
 
@@ -1894,7 +1897,7 @@ def main() -> int:
     gen = torch.Generator("cuda").manual_seed(0)
     halo = phase_halo(gen)
     tail = phase_tail(gen)
-    launches, step_ms = phase_main()
+    launches, step_ms, main_ms = phase_main()
     canvas_launches = phase_modes()
     mm = phase_mm(gen)
     probe_launches = phase_probe()
@@ -1915,7 +1918,7 @@ def main() -> int:
         trained_cli = phase_trained_detection_cli(teacher)
     train_err = phase_train_modes()
     valid = phase_validation()
-    par = phase_parallel(step_ms)
+    par = phase_parallel(main_ms)
 
     def phase11_keys(name):
         return {"train_launches": train_launches[name],
@@ -2031,7 +2034,8 @@ def main() -> int:
         + f"; clip-parallel: two gloo ranks on one card "
         f"{[round(r['ms'], 2) for r in par['two_ranks']]} ms/frame, "
         f"aggregate {par['aggregate_fps']:.2f} frames/s against one rank's "
-        f"{par['single_fps']:.2f}, averaged gradient err "
+        f"{par['single_fps']:.2f} (phase 4) and {par['nccl_fps']:.2f} (12b), "
+        f"averaged gradient err "
         f"{par['grad_err']:.3g}, NCCL world of one "
         f"{par['nccl'][0]['ms']:.2f} ms/frame"
         + f"; total {time.perf_counter() - t_start:.1f} s")

@@ -16,7 +16,6 @@ The config's target and the per-rank policy directory:
 """
 
 import json
-import os
 
 import numpy as np
 import pytest

@@ -12,7 +12,6 @@ generator too); an orbax directory of the JAX package is refused.
 
 import os
 
-import numpy as np
 import pytest
 import torch
 
