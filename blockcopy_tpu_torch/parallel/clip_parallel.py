@@ -31,10 +31,10 @@ import torch
 import torch.distributed as dist
 
 from blockcopy_tpu_torch.device import resolve_device
-from blockcopy_tpu_torch.parallel.distributed import (TIMEOUT, Group,
+from blockcopy_tpu_torch.parallel.distributed import (Group,
                                                       default_backend,
                                                       detect_env,
-                                                      global_group,
+                                                      global_group, join,
                                                       maybe_initialize)
 from blockcopy_tpu_torch.policy.optim import tree_leaves
 
@@ -84,11 +84,11 @@ def _rank_main(rank: int, spec: GroupSpec, port: int, out_dir: str,
     elif "OMP_NUM_THREADS" not in os.environ:
         # CPU ranks share the host's cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // spec.size))
-    dist.init_process_group(spec.backend,
-                            init_method=f"tcp://127.0.0.1:{port}",
-                            world_size=spec.size, rank=rank, timeout=TIMEOUT)
+    # a world of one joins too (``maybe_initialize`` would not): its
+    # collectives then run on the backend asked for
+    join(f"127.0.0.1:{port}", spec.size, rank, spec.backend, device)
     try:
-        group = Group(rank, spec.size, device, dist.group.WORLD)
+        group = global_group(None, device)
         group.barrier()     # every rank is up before any work
         out = fn(group, *args)
         with open(Path(out_dir) / f"{rank}.pkl", "wb") as f:

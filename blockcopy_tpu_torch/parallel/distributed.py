@@ -93,6 +93,17 @@ def maybe_initialize(coordinator_address: Optional[str] = None,
     if coordinator_address is None or process_id is None:
         raise ValueError("a multi-process launch needs the coordinator "
                          "address and this process's id")
+    join(coordinator_address, num_processes, process_id, backend, device)
+    return True
+
+
+def join(coordinator_address: str, num_processes: int, process_id: int,
+         backend: Optional[str] = None, device="cuda") -> None:
+    """Join the process group as rank ``process_id`` of ``num_processes``
+    (a world of one too) through ``tcp://coordinator_address``;
+    ``backend`` defaults to ``default_backend(device)``.  The one way the
+    port's processes join, whether a launcher or ``clip_parallel.spawn``
+    started them."""
     backend = backend or default_backend(device)
     logger.info("torch.distributed.init_process_group(%s, tcp://%s, "
                 "world_size=%d, rank=%d)", backend, coordinator_address,
@@ -101,7 +112,6 @@ def maybe_initialize(coordinator_address: Optional[str] = None,
                             init_method=f"tcp://{coordinator_address}",
                             world_size=num_processes, rank=process_id,
                             timeout=TIMEOUT)
-    return True
 
 
 def _world() -> int:
@@ -167,8 +177,9 @@ class Group:
                         tree)
 
     def sum_array(self, a: np.ndarray) -> np.ndarray:
-        """A host array summed over the ranks (float64), on every rank."""
-        t = torch.as_tensor(np.asarray(a, np.float64), device=self.device)
+        """A host array summed over the ranks (float64), on every rank;
+        ``a`` itself is left as it was."""
+        t = torch.tensor(np.asarray(a, np.float64), device=self.device)
         if self.pg is not None:
             dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.pg)
         return t.cpu().numpy()

@@ -1,7 +1,8 @@
 """What ``chip_smoke.py`` and the tools share: the synthetic clip, the
 SwiftNet and CSP steppers they drive, a small detection clip and a small
 train step for GPU-CPU comparisons, device timing by CUDA graph replay, and
-the body of one clip-parallel rank."""
+the body of one clip-parallel rank with the group that records its gradient
+averages."""
 
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import time
 
 import numpy as np
 import torch
+
+from blockcopy_tpu_torch.parallel.distributed import Group
 
 
 def synthetic_frames(shape, count, dtype, seed=0, device="cuda"):
@@ -348,38 +351,41 @@ def _flat(tree):
     return torch.cat([t.reshape(-1).float() for t in tree_leaves(tree)])
 
 
-def parallel_stepper_rank(group, model="swiftnet", steps=12,
-                          syncs_allowed_on_train=True):
+class RecordingGroup(Group):
+    """A ``Group`` that keeps a copy of every gradient average's input (the
+    rank's own gradients) and output, on the group's device."""
+
+    def __init__(self, group: Group):
+        super().__init__(group.rank, group.size, group.device, group.pg)
+        self.records = []
+
+    def mean_tree(self, tree):
+        from blockcopy_tpu_torch.policy.optim import tree_map
+        out = super().mean_tree(tree)
+        self.records.append(tuple(tree_map(lambda t: t.detach().clone(), x)
+                                  for x in (tree, out)))
+        return out
+
+
+def parallel_stepper_rank(group, model="swiftnet", steps=12):
     """One clip-parallel rank at full width: the main path's stepper
     (SwiftNet-RN50, capacity 64) or the detection stepper (CSP-R50,
     capacity 38, ``csp_cls`` bias 0), 1024x2048 bf16, fast policy,
     REINFORCE every 4th frame, its gradients averaged over ``group``;
     ``init_parallel_state``, ``first_step``, ``steps`` steps of its own
     clip (seeded by rank), on a CUDA device.  A steady frame runs under
-    ``set_sync_debug_mode("error")``; a train frame too unless
-    ``syncs_allowed_on_train``, where its syncs are counted instead (gloo
-    stages a CUDA all_reduce through the host).  Returns, on the CPU: the
-    launch counts (zeroed just before ``init_state``), ms per step (host
-    clock, synchronize-fenced) with each step's start and end on the
-    host's monotonic clock (``time.perf_counter``, shared by the processes
-    of one host), the train
+    ``set_sync_debug_mode("error")``; a train frame too on NCCL, while on
+    gloo, which stages a CUDA all_reduce through the host, its syncs are
+    counted instead.  Returns, on the CPU: the launch counts (zeroed just
+    before ``init_state``), ms per step (host clock, synchronize-fenced)
+    with each step's start and end on the host's monotonic clock
+    (``time.perf_counter``, shared by the processes of one host), the train
     frames with their sync counts and policy digests, the rank's own and
     the averaged gradient of the first train frame, and the peak memory in
     GiB."""
+    import torch.distributed as dist
     from blockcopy_tpu_torch.ops import kernels
     from blockcopy_tpu_torch.parallel import clip_parallel
-    from blockcopy_tpu_torch.parallel.distributed import Group
-
-    class Keeping(Group):
-        """Keeps the first average's input and output, on the card."""
-        kept = ()
-
-        def mean_tree(self, tree):
-            out = super().mean_tree(tree)
-            if not self.kept:
-                self.kept = (_flat(tree), _flat(out))
-            return out
-
     from blockcopy_tpu_torch.policy.optim import tree_map
     torch.backends.cudnn.allow_tf32 = True
     shape, dtype = (1, 1024, 2048, 3), torch.bfloat16
@@ -391,7 +397,8 @@ def parallel_stepper_rank(group, model="swiftnet", steps=12,
         params["head"]["csp_cls"]["b"].zero_()
     frames = synthetic_frames(shape, steps + 1, dtype, seed=group.rank,
                               device=group.device)
-    keep = Keeping(group.rank, group.size, group.device, group.pg)
+    keep = RecordingGroup(group)
+    syncs_on_train = dist.get_backend(group.pg) == "gloo"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -405,7 +412,7 @@ def parallel_stepper_rank(group, model="swiftnet", steps=12,
         fi = state["frame_idx"] + 1
         train = fi % stepper.cfg.train_interval == 0 and fi >= 2
         t0 = time.perf_counter()
-        if train and syncs_allowed_on_train:
+        if train and syncs_on_train:
             state, syncs = count_syncs(step, params, state, frame)
         else:
             torch.cuda.set_sync_debug_mode("error")
@@ -428,7 +435,7 @@ def parallel_stepper_rank(group, model="swiftnet", steps=12,
     return {"launches": dict(kernels.launches), "ms": ms, "stamps": stamps,
             "trained": trained, "finite": finite,
             "digests": [clip_parallel.params_digest(p) for p in kept_params],
-            "grad_own": keep.kept[0].cpu() if keep.kept else None,
-            "grad_mean": keep.kept[1].cpu() if keep.kept else None,
+            "grad_own": _flat(keep.records[0][0]).cpu(),
+            "grad_mean": _flat(keep.records[0][1]).cpu(),
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "capacity": stepper.capacity}

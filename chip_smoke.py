@@ -128,7 +128,8 @@ Phases (any failure raises and exits non-zero):
    frame against the mean of the two ranks' own gradients, taken in this
    process; (d) the semseg CLI at full width with ``--speed-mode
    --num-devices 1`` under ``WORLD_SIZE=1`` (12 K1 and 8 K2 launches a
-   frame), and the detection stepper (phase 9's workload) on two gloo
+   frame), which takes the CLI's single-process path (a world of one joins
+   no process group), and the detection stepper (phase 9's workload) on two gloo
    ranks on ``cuda:0``: ``first_step`` and 8 steps, 13 K1 and 8 K2 a frame
    on each rank, the parameters bitwise equal after every update.
 
@@ -587,19 +588,13 @@ def phase_modes():
     return canvas_launches
 
 
-def _count_syncs(fn, *args):
-    """``fn(*args)`` and the synchronizing CUDA calls it made
-    (``tools/measure.py`` ``count_syncs``)."""
-    from blockcopy_tpu_torch.tools.measure import count_syncs
-    return count_syncs(fn, *args)
-
-
 def _ladder_frame(model, frame):
-    """One ``model(frame)`` under ``_count_syncs``: the output, its host
+    """One ``model(frame)`` under ``count_syncs``: the output, its host
     syncs, and its host time fenced by ``synchronize``."""
+    from blockcopy_tpu_torch.tools.measure import count_syncs
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out, syncs = _count_syncs(model, frame)
+    out, syncs = count_syncs(model, frame)
     torch.cuda.synchronize()
     return out, syncs, (time.perf_counter() - t0) * 1e3
 
@@ -1156,6 +1151,7 @@ def phase_detection_cli():
                                                 init_csp)
     from blockcopy_tpu_torch.ops import kernels
     from blockcopy_tpu_torch.tasks.detection import eval as cli
+    from blockcopy_tpu_torch.tools.measure import count_syncs
     from blockcopy_tpu_torch.utils.checkpoint import save_params
 
     torch.backends.cudnn.allow_tf32 = True
@@ -1174,10 +1170,10 @@ def phase_detection_cli():
         # its upload is counted with it
         if self._frame_id == 0:
             return step_only(self, img)
-        step_syncs[-1] += _count_syncs(step_only, self, img)[1]
+        step_syncs[-1] += count_syncs(step_only, self, img)[1]
 
     def watched_upload(a, device):
-        out, syncs = _count_syncs(upload, a, device)
+        out, syncs = count_syncs(upload, a, device)
         step_syncs.append(syncs)
         return out
 
@@ -1491,6 +1487,7 @@ def phase_train_cli(tmp):
     import io
     from blockcopy_tpu_torch.ops import kernels
     from blockcopy_tpu_torch.tasks.detection import train_cli
+    from blockcopy_tpu_torch.tools.measure import count_syncs
 
     make = train_cli.make_train_step
     syncs = []
@@ -1499,7 +1496,7 @@ def phase_train_cli(tmp):
         step = make(*a, **kw)
 
         def watched(*args):
-            out, n = _count_syncs(step, *args)
+            out, n = count_syncs(step, *args)
             syncs.append(n)
             return out
         return watched
@@ -1714,7 +1711,7 @@ def phase_parallel(main_ms):
     two = clip_parallel.make_group(2, ["cuda:0", "cuda:0"], backend="gloo")
     t0 = time.perf_counter()
     ranks = clip_parallel.spawn(two, parallel_stepper_rank, "swiftnet",
-                                steps, True, timeout=600)
+                                steps, timeout=600)
     log(f"[12a] two gloo ranks on cuda:0: spawned, built and stepped in "
         f"{time.perf_counter() - t0:.1f} s")
     a = _check_ranks("12a", ranks, per_frame, steps + 1)
@@ -1742,7 +1739,7 @@ def phase_parallel(main_ms):
     nccl = clip_parallel.spawn(clip_parallel.make_group(1, ["cuda:0"],
                                                         backend="nccl"),
                                parallel_stepper_rank, "swiftnet", steps,
-                               False, timeout=600)
+                               timeout=600)
     b = _check_ranks("12b", nccl, per_frame, steps + 1)
     one_nccl = _steady_fps(nccl)
     log(f"[12b] NCCL world of one: every frame without a host sync, "
@@ -1778,7 +1775,7 @@ def phase_parallel(main_ms):
 
     det_per_frame = {"halo_strips": len(DET_HALO_SHAPES),
                      "bottleneck_tail": len(DET_TAIL_SHAPES)}
-    det = clip_parallel.spawn(two, parallel_stepper_rank, "csp", 8, True,
+    det = clip_parallel.spawn(two, parallel_stepper_rank, "csp", 8,
                               timeout=600)
     d = _check_ranks("12d", det, det_per_frame, 9)
     return {"two_ranks": a, "aggregate_fps": agg, "single_fps": one,
@@ -1992,9 +1989,6 @@ def main() -> int:
          "detection_ladder_launches": det_cli["ladder fp32"]["launches"][
              "bottleneck_tail"],
          "detection_ladder_max_abs_err": dl_kern["tail_err"]["f32"],
-         # phase 12 runs in bf16: the fp32 kernel is not on its path
-         "parallel_launches": [0, 0], "parallel_nccl_launches": 0,
-         "parallel_cli_launches": 0, "parallel_detection_launches": [0, 0],
          "max_abs_err": tail["f32"]["err"], "ms": tail["f32"]["kernel"],
          "plain_ms": tail["f32"]["plain"], "bound_ms": tail["f32"]["bound"],
          "bound_by": tail["f32"]["by"], **common},

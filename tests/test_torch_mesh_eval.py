@@ -4,23 +4,31 @@ spawned gloo ranks) against ``--num-devices 1`` on the same synthetic clips
 (REINFORCE every 2nd frame, so the averaged update runs): equal
 ``perc_exec`` and ``gmacs_per_image``, mIoU within 0.02 (the policy's update
 schedule differs: sequential clips against an average over two parallel
-clips).  An over-count raises.  Mesh-mode policy checkpoints: an ``.npz``
+clips).  At ``--block-target 1.0`` every block runs every frame, so the
+class maps do not depend on the policy: there the two ranks' summed
+confusion matrix must give one rank's metrics to rounding, and rank 0 must
+count every rank's images.  An over-count raises.  Mesh-mode policy checkpoints: an ``.npz``
 path is rank 0's replica, which the next two-rank run loads on both ranks;
 a per-rank directory restores each rank's own state (its BN statistics and
 generator too); an orbax directory of the JAX package is refused.
 """
 
+import logging
 import os
+import re
 
+import numpy as np
 import pytest
 import torch
 
 from blockcopy_tpu_torch.core.stepper import (FixedCapacityStepper,
                                               StepperConfig)
+from blockcopy_tpu_torch.parallel import clip_parallel
 from blockcopy_tpu_torch.tasks.semseg import eval as tcli
 from blockcopy_tpu_torch.utils import policy_ckpt as tpc
 from torch_port_util import assert_same, assert_tree
 from torch_port_util import two_torch_threads  # noqa: F401
+from torch_rank_workers import kept_confusion_matrices, semseg_cli_rank
 
 COMMON = ["--synthetic", "--res", "256", "--clip-length", "3",
           "--num-clips-warmup", "2", "--num-clips-eval", "4",
@@ -61,6 +69,33 @@ def test_mesh_eval_matches_single_device(tmp_path):
     r3 = tcli.main(COMMON + ["--num-devices", "2", "--policy-checkpoint",
                              path])
     assert r3["perc_exec"] == 0.5 and os.path.getmtime(path) >= stamp
+
+
+def _images(messages):
+    """The image count of the CLI's last phase, from its log."""
+    counts = [int(m) for m in re.findall(r"Number of images: (\d+)",
+                                         "\n".join(messages))]
+    return counts[-1]
+
+
+def test_mesh_sums_confusion_matrices_and_images(caplog):
+    argv = COMMON + ["--block-target", "1.0"]
+    with caplog.at_level(logging.INFO, logger="blockcopy_tpu_torch.semseg"), \
+            kept_confusion_matrices() as cm1:
+        r1 = tcli.main(argv + ["--num-devices", "1"])
+    n1 = _images([r.getMessage() for r in caplog.records])
+    (r2, log0, cm2), (none, _, cm_rank1) = clip_parallel.spawn(
+        clip_parallel.make_group(2, ["cpu", "cpu"]), semseg_cli_rank,
+        argv + ["--num-devices", "2"], timeout=120)
+    assert none is None and cm_rank1 == []
+    assert _images(log0) == n1 == 4 * 3
+    # one eval phase each: the same clips, the same class maps, summed
+    assert len(cm1) == len(cm2) == 1 and cm1[0].sum() > 0
+    np.testing.assert_array_equal(cm2[0], cm1[0])
+    assert r2["perc_exec"] == r1["perc_exec"] == 1.0
+    for key in ("Overall Acc", "Mean Acc", "FreqW Acc", "Mean IoU",
+                "Fine mIoU"):
+        assert r2[key] == pytest.approx(r1[key], rel=1e-9, abs=1e-12), key
 
 
 def test_num_devices_over_available_rejected():

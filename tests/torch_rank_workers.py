@@ -2,26 +2,14 @@
 ``blockcopy_tpu_torch.parallel.clip_parallel.spawn`` (importable by the
 spawned processes; this module imports neither JAX nor the JAX package)."""
 
+import contextlib
 import copy
 
+import numpy as np
 import torch
 
-from blockcopy_tpu_torch.parallel.distributed import Group
+from blockcopy_tpu_torch.tools.measure import RecordingGroup
 from blockcopy_tpu_torch.utils.convert import params_to_numpy
-
-
-class RecordingGroup(Group):
-    """A ``Group`` that keeps, for every gradient average, the rank's own
-    gradients and the averaged ones (as numpy trees)."""
-
-    def __init__(self, group: Group):
-        super().__init__(group.rank, group.size, group.device, group.pg)
-        self.records = []
-
-    def mean_tree(self, tree):
-        out = super().mean_tree(tree)
-        self.records.append((params_to_numpy(tree), params_to_numpy(out)))
-        return out
 
 
 def clip_rank(group, backbone, shape, capacity, policy, params, frames,
@@ -65,7 +53,7 @@ def clip_rank(group, backbone, shape, capacity, policy, params, frames,
             state = step(params, state, frame, draws=(u, u_rank))
         # copies: the step updates the canvases in place
         out.append(copy.deepcopy(stepper_state_to_numpy(state)))
-    return out, rec.records
+    return out, [tuple(params_to_numpy(x) for x in r) for r in rec.records]
 
 
 def card_rank(group, frames=4):
@@ -93,3 +81,47 @@ def card_rank(group, frames=4):
             state["policy"]["params"]))
     torch.cuda.synchronize()
     return dict(kernels.launches), digests
+
+
+@contextlib.contextmanager
+def kept_confusion_matrices():
+    """While the block runs, every confusion matrix that the semseg
+    metrics report from (``StreamSegMetrics.get_results``) is copied into
+    the list it yields."""
+    from blockcopy_tpu_torch.utils.metrics import StreamSegMetrics
+    matrices = []
+    results = StreamSegMetrics.get_results
+
+    def keep(self):
+        matrices.append(np.array(self.confusion_matrix, copy=True))
+        return results(self)
+
+    StreamSegMetrics.get_results = keep
+    try:
+        yield matrices
+    finally:
+        StreamSegMetrics.get_results = results
+
+
+def semseg_cli_rank(group, argv):
+    """One rank of the semseg CLI's clip-parallel run
+    (``tasks/semseg/eval.py`` ``_run``, as ``clip_parallel.launch`` starts
+    it), with the CLI's log kept.  Returns the rank's result (rank 0's
+    dict, None elsewhere), its log messages and the confusion matrices it
+    reported from."""
+    import logging
+
+    from blockcopy_tpu_torch.tasks.semseg import eval as tcli
+
+    messages = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    log = logging.getLogger("blockcopy_tpu_torch.semseg")
+    log.setLevel(logging.INFO)
+    log.addHandler(Keep())
+    with kept_confusion_matrices() as matrices:
+        out = tcli._run(argv, group.device, group)
+    return out, messages, matrices
