@@ -45,12 +45,16 @@
 // blockcopy_tpu_torch/tools/tail_breakdown.py time the parts:
 // TAIL_NO_3X3_PRODUCTS drops the 3x3 conv's products (fragment loads,
 // barriers and epilogue stay), TAIL_NO_1X1_STAGE ends the kernel once h2 is
-// built and exchanged; TAIL_F32_BM (64 or 32) fixes the fp32 row tile.
-// bf16 blocks: (bs, Cm) in (16, 128), (8, 256), (8, 128) and Co a multiple
-// of 256 (the others do not fit in shared memory); the launch refuses the
-// rest (cudaErrorInvalidValue) and the wrapper raises before.
-// fp32 runs two GEMM launches on mma.sync TF32 with a 3-product split
-// (3xTF32), h2 in a device-memory scratch buffer: see the fp32 section.
+// built and exchanged; TAIL_F32_BM (64 or 32) fixes the fp32 row tile and
+// TAIL_ROWS_BM (128 or 64) the bf16 row route's.
+// This wgmma route takes (bs, Cm) in (16, 128), (8, 256), (8, 128) with Co a
+// multiple of 256: a larger block's padded tile does not fit in shared
+// memory (at (32, 128) the tile alone takes 314,432 bytes of the 232,448 a
+// block can have).  Every other bf16 block with Cm and Co multiples of 64
+// takes the row route (two GEMM launches over rows flattened across blocks,
+// mma.sync bf16, h2 in a bf16 device-memory scratch buffer: see the row
+// section).  fp32 runs the same two-launch scheme on mma.sync TF32 with a
+// 3-product split (3xTF32): see the fp32 section.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -469,7 +473,7 @@ int launch_bf16(const Args<bf16>& a, int k, cudaStream_t stream) {
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
-// The blocks the bf16 kernel takes (ops/kernels/bottleneck.py BF16_BLOCKS)
+// The blocks the wgmma route takes (ops/kernels/bottleneck.py BF16_BLOCKS)
 bool bf16_block(int bs, int cm) {
   return (bs == 16 && cm == 128) || (bs == 8 && (cm == 256 || cm == 128));
 }
@@ -515,7 +519,7 @@ constexpr int f32_smem_bytes() {
   return kF32Stages * (BM + kF32BN) * kF32Ld * 4;
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src)
@@ -724,18 +728,22 @@ int launch_f32_stage(const Args<float>& a, float* h2, int rows, int n,
   return (int)cudaGetLastError();
 }
 
-// 32-row tiles where 64-row ones would leave SMs idle (under one wave)
-bool f32_small_tiles(int rows, int n) {
+int sm_count() {
   static int sms = 0;
   if (!sms) {
     int dev = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
+  return sms;
+}
+
+// 32-row tiles where 64-row ones would leave SMs idle (under one wave)
+bool f32_small_tiles(int rows, int n) {
 #ifdef TAIL_F32_BM
   return TAIL_F32_BM == 32;
 #else
-  return (long)((rows + 63) / 64) * (n / kF32BN) < sms;
+  return (long)((rows + 63) / 64) * (n / kF32BN) < sm_count();
 #endif
 }
 
@@ -748,6 +756,239 @@ int launch_f32(const Args<float>& a, float* h2, int k, cudaStream_t stream) {
   return f32_small_tiles(rows, a.co)
              ? launch_f32_stage<32, false>(a, h2, rows, a.co, stream)
              : launch_f32_stage<64, false>(a, h2, rows, a.co, stream);
+}
+
+// ------------------------------------------------------ bf16, row route ----
+//
+// Replaces the same Pallas kernel (bottleneck.py bottleneck_tail :92) in
+// bf16 for every block the wgmma route above cannot hold in shared memory:
+// any bs >= 1 with Cm and Co multiples of 64, a superset of the blocks the
+// JAX gate fuses (swiftnet.py:283-298).  Bound at RN50's block-256 blocks,
+// K = 16 (the block-256 stepper's capacity), from the data sheet's 989
+// TFLOP/s bf16 and 3.35 TB/s: (32, 128, 512) moves 38.7 MB, 0.0116 ms, so
+// bytes bound it; (16, 256, 1024) and (8, 512, 2048) do 6.98 GFLOP, 0.0071
+// ms, so operations do (each block 0.436 GFLOP).
+// Design: the fp32 route's two GEMMs over rows m = (block, pixel) flattened
+// across blocks, so every launch spreads over the SMs whatever K is:
+// - stage A: h2 (K bs^2 x Cm) = relu(bn2(A w2)), depth 9 Cm as (tap, ci);
+//   the A row of pixel (k, oy, ox) at tap (dy, dx) is padded_pixel(k, oy +
+//   dy, ox + dx), h1 or one of the 8 pieces, so the padded tile is never
+//   built (which is what bounds the wgmma route by shared memory); h2 goes
+//   to the wrapper's bf16 scratch (8.4 MB at K = 32 on (32, 128), so it
+//   stays in the 50 MB L2 for stage B), written after the epilogue's
+//   roundings, so stage B reads what the Pallas kernel's 1x1 reads;
+// - stage B: y (K bs^2 x Co) = relu(bn3(h2 w3) + x), depth Cm.
+// A CTA of 4 warps (2 x 2) computes a BM x 64 tile (BM 128, or 64 where
+// 128-row tiles would not fill one wave), streaming 64-deep A and B slices
+// through 3 shared-memory stages by cp.async (16-byte pieces, 8 channels;
+// rows padded by 8 bf16 to 144 bytes, so the 8 rows of an ldmatrix phase
+// fall on distinct banks).  Products run on mma.sync m16n8k16 bf16 with
+// fp32 accumulation, fragments by ldmatrix.x4.  The epilogues round as the
+// Pallas kernel (:82-89): acc -> bf16, x s, + b (+ x), each in bf16, ReLU.
+// Row tiles past K bs^2 are masked: loads clamp to the last row, stores are
+// skipped.  Not done yet: wgmma and TMA, deeper pipelines or split-K where
+// a stage has fewer CTAs than SMs, 128-wide column tiles (stage B re-reads
+// h2 once per 64 columns of y) and coalesced stores of y, a persistent
+// schedule.
+
+constexpr int kRowThreads = 128;       // four warps, 2 x 2 over the tile
+constexpr int kRowBN = 64;             // output channels of a tile
+constexpr int kRowBK = 64;             // depth of a stage, bf16
+constexpr int kRowLd = kRowBK + 8;     // shared-memory row, bf16 (144 B)
+constexpr int kRowStages = 3;
+
+template <int BM>
+constexpr int rows_smem_bytes() {
+  return kRowStages * (BM + kRowBN) * kRowLd * 2;
+}
+
+// d += a b: A 16 x 16 (row), B 16 x 8 (col), D 16 x 8, fp32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One BM x 64 tile of stage A (CONV: the 3x3 conv into h2) or of stage B
+// (the 1x1 over h2 into y); rows = K bs^2.
+template <int BM, bool CONV>
+__global__ void __launch_bounds__(kRowThreads)
+tail_rows(Args<bf16> a, bf16* h2, int rows) {
+  constexpr int kMT = BM / 32;  // m16 tiles of a warp (BM / 2 rows)
+  constexpr int kNT = 4;        // n8 tiles of a warp (32 columns)
+  constexpr int kRowStep = kRowThreads / 8;  // rows a pass of the copy
+  constexpr int kAPieces = BM / kRowStep;    // A rows a thread copies
+  constexpr int kBPieces = kRowBN / kRowStep;
+  extern __shared__ __align__(16) unsigned char smem_r[];
+  bf16* As = reinterpret_cast<bf16*>(smem_r);       // [stage][BM][kRowLd]
+  bf16* Bs = As + kRowStages * BM * kRowLd;         // [stage][64][kRowLd]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = warp / 2, wn = warp % 2;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * kRowBN;
+  const int cm = a.cm, bs = a.bs;
+  const int chunks = cm / kRowBK;  // stages of one tap
+  const int iters = (CONV ? 9 : 1) * chunks;
+
+  // the rows this thread copies: row tid / 8 + i kRowStep, 16 bytes at
+  // channel 8 (tid % 8) of the stage's 64
+  const int r0 = tid / 8, c8 = (tid % 8) * 8;
+  int blk[kAPieces], oy[kAPieces], ox[kAPieces];
+#pragma unroll
+  for (int i = 0; i < kAPieces; ++i) {
+    const int m = min(m0 + r0 + i * kRowStep, rows - 1);
+    const int p = m % (bs * bs);
+    blk[i] = m / (bs * bs);
+    oy[i] = p / bs;
+    ox[i] = p % bs;
+  }
+
+  auto load = [&](int it, int s) {
+    const int tap = it / chunks, c0 = (it % chunks) * kRowBK + c8;
+    bf16* as = As + s * BM * kRowLd + c8;
+    bf16* bsm = Bs + s * kRowBN * kRowLd + c8;
+#pragma unroll
+    for (int i = 0; i < kAPieces; ++i) {
+      const bf16* src =
+          CONV ? padded_pixel(a, blk[i], oy[i] + tap / 3, ox[i] + tap % 3)
+               : h2 + ((size_t)blk[i] * bs * bs + oy[i] * bs + ox[i]) * cm;
+      cp_async16(as + (r0 + i * kRowStep) * kRowLd, src + c0);
+    }
+    const bf16* w = CONV ? a.w2 + (size_t)tap * cm * cm : a.w3;
+#pragma unroll
+    for (int i = 0; i < kBPieces; ++i) {
+      const int n = r0 + i * kRowStep;
+      cp_async16(bsm + n * kRowLd, w + (size_t)(n0 + n) * cm + c0);
+    }
+  };
+
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  // ldmatrix rows of this lane: A row lane % 16 of an m16 tile at column
+  // 8 (lane / 16); B (n-major) row (lane % 8) + 8 (lane / 16) of an n16
+  // pair at column 8 ((lane / 8) % 2)
+  const int a_off = (lane % 16) * kRowLd + (lane / 16) * 8;
+  const int b_off =
+      ((lane % 8) + (lane / 16) * 8) * kRowLd + (lane / 8) % 2 * 8;
+#pragma unroll
+  for (int s = 0; s < kRowStages - 1; ++s) {
+    if (s < iters) load(s, s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < iters; ++it) {
+    cp_async_wait<kRowStages - 2>();
+    __syncthreads();  // stage it landed; stage it - 1 is read by all
+    if (it + kRowStages - 1 < iters)
+      load(it + kRowStages - 1, (it + kRowStages - 1) % kRowStages);
+    cp_async_commit();
+    const int s = it % kRowStages;
+    const bf16* as = As + (s * BM + wm * (BM / 2)) * kRowLd + a_off;
+    const bf16* bsm = Bs + (s * kRowBN + wn * 32) * kRowLd + b_off;
+#pragma unroll
+    for (int kk = 0; kk < kRowBK; kk += 16) {
+      unsigned fa[kMT][4], fb[kNT / 2][4];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) ldsm_x4(fa[i], as + i * 16 * kRowLd + kk);
+#pragma unroll
+      for (int j = 0; j < kNT / 2; ++j)
+        ldsm_x4(fb[j], bsm + j * 16 * kRowLd + kk);
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+          mma_bf16(acc[i][j], fa[i], fb[j / 2][(j % 2) * 2],
+                   fb[j / 2][(j % 2) * 2 + 1]);
+    }
+  }
+  cp_async_wait<0>();
+
+  const int ld = CONV ? cm : a.co;
+  const bf16* sc = CONV ? a.s2 : a.s3;
+  const bf16* bi = CONV ? a.b2 : a.b3;
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * (BM / 2) + i * 16 + g + 8 * h;
+      if (m >= rows) continue;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const int n = n0 + wn * 32 + j * 8 + 2 * t;
+        const size_t at = (size_t)m * ld + n;
+        const float2 s2 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(sc + n));
+        const float2 b2 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(bi + n));
+        float2 xv = make_float2(0.0f, 0.0f);
+        if (!CONV)
+          xv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(a.x + at));
+        float v[2] = {acc[i][j][2 * h], acc[i][j][2 * h + 1]};
+        const float sv[2] = {s2.x, s2.y}, bv[2] = {b2.x, b2.y};
+        const float xr[2] = {xv.x, xv.y};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          v[e] = rb(v[e]);
+          v[e] = rb(__fmul_rn(v[e], sv[e]));
+          v[e] = rb(__fadd_rn(v[e], bv[e]));
+          if (!CONV) v[e] = rb(__fadd_rn(v[e], xr[e]));
+          v[e] = v[e] > 0.0f ? v[e] : 0.0f;
+        }
+        bf16* out = CONV ? h2 + at : a.y + at;
+        *reinterpret_cast<__nv_bfloat162*>(out) =
+            __floats2bfloat162_rn(v[0], v[1]);
+      }
+    }
+}
+
+// One stage of the row route: a grid of row tiles x 64-column tiles.  The
+// dynamic shared-memory limit is raised once, never again (a CUDA graph
+// capture may be open).
+template <int BM, bool CONV>
+int launch_rows_stage(const Args<bf16>& a, bf16* h2, int rows, int n,
+                      cudaStream_t stream) {
+  constexpr int kSmem = rows_smem_bytes<BM>();
+  static bool raised = false;
+  if (!raised) {
+    cudaError_t e = cudaFuncSetAttribute(
+        tail_rows<BM, CONV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmem);
+    if (e != cudaSuccess) return (int)e;
+    raised = true;
+  }
+  const dim3 grid((rows + BM - 1) / BM, n / kRowBN);
+  tail_rows<BM, CONV><<<grid, kRowThreads, kSmem, stream>>>(a, h2, rows);
+  return (int)cudaGetLastError();
+}
+
+// 64-row tiles where 128-row ones would leave SMs idle (under one wave)
+bool rows_small_tiles(int rows, int n) {
+#ifdef TAIL_ROWS_BM
+  return TAIL_ROWS_BM == 64;
+#else
+  return (long)((rows + 127) / 128) * (n / kRowBN) < sm_count();
+#endif
+}
+
+int launch_rows(const Args<bf16>& a, bf16* h2, int k, cudaStream_t stream) {
+  const int rows = k * a.bs * a.bs;
+  int err = rows_small_tiles(rows, a.cm)
+                ? launch_rows_stage<64, true>(a, h2, rows, a.cm, stream)
+                : launch_rows_stage<128, true>(a, h2, rows, a.cm, stream);
+  if (err) return err;
+  return rows_small_tiles(rows, a.co)
+             ? launch_rows_stage<64, false>(a, h2, rows, a.co, stream)
+             : launch_rows_stage<128, false>(a, h2, rows, a.co, stream);
 }
 
 template <typename T>
@@ -769,18 +1010,25 @@ Args<T> make_args(void* const* p, int bs, int cm, int co) {
 // ptrs: h1, x, top, bottom, left, right, top_left, top_right, bottom_left,
 // bottom_right, w2, w3, s2, b2, s3, b3, y (17 device pointers; weights as
 // prepare_tail_weights lays them out).
-// dtype: 0 = fp32 (h2_scratch (K, bs*bs, Cm) fp32 required), 1 = bf16.
+// dtype: 0 = fp32, h2_scratch (K, bs*bs, Cm) fp32 required; 1 = bf16, the
+// wgmma route where bf16_block takes the block and Co is a multiple of 256,
+// else the row route, h2_scratch (K, bs*bs, Cm) bf16 required; 2 = bf16 on
+// the row route whatever the block (to time it against the wgmma route).
 extern "C" int bottleneck_tail(void* const* ptrs, void* h2_scratch, int k,
                                int bs, int cm, int co, int dtype,
                                void* stream) {
   if (k <= 0) return (int)cudaGetLastError();
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (!bf16_block(bs, cm) || co % (2 * kN1)) return (int)cudaErrorInvalidValue;
+  if (dtype == 1 || dtype == 2) {
     const Args<bf16> a = make_args<bf16>(ptrs, bs, cm, co);
-    if (bs == 16) return launch_bf16<16, 128>(a, k, s);
-    if (cm == 256) return launch_bf16<8, 256>(a, k, s);
-    return launch_bf16<8, 128>(a, k, s);
+    if (dtype == 1 && bf16_block(bs, cm) && co % (2 * kN1) == 0) {
+      if (bs == 16) return launch_bf16<16, 128>(a, k, s);
+      if (cm == 256) return launch_bf16<8, 256>(a, k, s);
+      return launch_bf16<8, 128>(a, k, s);
+    }
+    if (cm % kRowBK || co % kRowBN || !h2_scratch)
+      return (int)cudaErrorInvalidValue;
+    return launch_rows(a, static_cast<bf16*>(h2_scratch), k, s);
   }
   if (cm % kF32BN || co % kF32BN) return (int)cudaErrorInvalidValue;
   return launch_f32(make_args<float>(ptrs, bs, cm, co),

@@ -217,7 +217,9 @@ def _fused_bottleneck(ctx: ExecCtx, name: str, x: BlockPack, p):
 def maybe_fused_bottleneck(ctx, name, x, p, stride, groups=1, dilation=1):
     """Run the fused tail when eligible (the gate of ``swiftnet.py:283``)
     and the kernel of the activations' dtype takes the block
-    (``kernel_takes``), else return None."""
+    (``kernel_takes``), else return None.  In bf16 and fp32 the kernel takes
+    every block the other conditions let through, so this fuses exactly the
+    blocks JAX's gate fuses with its switch on (``swiftnet.py:283-298``)."""
     fused = True if FUSED_BOTTLENECK is None else FUSED_BOTTLENECK
     if (fused and isinstance(x, BlockPack) and not ctx.is_dense
             and not ctx.building and stride == 1 and groups == 1

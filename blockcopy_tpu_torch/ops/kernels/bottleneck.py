@@ -10,6 +10,14 @@ with the padded 3x3 input built from ``h1`` and the 8 halo pieces of
 ``ExecCtx.exchange_pieces`` at pad 1.  A CPU tensor takes the plain version;
 a CUDA tensor launches the kernel or raises.
 
+The kernel has three routes, each counted under its own key of
+``kernels.launches``: bf16 blocks of ``BF16_BLOCKS`` with Co a multiple of
+256 run the ``wgmma`` route (``bottleneck_tail``); every other bf16 block
+runs the row route (``bottleneck_tail_rows``: two GEMM launches over rows
+flattened across blocks, h2 in a bf16 scratch); fp32 runs the 3xTF32 route
+(``bottleneck_tail_f32``).  Between them the kernel takes any block with Cm
+and Co multiples of 64, a superset of what the JAX gate fuses.
+
 The kernel reads its weights in the layouts of ``prepare_tail_weights``.
 The wrapper prepares each parameter set once (``prepared_tail_weights``,
 cached on the tensors' identity and version), not on every launch.
@@ -29,18 +37,29 @@ from blockcopy_tpu_torch.ops.kernels import build
 
 PIECES = ("top", "bottom", "left", "right", "top_left", "top_right",
           "bottom_left", "bottom_right")
-# (bs, Cm) of the blocks the bf16 kernel takes; Co a multiple of 256
+# (bs, Cm) of the blocks the bf16 wgmma route holds in shared memory, at
+# Co a multiple of 256; the row route takes the other bf16 blocks
 BF16_BLOCKS = ((16, 128), (8, 256), (8, 128))
+# the column tile and depth chunk of the row and fp32 routes
+TILE = 64
 
 
 def kernel_takes(dtype, bs: int, cm: int, co: int) -> bool:
-    """Whether the kernel of ``dtype`` takes a (K, bs, bs, Cm) -> Co block.
-    Pure in dtype and shape, so a CPU run routes blocks as the card does."""
-    if dtype == torch.bfloat16:
-        return (bs, cm) in BF16_BLOCKS and co % 256 == 0
+    """Whether the kernel of ``dtype`` takes a (K, bs, bs, Cm) -> Co block:
+    bf16 and fp32 at any bs with Cm and Co multiples of ``TILE``.  Pure in
+    dtype and shape, so a CPU run routes blocks as the card does."""
+    return (dtype in (torch.bfloat16, torch.float32) and bs >= 1
+            and cm % TILE == 0 and co % TILE == 0)
+
+
+def route(dtype, bs: int, cm: int, co: int) -> str:
+    """The route a block the kernel takes runs on: its key in
+    ``kernels.launches``."""
     if dtype == torch.float32:
-        return bs >= 1 and cm % 64 == 0 and co % 64 == 0
-    return False
+        return "bottleneck_tail_f32"
+    if (bs, cm) in BF16_BLOCKS and co % 256 == 0:
+        return "bottleneck_tail"
+    return "bottleneck_tail_rows"
 
 
 def _padded(h1: torch.Tensor, pieces: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -131,6 +150,19 @@ def bottleneck_tail(h1, x, pieces, w2, s2, b2, w3, s3, b3):
     (K, bs, bs, Co) in ``h1.dtype``."""
     if h1.device.type == "cpu":
         return bottleneck_tail_plain(h1, x, pieces, w2, s2, b2, w3, s3, b3)
+    return _launch(h1, x, pieces, (w2, s2, b2, w3, s3, b3), rows=False)
+
+
+def _bottleneck_tail_rows(h1, x, pieces, w2, s2, b2, w3, s3, b3):
+    """``bottleneck_tail`` in bf16 on the row route whatever the block, so
+    that ``chip_smoke.py`` can time it at the wgmma route's blocks too.  No
+    path of the port calls it."""
+    if h1.dtype != torch.bfloat16:
+        raise ValueError(f"the row route is bf16, got {h1.dtype}")
+    return _launch(h1, x, pieces, (w2, s2, b2, w3, s3, b3), rows=True)
+
+
+def _launch(h1, x, pieces, weights, rows):
     dev, dt = h1.device, h1.dtype
     if dev.type != "cuda":
         raise ValueError(f"bottleneck kernel needs CUDA tensors, got {dev}")
@@ -139,15 +171,12 @@ def bottleneck_tail(h1, x, pieces, w2, s2, b2, w3, s3, b3):
     k, bs, _, cm = h1.shape
     co = x.shape[-1]
     if not kernel_takes(dt, bs, cm, co):
-        takes = (f"(bs, Cm) in {BF16_BLOCKS} and Co a multiple of 256"
-                 if dt == torch.bfloat16 else
-                 "Cm and Co multiples of 64")
-        raise ValueError(f"the {dt} kernel takes {takes}, got (bs {bs}, "
-                         f"Cm {cm}), Co {co}")
+        raise ValueError(f"the {dt} kernel takes Cm and Co multiples of "
+                         f"{TILE}, got (bs {bs}, Cm {cm}), Co {co}")
+    key = "bottleneck_tail_rows" if rows else route(dt, bs, cm, co)
     x = x.to(dt).contiguous()
     piece = {name: pieces[name].to(dt).contiguous() for name in PIECES}
-    w2p, s2p, b2p, w3p, s3p, b3p = prepared_tail_weights(w2, s2, b2, w3, s3,
-                                                         b3, dt)
+    w2p, s2p, b2p, w3p, s3p, b3p = prepared_tail_weights(*weights, dt)
     bn = [s2p, b2p, s3p, b3p]
     shapes = {"top": (k, 1, bs, cm), "bottom": (k, 1, bs, cm),
               "left": (k, bs, 1, cm), "right": (k, bs, 1, cm)}
@@ -160,16 +189,18 @@ def bottleneck_tail(h1, x, pieces, w2, s2, b2, w3, s3, b3):
     for name, v, c in zip(("s2", "b2", "s3", "b3"), bn, (cm, cm, co, co)):
         _expect(name, v, (c,), dt, dev)
     y = torch.empty_like(x)
-    scratch = None
-    if dt == torch.float32:
-        scratch = torch.empty((k, bs * bs, cm), dtype=torch.float32,
-                              device=dev)
+    # h2 between the two launches of the fp32 and row routes
+    scratch = None if key == "bottleneck_tail" else torch.empty(
+        (k, bs * bs, cm), dtype=dt, device=dev)
     tensors = [h1, x, *(piece[name] for name in PIECES), w2p, w3p, *bn, y]
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    # the C entry's dtype: 0 fp32; 1 bf16, whose route it picks by the rule
+    # of ``route``; 2 bf16 on the row route whatever the block
+    code = 0 if dt == torch.float32 else 2 if rows else 1
     err = _lib().bottleneck_tail(
         ptrs, ctypes.c_void_p(0 if scratch is None else scratch.data_ptr()),
-        k, bs, cm, co, 1 if dt == torch.bfloat16 else 0,
+        k, bs, cm, co, code,
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     build.check(err, "bottleneck_tail")
-    kernels.launches["bottleneck_tail"] += 1
+    kernels.launches[key] += 1
     return y

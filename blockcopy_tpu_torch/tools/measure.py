@@ -7,6 +7,7 @@ averages."""
 from __future__ import annotations
 
 import contextlib
+import re
 import statistics
 import time
 
@@ -31,9 +32,11 @@ def synthetic_frames(shape, count, dtype, seed=0, device="cuda"):
 
 
 def swiftnet_stepper(backbone, frame_shape, capacity, dtype, device,
-                     train_interval=4):
+                     train_interval=4, block_size=128):
     """Random SwiftNet parameters (seed 0) and a fixed-capacity stepper with
-    the fast policy, block 128, target 0.5."""
+    the fast policy, target 0.5, blocks of ``block_size``; a ``capacity`` of
+    None is the target's share of the grid (64 of 128 blocks at 1024x2048
+    and block 128, 16 of 32 at block 256)."""
     from blockcopy_tpu_torch.core.stepper import (FixedCapacityStepper,
                                                   StepperConfig)
     from blockcopy_tpu_torch.models.swiftnet import (SwiftNetConfig,
@@ -41,8 +44,12 @@ def swiftnet_stepper(backbone, frame_shape, capacity, dtype, device,
                                                      make_apply_fn)
     cfg = SwiftNetConfig(backbone=backbone, num_classes=19)
     params = init_swiftnet(cfg, seed=0, dtype=dtype, device=device)
-    scfg = StepperConfig(block_size=128, block_target=0.5,
+    scfg = StepperConfig(block_size=block_size, block_target=0.5,
                          train_interval=train_interval, policy_arch="fast")
+    if capacity is None:
+        blocks = ((frame_shape[1] // block_size)
+                  * (frame_shape[2] // block_size))
+        capacity = int(round(scfg.block_target * blocks))
     return params, FixedCapacityStepper(make_apply_fn(cfg), scfg, frame_shape,
                                         capacity=capacity, dtype=dtype,
                                         device=device)
@@ -299,6 +306,29 @@ def device_times(fn, samples, inner):
         stop.synchronize()
         times.append(start.elapsed_time(stop) / inner)
     return times
+
+
+def tail_stage_ms(fn, kernel, calls=20):
+    """Device ms per call of ``fn`` in each stage of a two-launch K2 route,
+    ``kernel`` ``tail_f32`` (fp32) or ``tail_rows`` (bf16 row route):
+    ``<BM, true>`` is the 3x3 conv into h2, ``<BM, false>`` the 1x1 into y.
+    Returns ``{"3x3": (ms, BM), "1x1": (ms, BM)}`` from the profiler's
+    kernel records over ``calls`` calls, BM the row tiles it ran."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {"3x3": [0.0, set()], "1x1": [0.0, set()]}
+    for e in prof.events():
+        found = re.search(kernel + r"<(\d+), (true|false)>", e.name)
+        if e.device_type == DeviceType.CUDA and found:
+            key = "3x3" if found.group(2) == "true" else "1x1"
+            out[key][0] += e.time_range.elapsed_us() / 1e3 / calls
+            out[key][1].add(found.group(1))
+    return {key: (ms, "/".join(sorted(bm))) for key, (ms, bm) in out.items()}
 
 
 # -- clip-parallel ranks (chip_smoke.py phase 12) ----------------------------

@@ -2,13 +2,20 @@
 
     python3 -m blockcopy_tpu_torch.tools.profile_step [--steps 8]
         [--engine stepper|ladder|train] [--model swiftnet|csp]
+        [--backbone resnet50] [--block-size 128]
 
 Runs the main path of ``chip_smoke.py`` (SwiftNet-RN50, 1024x2048 bf16, fast
 policy, block 128, target 0.5, REINFORCE every 4th frame), warms up past the
 first two train frames, then traces ``--steps`` steps with
-``torch.profiler`` and prints one JSON line.  ``--model csp`` runs the
-detection step of ``chip_smoke.py`` phase 9a instead (CSP-R50, 1024x2048
-bf16, fast policy, block 128, target 0.3: 38 of 128 blocks).
+``torch.profiler`` and prints one JSON line.  ``--backbone`` and
+``--block-size`` change SwiftNet's backbone and block size (the stepper's
+capacity stays half the grid: 16 of 32 blocks at block 256); the
+``BLOCKCOPY_TPU_FUSED_BOTTLENECK`` switch (``0`` runs every bottleneck
+unfused) is the model's, read from the environment when it is imported;
+the line's ``fused_bottleneck`` is its value (null: the default, on).
+``--model csp`` runs the detection step of ``chip_smoke.py`` phase 9a
+instead (CSP-R50, 1024x2048 bf16, fast policy, block 128, target 0.3: 38 of
+128 blocks).
 ``--engine ladder`` runs the ladder engine of ``chip_smoke.py`` phase 8a
 (``BlockCopyModel`` with the CLI's default settings, one clip), or with
 ``--model csp`` that of phase 10a (``CSPBlockCopy`` from
@@ -23,6 +30,8 @@ line holds:
 * ``device_busy_ms_per_step``: the union of the GPU kernel and copy
   intervals in the trace, per step; ``device_idle_share`` = 1 - busy / wall;
 * ``kernels_per_step``: GPU kernel launches per step;
+* ``k2_launches_per_step``: the bottleneck-tail wrapper's launches per
+  step, by route (``ops/kernels`` ``launches``);
 * ``top``: the kernels with the most device time per step, by name.
 
 Without a GPU it exits non-zero; if the trace holds no device events it
@@ -41,6 +50,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from blockcopy_tpu_torch.models import swiftnet
+from blockcopy_tpu_torch.ops import kernels
 from blockcopy_tpu_torch.tools.measure import (csp_stepper, swiftnet_stepper,
                                                synthetic_frames)
 
@@ -59,13 +70,14 @@ def _busy_us(intervals):
     return busy
 
 
-def _stepper(shape, model):
+def _stepper(shape, args):
     """The stepper's per-frame call: ``first_step`` then ``step``."""
-    if model == "csp":
+    if args.model == "csp":
         params, stepper = csp_stepper(shape, 38, torch.bfloat16, "cuda")
     else:
-        params, stepper = swiftnet_stepper("resnet50", shape, 64,
-                                           torch.bfloat16, "cuda")
+        params, stepper = swiftnet_stepper(args.backbone, shape, None,
+                                           torch.bfloat16, "cuda",
+                                           block_size=args.block_size)
     box = {"state": stepper.init_state(params, seed=1)}
 
     def run(t, frame):
@@ -76,9 +88,9 @@ def _stepper(shape, model):
     return run
 
 
-def _ladder(shape, model_name):
+def _ladder(shape, args):
     """The ladder engine's per-frame call; returns the frame's count."""
-    if model_name == "csp":
+    if args.model == "csp":
         from blockcopy_tpu_torch.models.builder import build_detector
         from blockcopy_tpu_torch.utils.registry import load_config
         model = build_detector(load_config(str(CSP_CONFIG)),
@@ -91,11 +103,11 @@ def _ladder(shape, model_name):
         from blockcopy_tpu_torch.models.swiftnet import (SwiftNetConfig,
                                                          init_swiftnet,
                                                          make_apply_fn)
-        cfg = SwiftNetConfig(backbone="resnet50", num_classes=19)
+        cfg = SwiftNetConfig(backbone=args.backbone, num_classes=19)
         model = BlockCopyModel(
             make_apply_fn(cfg),
             init_swiftnet(cfg, seed=0, dtype=torch.bfloat16, device="cuda"),
-            default_settings(), device="cuda")
+            default_settings(block_size=args.block_size), device="cuda")
 
     def run(t, frame):
         model(frame)
@@ -137,13 +149,18 @@ def main() -> int:
                     default="stepper")
     ap.add_argument("--model", choices=("swiftnet", "csp"),
                     default="swiftnet")
+    ap.add_argument("--backbone", default="resnet50")
+    ap.add_argument("--block-size", type=int, default=128)
     args = ap.parse_args()
+    if args.model != "swiftnet" and (args.backbone != "resnet50"
+                                     or args.block_size != 128):
+        ap.error("--backbone and --block-size are SwiftNet's")
     if not torch.cuda.is_available():
         print("profile_step: CUDA is not available", file=sys.stderr)
         return 2
     shape = (1, 1024, 2048, 3)
-    run = {"stepper": lambda: _stepper(shape, args.model),
-           "ladder": lambda: _ladder(shape, args.model),
+    run = {"stepper": lambda: _stepper(shape, args),
+           "ladder": lambda: _ladder(shape, args),
            "train": _train}[args.engine]()
     frames = [None] * (args.warmup + args.steps + 1) \
         if args.engine == "train" else synthetic_frames(
@@ -153,6 +170,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     counts = []
+    kernels.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -162,9 +180,14 @@ def main() -> int:
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     steps = args.steps
+    k2 = {key: kernels.launches[key] / steps for key in (
+        "bottleneck_tail", "bottleneck_tail_rows", "bottleneck_tail_f32")}
     result = {"device": torch.cuda.get_device_name(0), "steps": steps,
               "engine": args.engine,
               "model": "csp" if args.engine == "train" else args.model,
+              "backbone": args.backbone, "block_size": args.block_size,
+              "fused_bottleneck": swiftnet.FUSED_BOTTLENECK,
+              "k2_launches_per_step": k2,
               "wall_ms_per_step": wall_ms / steps,
               "device_busy_ms_per_step": None, "device_idle_share": None,
               "kernels_per_step": None, "top": None}

@@ -20,6 +20,13 @@ Then the fp32 path's row tiles: builds with ``TAIL_F32_BM=64`` and ``=32``
 fp32 at K = 8, 64 and 128 at the same shapes: ``f32_row_tiles``, us per
 launch.
 
+Then the bf16 row route (the route of every bf16 block the wgmma route
+does not hold: RN50 at block 256, the wide ResNets): at RN50's three
+block-256 shapes and K = 2, 16 and 32, each of its two stages' device time
+(the 3x3 conv into h2, the 1x1 into y; profiler) and the launch timed with
+the library's row-tile rule and with every stage on 128-row or on 64-row
+tiles (builds with ``TAIL_ROWS_BM=128`` and ``=64``): ``rows_stages``, us.
+
 The variants are written to ``_build/ablation/``; the outputs of a variant
 are not checked (they are wrong by design).
 """
@@ -35,14 +42,20 @@ import torch
 
 from blockcopy_tpu_torch.ops.kernels import bottleneck as BT
 from blockcopy_tpu_torch.ops.kernels import build
-from blockcopy_tpu_torch.tools.measure import device_ms
+from blockcopy_tpu_torch.tools.measure import device_ms, tail_stage_ms
 
 VARIANTS = {"full": [], "no_1x1_stage": ["-DTAIL_NO_1X1_STAGE"],
             "no_3x3_products": ["-DTAIL_NO_3X3_PRODUCTS"],
-            "f32_bm64": ["-DTAIL_F32_BM=64"], "f32_bm32": ["-DTAIL_F32_BM=32"]}
+            "f32_bm64": ["-DTAIL_F32_BM=64"], "f32_bm32": ["-DTAIL_F32_BM=32"],
+            "rows_bm128": ["-DTAIL_ROWS_BM=128"],
+            "rows_bm64": ["-DTAIL_ROWS_BM=64"]}
 SHAPES = [(16, 128, 512), (8, 256, 1024)]   # RN50 layer2, layer3
 K = 64
 F32_KS = (8, 64, 128)
+# RN50's fused blocks at block 256 (layer2, layer3, layer4) and the
+# block-256 capacities: ladder mode's smallest, the stepper's, every block
+ROW_SHAPES = [(32, 128, 512), (16, 256, 1024), (8, 512, 2048)]
+ROW_KS = (2, 16, 32)
 
 
 def _build_variants():
@@ -79,12 +92,17 @@ def _inputs(bs, cm, co, gen, k=K, dtype=torch.bfloat16):
         *[t.data_ptr() for t in tensors])
 
 
+def _launch(lib, ptrs, scratch, k, bs, cm, co, dtype_code):
+    """One launch of ``lib``'s C entry on the current stream."""
+    return lib.bottleneck_tail(
+        ptrs, scratch, k, bs, cm, co, dtype_code,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+
+
 def _launch_us(lib, name, ptrs, scratch, k, bs, cm, co, dtype_code):
     def launch():
-        err = lib.bottleneck_tail(
-            ptrs, scratch, k, bs, cm, co, dtype_code,
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-        build.check(err, f"bottleneck_tail ({name})")
+        build.check(_launch(lib, ptrs, scratch, k, bs, cm, co, dtype_code),
+                    f"bottleneck_tail ({name})")
     return device_ms(launch, samples=30) * 1e3
 
 
@@ -117,8 +135,27 @@ def main() -> int:
                                  cm, co, 0)
                 for name, lib in (("rule_us", "full"), ("bm64_us", "f32_bm64"),
                                   ("bm32_us", "f32_bm32"))}})
+    stages = []
+    for k in ROW_KS:
+        for bs, cm, co in ROW_SHAPES:
+            tensors, ptrs = _inputs(bs, cm, co, gen, k)
+            scratch = torch.empty((k, bs * bs, cm), dtype=torch.bfloat16,
+                                  device="cuda")
+            h2 = ctypes.c_void_p(scratch.data_ptr())
+            part = tail_stage_ms(
+                lambda: build.check(_launch(libs["full"], ptrs, h2, k, bs, cm,
+                                            co, 2), "bottleneck_tail (rows)"),
+                "tail_rows")
+            stages.append({"k": k, "bs": bs, "cm": cm, "co": co, **{
+                f"{key}_us": ms * 1e3 for key, (ms, _) in part.items()},
+                "rule_bm": {key: bm for key, (_, bm) in part.items()}, **{
+                name: _launch_us(libs[lib], lib, ptrs, h2, k, bs, cm, co, 2)
+                for name, lib in (("rule_us", "full"),
+                                  ("bm128_us", "rows_bm128"),
+                                  ("bm64_us", "rows_bm64"))}})
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "tail_breakdown": rows, "f32_row_tiles": tiles}))
+                      "tail_breakdown": rows, "f32_row_tiles": tiles,
+                      "rows_stages": stages}))
     return 0
 
 

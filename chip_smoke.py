@@ -15,13 +15,20 @@ Phases (any failure raises and exits non-zero):
    (ladder mode's smallest capacity, the main path's, ladder mode's
    largest): time per launch (the weights are prepared by the warm-up
    calls, as on the main path) beside its bound and the plain version's,
-   each fp32 stage's device time, and the per-frame sums at K = 64;
+   each fp32 stage's device time, and the per-frame sums at K = 64; then
+   its bf16 row route (3e-2) at RN50's block-256 shapes at K = 2, 16 and 32,
+   at ``wide_resnet50_2``'s block-128 shapes at K = 8, 64 and 128 and at Co
+   640, each timed beside its bound and plain version with its two stages'
+   device times, and forced at the wgmma route's shapes, timed beside it;
 4. the main path at full width: SwiftNet-RN50 BlockCopy fixed-capacity step,
    1024x2048 bf16, fast policy, block 128, target 0.5 (64 of 128 blocks),
    REINFORCE every 4th frame; ``init_state``, ``first_step`` and 12 steps,
    each step under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync
    fails the run); launch counts (zeroed just before ``init_state``), blocks
-   per step, policy updates, ms/frame and peak memory;
+   per step, policy updates, ms/frame and peak memory; (4b) the same at
+   block 256, capacity 16 of 32: 10 K1 launches a frame
+   (``HALO_SHAPES_256``) and 10 K2 launches on its bf16 row route
+   (``TAIL_SHAPES_256``), none on its other routes;
 5. modes: the step on the GPU against the same step on the CPU (plain
    versions) on a small RN50 clip, and the ``pallas`` halo mode (canvas
    entry point) against the ``strips`` mode, bitwise, on a small RN18 clip;
@@ -33,7 +40,9 @@ Phases (any failure raises and exits non-zero):
    then the port's probe
    (``tools/probe_int8.py``) at its defaults, launch counts zeroed just
    before it;
-7. one JSON line ``{"kernels": [...]}`` and, last, the result line;
+7. one JSON line ``{"kernels": [...]}`` and, last, the result line (K2's
+   launches are counted by route: ``bottleneck_tail`` the bf16 wgmma route,
+   ``bottleneck_tail_rows`` the bf16 row route, ``bottleneck_tail_f32``);
 8. ladder mode, before the JSON lines: (a) ``BlockCopyModel`` built with
    ``build_policy_from_settings(default_settings())`` (block 128,
    ``rl_semseg``, target 0.5, quantum 1/16, REINFORCE every 4th frame,
@@ -49,7 +58,9 @@ Phases (any failure raises and exits non-zero):
    against the CPU (RN50 256x512 fp32, 4 frames, injected draws, counts 8,
    4, 6, 8) within 1e-3 of the largest |CPU output|; (d) RN50 1024x2048
    ladder frames at block 256 in bf16 and fp32 and at block 128 in fp32,
-   with K2's launches per executed frame asserted (0, 10 and 8);
+   and ``wide_resnet50_2`` at block 128 in bf16, with K2's launches per
+   executed frame asserted by route (10 on the row route, 10 and 8 on the
+   fp32 route, 10 on the row route);
 9. detection, before the JSON lines: (a) ``DetectionStepper`` on CSP-R50 at
    full width and depth (``CSPConfig()``), 1024x2048 bf16, fast policy,
    block 128, target 0.3 (38 of 128 blocks), REINFORCE every 4th frame,
@@ -164,6 +175,23 @@ HALO_SHAPES = ([(32, 48)] + [(32, 64)] * 3 + [(32, 128), (16, 256),
 # main-path bottleneck-tail launches per step (bs, Cm, Co)
 TAIL_SHAPES = [(16, 128, 512)] * 3 + [(8, 256, 1024)] * 5
 N, GH, GW, K = 1, 8, 16, 64
+# the block-256 path (phase 4b): K1 launches per step (bs, C): the stem's
+# s2d planes, layer1's three 3x3s, the strided first blocks of layers 2-4
+# and the three upsample blends; K2 (all on the bf16 row route): layer2
+# blocks 1-3, layer3 blocks 1-5 and layer4 blocks 1-2 (3 + 5 + 2)
+HALO_SHAPES_256 = ([(64, 48)] + [(64, 64)] * 3 + [(64, 128), (32, 256),
+                   (16, 512), (16, 128), (32, 128), (64, 128)])
+TAIL_SHAPES_256 = [(32, 128, 512)] * 3 + [(16, 256, 1024)] * 5 \
+    + [(8, 512, 2048)] * 2
+# block 256's capacities: ladder mode's smallest (quantum 1/16 of 32
+# blocks), the stepper's (target 0.5), every block
+K_256, TAIL_KS_256 = 16, (2, 16, 32)
+# wide_resnet50_2's fused blocks at block 128: layer1 blocks 1-2, layer2
+# blocks 1-3, layer3 blocks 1-5 (row route; timed at TAIL_KS)
+WIDE_TAIL_SHAPES = [(32, 128, 256)] * 2 + [(16, 256, 512)] * 3 \
+    + [(8, 512, 1024)] * 5
+# the wgmma route's blocks, where phase 3 also times the row route
+WGMMA_SHAPES = [(16, 128, 512), (8, 256, 1024), (8, 128, 512)]
 # detection path (phase 9) K1 launches per step (bs, C, pad) at K = 38, bf16;
 # see the exchange sites in models/csp.py: the stem's s2d planes, layer1's
 # three 3x3s, the strided first blocks of layer2 and layer3, layer4's three
@@ -320,27 +348,6 @@ def tail_cost(bs, cm, co, itemsize, k=K):
     return flops, elems * itemsize
 
 
-def _tail_stage_ms(fn, calls=20):
-    """Device ms per call of each fp32 stage (``tail_f32<BM, true>``: the
-    3x3 conv into h2; ``<BM, false>``: the 1x1 into y) and the row tile BM
-    it ran, from the profiler's kernel records over ``calls`` calls."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {"3x3": [0.0, set()], "1x1": [0.0, set()]}
-    for e in prof.events():
-        found = re.search(r"tail_f32<(\d+), (true|false)>", e.name)
-        if e.device_type == DeviceType.CUDA and found:
-            key = "3x3" if found.group(2) == "true" else "1x1"
-            out[key][0] += e.time_range.elapsed_us() / 1e3 / calls
-            out[key][1].add(found.group(1))
-    return {key: (ms, "/".join(sorted(bm))) for key, (ms, bm) in out.items()}
-
-
 def phase_tail(gen):
     """K2 at ``TAIL_KS`` x both RN50 shapes x bf16 (3e-2) and fp32 (1e-4,
     TF32 off): against the plain version (``torch.allclose``, outputs
@@ -349,7 +356,7 @@ def phase_tail(gen):
     TFLOP/s), and the fp32 stages' device times; returns the per-frame sums
     at K = 64."""
     from blockcopy_tpu_torch.ops.kernels import bottleneck as BT
-    from blockcopy_tpu_torch.tools.measure import device_ms
+    from blockcopy_tpu_torch.tools.measure import device_ms, tail_stage_ms
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     rows, worst = {}, {"bf16": 0.0, "f32": 0.0}
@@ -383,7 +390,8 @@ def phase_tail(gen):
                 if name == "bf16":
                     ctas = f"{2 * k} CTAs in clusters of 2"
                 else:
-                    stage = _tail_stage_ms(lambda: BT.bottleneck_tail(*args))
+                    stage = tail_stage_ms(lambda: BT.bottleneck_tail(*args),
+                                          "tail_f32")
                     ctas = ", ".join(
                         f"{key} stage {ms:.4f} ms ({bm}-row tiles)"
                         for key, (ms, bm) in stage.items())
@@ -412,6 +420,94 @@ def phase_tail(gen):
     return out
 
 
+def _rows_case(gen, k, bs, cm, co, entry):
+    """One bf16 row-route case: ``entry`` (the wrapper, or the private entry
+    that forces the row route) against the plain version (3e-2,
+    ``torch.allclose``, finite); returns the inputs and the max abs err."""
+    from blockcopy_tpu_torch.ops.kernels import bottleneck as BT
+    args = _tail_case(gen, bs, cm, co, torch.bfloat16, k)
+    ref = BT.bottleneck_tail_plain(*args).float()
+    got = entry(*args)
+    err = (got.float() - ref).abs().max().item()
+    if not (bool(torch.isfinite(got).all()) and torch.allclose(
+            got.float(), ref, rtol=3e-2, atol=3e-2)):
+        raise AssertionError(f"bottleneck row route disagrees with its plain "
+                             f"version at K={k} bs={bs} Cm={cm} Co={co}: max "
+                             f"abs err {err:.3g}")
+    return args, err
+
+
+def phase_tail_rows(gen):
+    """K2's bf16 row route against its plain version (3e-2,
+    ``torch.allclose``, outputs finite) at RN50's block-256 shapes at
+    ``TAIL_KS_256``, ``wide_resnet50_2``'s block-128 shapes at ``TAIL_KS``
+    and a Co that is no multiple of 256 (16, 128, 640): time per launch
+    beside its bound (989 TFLOP/s, 3.35 TB/s) and the plain version's, and
+    its two stages' device times (profiler); then the row route forced at
+    the wgmma route's blocks, timed beside the wgmma route at ``TAIL_KS``
+    (a reading; no route choice rests on it).  Returns the per-frame sums at
+    block 256, K = 16, and the largest error."""
+    from blockcopy_tpu_torch.ops.kernels import bottleneck as BT
+    from blockcopy_tpu_torch.tools.measure import device_ms, tail_stage_ms
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = ([(k, sh) for k in TAIL_KS_256
+              for sh in sorted(set(TAIL_SHAPES_256))]
+             + [(k, sh) for k in TAIL_KS for sh in sorted(set(WIDE_TAIL_SHAPES))]
+             + [(K_256, (16, 128, 640))])
+    rows, worst = {}, 0.0
+    for k, (bs, cm, co) in cases:
+        if BT.route(torch.bfloat16, bs, cm, co) != "bottleneck_tail_rows":
+            raise AssertionError(f"({bs}, {cm}, {co}) is not a row-route "
+                                 f"block")
+        args, err = _rows_case(gen, k, bs, cm, co, BT.bottleneck_tail)
+        worst = max(worst, err)
+        flops, nbytes = tail_cost(bs, cm, co, 2, k)
+        t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+        t = {"kernel": device_ms(lambda: BT.bottleneck_tail(*args)),
+             "plain": device_ms(lambda: BT.bottleneck_tail_plain(*args),
+                                samples=20),
+             "bound": max(t_ops, t_bytes) * 1e3,
+             "by": "operations" if t_ops > t_bytes else "bytes"}
+        rows[(k, bs, cm, co)] = t
+        stage = tail_stage_ms(lambda: BT.bottleneck_tail(*args), "tail_rows")
+        log(f"[3] tail rows K={k:3d} bs={bs} Cm={cm} Co={co} bf16: max abs "
+            f"err {err:.3g} (rtol and atol 3e-2) ok; kernel {t['kernel']:.4f} ms "
+            f"per launch, plain {t['plain']:.4f} ms, bound {t['bound']:.4f} "
+            f"ms ({t['by']}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), "
+            f"kernel at {t['bound'] / t['kernel']:.1%} of it, "
+            f"{flops / t['kernel'] / 1e9:.0f} TFLOP/s; "
+            + ", ".join(f"{key} stage {ms:.4f} ms ({bm}-row tiles)"
+                        for key, (ms, bm) in stage.items())
+            + f"; h2 scratch {k * bs * bs * cm * 2 / 1e6:.1f} MB")
+        del args
+    out = {}
+    for name, shapes, k in (("block256", TAIL_SHAPES_256, K_256),
+                            ("wide", WIDE_TAIL_SHAPES, K)):
+        per = [rows[(k, *sh)] for sh in shapes]
+        out[name] = {key: sum(r[key] for r in per)
+                     for key in ("kernel", "plain", "bound")}
+        by = [r["by"] for r in per]
+        out[name]["by"] = max(set(by), key=by.count)
+        log(f"[3] tail rows per {name} frame at K={k} ({len(shapes)} "
+            f"launches): kernel {out[name]['kernel']:.4f} ms, plain "
+            f"{out[name]['plain']:.4f} ms, bound {out[name]['bound']:.4f} ms "
+            f"({out[name]['by']})")
+    for k in TAIL_KS:
+        for bs, cm, co in WGMMA_SHAPES:
+            args, err = _rows_case(gen, k, bs, cm, co,
+                                   BT._bottleneck_tail_rows)
+            worst = max(worst, err)
+            forced = device_ms(lambda: BT._bottleneck_tail_rows(*args))
+            wgmma = device_ms(lambda: BT.bottleneck_tail(*args))
+            log(f"[3] tail bs={bs} Cm={cm} Co={co} bf16 K={k:3d}: row route "
+                f"{forced:.4f} ms per launch (max abs err {err:.3g}) against "
+                f"the wgmma route's {wgmma:.4f} ms ({forced / wgmma:.2f}x)")
+            del args
+    out["err"] = worst
+    return out
+
+
 def _drive_stepper(tag, stepper, params, frames, per_frame, watch=None):
     """``init_state``, ``first_step`` and a ``step`` per further frame, each
     step under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync
@@ -419,10 +515,12 @@ def _drive_stepper(tag, stepper, params, frames, per_frame, watch=None):
     read after the last step; it checks that ``init_state`` launches
     nothing, that every frame launches ``per_frame``, that every step runs
     ``capacity`` blocks and that the policy is updated exactly at frames
-    = 0 (mod 4).  ``watch(state)`` is kept after each step.  Returns the
-    last state, the launches, ms per step, the trained frames, what
-    ``watch`` kept and the peak memory in GiB."""
+    = 0 (mod 4); a kernel ``per_frame`` does not name launches nothing.
+    ``watch(state)`` is kept after each step.  Returns the last state, the
+    launches, ms per step, the trained frames, what ``watch`` kept and the
+    peak memory in GiB."""
     from blockcopy_tpu_torch.ops import kernels
+    per_frame = {k: per_frame.get(k, 0) for k in kernels.launches}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -510,6 +608,39 @@ def phase_main():
     return launches, _log_steps("4", ms, launches, peak), ms
 
 
+def phase_main_256():
+    """(4b) the block-256 path at full width (``_drive_stepper``):
+    SwiftNet-RN50 bf16 at block 256, capacity 16 of 32, every fused tail
+    on K2's bf16 row route."""
+    from blockcopy_tpu_torch.tools.measure import (swiftnet_stepper,
+                                                   synthetic_frames)
+
+    torch.backends.cudnn.allow_tf32 = True
+    frame_shape, steps, dtype = (1, 1024, 2048, 3), 12, torch.bfloat16
+    params, stepper = swiftnet_stepper("resnet50", frame_shape, None, dtype,
+                                       "cuda", train_interval=4,
+                                       block_size=256)
+    if stepper.capacity != 16:
+        raise AssertionError(f"block-256 capacity {stepper.capacity}")
+    frames = synthetic_frames(frame_shape, steps + 1, dtype)
+    per_frame = {"halo_strips": len(HALO_SHAPES_256),
+                 "bottleneck_tail_rows": len(TAIL_SHAPES_256)}
+    state, launches, ms, trained, _, peak = _drive_stepper(
+        "4b", stepper, params, frames, per_frame)
+    out = stepper.fetch_outputs(state)
+    if tuple(out.shape) != (1, 256, 512, 19):
+        raise AssertionError(f"output shape {tuple(out.shape)}")
+    if not bool(torch.isfinite(out.float()).all()):
+        raise AssertionError("non-finite outputs")
+    log(f"[4b] RN50 1024x2048 bf16 block 256: {steps} steps, no host sync, "
+        f"{stepper.capacity} blocks/step, outputs {tuple(out.shape)} finite, "
+        f"policy updated at frames {trained} (per frame: halo "
+        f"{len(HALO_SHAPES_256)}, bottleneck tail rows "
+        f"{len(TAIL_SHAPES_256)})")
+    med = _log_steps("4b", ms, launches, peak)
+    return launches, {"ms": med, "peak_gib": peak}
+
+
 def _small_run(backbone, device, steps=2, halo="strips", plane_stem=True):
     """A 256x512 fp32 clip (capacity 4, REINFORCE every 2nd frame) with
     injected draws; returns the outputs of every frame on the CPU."""
@@ -568,7 +699,8 @@ def phase_modes():
     log(f"[5] RN50 256x512 fp32 capacity 4, 3 frames, GPU (kernels {used}) "
         f"vs CPU (plain versions): max abs err / max |CPU output| {err:.3g} "
         f"(tol 1e-3: a 3-frame clip with one RMSprop step)")
-    if err > 1e-3 or not used["halo_strips"] or not used["bottleneck_tail"]:
+    if (err > 1e-3 or not used["halo_strips"]
+            or not used["bottleneck_tail_f32"]):
         raise AssertionError("GPU step disagrees with the CPU step")
 
     # the s2d plane stem runs under strip halos only, so both runs take the
@@ -713,8 +845,10 @@ def phase_cli():
         if not ok or line["fps"] != res["fps"]:
             raise AssertionError(f"CLI {name} result {line}")
         # 16 frames, each executing at least 8 blocks (quantum 1/16)
+        key = "bottleneck_tail" if "--half" in extra else \
+            "bottleneck_tail_f32"
         if (launches["halo_strips"] != 16 * len(HALO_SHAPES)
-                or launches["bottleneck_tail"] != 16 * len(TAIL_SHAPES)):
+                or launches[key] != 16 * len(TAIL_SHAPES)):
             raise AssertionError(f"CLI {name} launches {launches}, expected "
                                  f"{len(HALO_SHAPES)} K1 and "
                                  f"{len(TAIL_SHAPES)} K2 a frame")
@@ -724,12 +858,14 @@ def phase_cli():
 
 
 def phase_block_sizes():
-    """(d) RN50 1024x2048 ladder frames (the CLI's default settings but the
-    block size) at block 256 in bf16 and fp32 and at block 128 in fp32, 4
-    frames each; launch counts are zeroed just before each run and read
-    just after.  K2 launches per executed frame: none at block 256 in bf16
-    (the bf16 kernel takes none of its blocks, which run unfused), 10 in
-    fp32 (layers 2-4: 3 + 5 + 2), 8 at block 128 (layers 2-3)."""
+    """(d) 1024x2048 ladder frames (the CLI's default settings but the
+    block size and the backbone), 4 frames a run: RN50 at block 256 in bf16
+    and fp32 and at block 128 in fp32, and ``wide_resnet50_2`` at block 128
+    in bf16; launch counts are zeroed just before each run and read just
+    after.  K2 launches per executed frame, by route: at block 256 layers
+    2-4 (3 + 5 + 2), on the bf16 row route and on the fp32 route; RN50 at
+    block 128 layers 2-3 (3 + 5); wide RN50 at block 128 layers 1-3 (2 + 3
+    + 5) on the row route.  Every other K2 route launches nothing."""
     from blockcopy_tpu_torch.core.argparser import default_settings
     from blockcopy_tpu_torch.core.engine import BlockCopyModel
     from blockcopy_tpu_torch.models.swiftnet import (SwiftNetConfig,
@@ -740,11 +876,15 @@ def phase_block_sizes():
 
     torch.backends.cudnn.allow_tf32 = True
     shape = (1, 1024, 2048, 3)
-    cfg = SwiftNetConfig(backbone="resnet50", num_classes=19)
+    k2 = ("bottleneck_tail", "bottleneck_tail_rows", "bottleneck_tail_f32")
     out = {}
-    for block, dtype, per_frame in ((256, torch.bfloat16, 0),
-                                    (256, torch.float32, 10),
-                                    (128, torch.float32, 8)):
+    for backbone, block, dtype, key, per_frame in (
+            ("resnet50", 256, torch.bfloat16, "bottleneck_tail_rows", 10),
+            ("resnet50", 256, torch.float32, "bottleneck_tail_f32", 10),
+            ("resnet50", 128, torch.float32, "bottleneck_tail_f32", 8),
+            ("wide_resnet50_2", 128, torch.bfloat16, "bottleneck_tail_rows",
+             10)):
+        cfg = SwiftNetConfig(backbone=backbone, num_classes=19)
         params = init_swiftnet(cfg, seed=0, dtype=dtype, device="cuda")
         model = BlockCopyModel(make_apply_fn(cfg), params,
                                default_settings(block_size=block),
@@ -753,27 +893,31 @@ def phase_block_sizes():
         kernels.reset_launches()
         counts, tails, ms = [], [], []
         for frame in frames:
-            before = kernels.launches["bottleneck_tail"]
+            before = dict(kernels.launches)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             y = model(frame)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             counts.append(model.policy_meta["num_exec"])
-            tails.append(kernels.launches["bottleneck_tail"] - before)
+            tails.append({k: kernels.launches[k] - before[k] for k in k2})
         launches = dict(kernels.launches)
-        log(f"[8d] RN50 1024x2048 {dtype} block {block}: {len(frames)} "
-            f"frames at counts {counts}, K2 launches per frame {tails}, "
-            f"launches {launches}, ms/frame {[round(x, 2) for x in ms]}")
+        log(f"[8d] {backbone} 1024x2048 {dtype} block {block}: "
+            f"{len(frames)} frames at counts {counts}, K2 launches per frame "
+            f"{[t[key] for t in tails]} ({key}), launches {launches}, "
+            f"ms/frame {[round(x, 2) for x in ms]}")
         if tuple(y.shape) != (1, 256, 512, 19) or \
                 not bool(torch.isfinite(y.float()).all()):
-            raise AssertionError(f"block {block} {dtype}: outputs "
+            raise AssertionError(f"{backbone} block {block} {dtype}: outputs "
                                  f"{tuple(y.shape)} not finite")
-        if tails != [per_frame if c else 0 for c in counts] or not counts[0]:
-            raise AssertionError(f"block {block} {dtype}: K2 launches "
-                                 f"{tails}, expected {per_frame} per "
-                                 f"executed frame")
-        out[(block, str(dtype))] = tails
+        want = [{k: per_frame if c and k == key else 0 for k in k2}
+                for c in counts]
+        if tails != want or not counts[0]:
+            raise AssertionError(f"{backbone} block {block} {dtype}: K2 "
+                                 f"launches {tails}, expected {per_frame} "
+                                 f"{key} per executed frame")
+        out[(backbone, block, str(dtype))] = launches
+        del model, params
     return out
 
 
@@ -826,7 +970,7 @@ def phase_ladder_modes():
     torch.backends.cudnn.deterministic = False
     policy_net.COMPUTE_DTYPE = torch.bfloat16
     if (err > 1e-3 or counts != cpu_counts or len(set(counts)) < 2
-            or not used["halo_strips"] or not used["bottleneck_tail"]):
+            or not used["halo_strips"] or not used["bottleneck_tail_f32"]):
         raise AssertionError("GPU ladder engine disagrees with the CPU")
     return err
 
@@ -906,7 +1050,7 @@ def phase_detection_modes():
         f"valid dets per frame {n_valid}; tol 1e-3")
     if (not grids or canvas_err > 1e-3 or None in dets_err
             or max(dets_err) > 1e-3 or not used["halo_strips"]
-            or not used["bottleneck_tail"]):
+            or not used["bottleneck_tail_f32"]):
         raise AssertionError("GPU detection step disagrees with the CPU")
     return canvas_err, max(dets_err)
 
@@ -1214,11 +1358,12 @@ def phase_detection_cli():
                 if not ok:
                     raise AssertionError(f"detection CLI {name} result "
                                          f"{line}")
+                key = "bottleneck_tail" if "--half" in extra else \
+                    "bottleneck_tail_f32"
                 if (frames < 2
                         or launches["halo_strips"]
                         != frames * len(DET_HALO_SHAPES)
-                        or launches["bottleneck_tail"]
-                        != frames * len(DET_TAIL_SHAPES)):
+                        or launches[key] != frames * len(DET_TAIL_SHAPES)):
                     raise AssertionError(
                         f"detection CLI {name} launches {launches} over "
                         f"{frames} frames, expected {len(DET_HALO_SHAPES)} "
@@ -1320,7 +1465,7 @@ def phase_detection_ladder_modes():
         f"|CPU canvas| {canvas_err:.3g}; boxes {box_err:.3g}; boxes per frame "
         f"{n_boxes}; tol 1e-5")
     if (not same or canvas_err > 1e-5 or box_err > 1e-5 or min(n_boxes) < 1
-            or not used["halo_strips"] or not used["bottleneck_tail"]):
+            or not used["halo_strips"] or not used["bottleneck_tail_f32"]):
         raise AssertionError("GPU detection ladder disagrees with the CPU")
     return canvas_err, box_err
 
@@ -1894,7 +2039,9 @@ def main() -> int:
     gen = torch.Generator("cuda").manual_seed(0)
     halo = phase_halo(gen)
     tail = phase_tail(gen)
+    rows = phase_tail_rows(gen)
     launches, step_ms, main_ms = phase_main()
+    launches_256, main_256 = phase_main_256()
     canvas_launches = phase_modes()
     mm = phase_mm(gen)
     probe_launches = phase_probe()
@@ -1928,7 +2075,7 @@ def main() -> int:
     common = {"route": "cuda", "library_ms": None, "matched": True}
     kern = [
         {"name": "halo_gather_strips", "source": source + "halo.cu",
-         "replaces": "blockcopy_tpu/ops/pallas/halo.py:68",
+         "replaces": "blockcopy_tpu/ops/pallas/halo.py:69",
          "path": "main, ladder, detection",
          "launches": launches["halo_strips"],
          "ladder_launches": ladder_launches["halo_strips"],
@@ -1947,7 +2094,7 @@ def main() -> int:
          "plain_ms": halo["strips_plain"], "bound_ms": halo["bound"],
          "bound_by": "bytes", **common},
         {"name": "halo_gather_canvas", "source": source + "halo.cu",
-         "replaces": "blockcopy_tpu/ops/pallas/halo.py:68",
+         "replaces": "blockcopy_tpu/ops/pallas/halo.py:69",
          "path": "pallas halo mode", "launches": canvas_launches,
          "detection_ladder_launches": dl_launches["halo_canvas"],
          **parallel_keys(par, "halo_canvas"),
@@ -1972,23 +2119,41 @@ def main() -> int:
          "detection_ladder_max_abs_err": dl_kern["tail_err"]["bf16"],
          **phase11_keys("bottleneck_tail"),
          **parallel_keys(par, "bottleneck_tail"),
-         # phase 8d: at block 256 the bf16 kernel takes no RN50 block
-         "block256_launches": sum(blocks[(256, str(torch.bfloat16))]),
          "max_abs_err": tail["bf16"]["err"], "ms": tail["bf16"]["kernel"],
          "plain_ms": tail["bf16"]["plain"], "bound_ms": tail["bf16"]["bound"],
          "bound_by": tail["bf16"]["by"], **common},
+        {"name": "bottleneck_tail_rows", "source": source + "bottleneck.cu",
+         "replaces": "blockcopy_tpu/ops/pallas/bottleneck.py:92",
+         "path": "block-256 stepper (4b), block-256 and wide ladders (8d)",
+         "launches": launches_256["bottleneck_tail_rows"],
+         "main_launches": launches["bottleneck_tail_rows"],
+         "block256_launches": blocks[("resnet50", 256, str(torch.bfloat16))][
+             "bottleneck_tail_rows"],
+         "wide_resnet50_2_launches": blocks[
+             ("wide_resnet50_2", 128, str(torch.bfloat16))][
+             "bottleneck_tail_rows"],
+         **parallel_keys(par, "bottleneck_tail_rows"),
+         "wide_ms": rows["wide"]["kernel"],
+         "wide_plain_ms": rows["wide"]["plain"],
+         "wide_bound_ms": rows["wide"]["bound"],
+         "max_abs_err": rows["err"], "ms": rows["block256"]["kernel"],
+         "plain_ms": rows["block256"]["plain"],
+         "bound_ms": rows["block256"]["bound"],
+         "bound_by": rows["block256"]["by"], **common},
         {"name": "bottleneck_tail_f32", "source": source + "bottleneck.cu",
          "replaces": "blockcopy_tpu/ops/pallas/bottleneck.py:92",
          "path": "fp32 CLI (ladder, speed-mode)",
-         "launches": cli["ladder fp32"]["launches"]["bottleneck_tail"],
+         "launches": cli["ladder fp32"]["launches"]["bottleneck_tail_f32"],
          "speed_mode_launches":
-             cli["speed-mode fp32"]["launches"]["bottleneck_tail"],
-         "block256_launches": sum(blocks[(256, str(torch.float32))]),
+             cli["speed-mode fp32"]["launches"]["bottleneck_tail_f32"],
+         "block256_launches": blocks[("resnet50", 256, str(torch.float32))][
+             "bottleneck_tail_f32"],
          "detection_max_abs_err": det_kern["tail"]["err"]["f32"],
          # the fp32 detection ladder: the CLI's fp32 ladder run (10b)
          "detection_ladder_launches": det_cli["ladder fp32"]["launches"][
-             "bottleneck_tail"],
+             "bottleneck_tail_f32"],
          "detection_ladder_max_abs_err": dl_kern["tail_err"]["f32"],
+         **parallel_keys(par, "bottleneck_tail_f32"),
          "max_abs_err": tail["f32"]["err"], "ms": tail["f32"]["kernel"],
          "plain_ms": tail["f32"]["plain"], "bound_ms": tail["f32"]["bound"],
          "bound_by": tail["f32"]["by"], **common},
@@ -2002,9 +2167,13 @@ def main() -> int:
         for name in ("mm_bf16", "mm_int8")]
     log(f"[7] halo and tail times are per main-path frame (sums over its "
         f"launch shapes), their library_ms null: no single PyTorch call "
-        f"computes either function; mm times are per launch at "
+        f"computes either function; bottleneck_tail_rows times are per "
+        f"block-256 frame at K = {K_256} (wide_*: per wide_resnet50_2 frame "
+        f"at K = {K}); mm times are per launch at "
         f"{'x'.join(map(str, MM_SHAPES[0]))}; main path {step_ms:.2f} "
-        f"ms/frame; ladder path {ladder['ms']:.2f} ms/frame at capacities "
+        f"ms/frame; block-256 path {main_256['ms']:.2f} ms/frame, peak "
+        f"{main_256['peak_gib']:.2f} GiB; ladder path {ladder['ms']:.2f} "
+        f"ms/frame at capacities "
         f"{ladder['capacities']}, peak {ladder['peak_gib']:.2f} GiB; CLI fps "
         f"ladder {cli['ladder']['fps']:.2f}, speed-mode "
         f"{cli['speed-mode']['fps']:.2f}, fp32 ladder "

@@ -63,11 +63,17 @@ def _tail_inputs(rs, k, bs, cm, co, dtype):
 
 
 @pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
-@pytest.mark.parametrize("bs", [8, 16])
-def test_plain_matches_pallas(bs, dtype):
-    rs = np.random.RandomState(bs)
-    h1, x, pieces, w2, s2, b2, w3, s3, b3 = _tail_inputs(rs, 4, bs, 128,
-                                                         256, dtype)
+@pytest.mark.parametrize("bs,cm,co", [
+    pytest.param(8, 128, 256, id="8"), pytest.param(16, 128, 256, id="16"),
+    pytest.param(32, 128, 256, id="32"),
+    pytest.param(8, 256, 1024, id="8-256-1024")])
+def test_plain_matches_pallas(bs, cm, co, dtype):
+    """The plain version against the Pallas kernel (interpret mode) at the
+    bs of blocks 64, 128 and 256 (bs 32: a block the bf16 row route runs)
+    and at a bottleneck's own widths (Co = 4 Cm)."""
+    rs = np.random.RandomState(bs + cm)
+    h1, x, pieces, w2, s2, b2, w3, s3, b3 = _tail_inputs(rs, 4, bs, cm, co,
+                                                         dtype)
     ref = jtail(jnp.asarray(h1), jnp.asarray(x),
                 {k: jnp.asarray(v) for k, v in pieces.items()},
                 *map(jnp.asarray, (w2, s2, b2, w3, s3, b3)))
@@ -194,7 +200,7 @@ PORT = (TS, TG, TCtx, tsplit, tt)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
-@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("bs", [8, 16, 32])
 def test_fused_block_matches_jax_unfused(bs, dtype):
     n, gh, gw = 1, 2, 4
     cin, planes = 256, 128
@@ -249,14 +255,15 @@ def test_gate(planes, fused, monkeypatch):
 
 # RN50's stride-1 identity bottlenecks at block sizes 64, 128 and 256: layer2
 # (stride 8, Cm 128), layer3 (stride 16, Cm 256), layer4 (stride 32, Cm 512)
-# give bs = block / stride; whether the fused tail runs there, fp32 / bf16
+# give bs = block / stride; whether the fused tail runs there, fp32 / bf16:
+# wherever bs >= 8, as JAX's gate (the bf16 row route takes block 256's)
 GATE_CASES = [
     (64, 8, 128, True, True), (64, 16, 256, False, False),
     (64, 32, 512, False, False),
     (128, 8, 128, True, True), (128, 16, 256, True, True),
     (128, 32, 512, False, False),
-    (256, 8, 128, True, False), (256, 16, 256, True, False),
-    (256, 32, 512, True, False),
+    (256, 8, 128, True, True), (256, 16, 256, True, True),
+    (256, 32, 512, True, True),
 ]
 
 
@@ -265,13 +272,13 @@ GATE_CASES = [
 def test_gate_asks_the_kernel(block, stride, planes, f32, bf16, dtype,
                               monkeypatch):
     """The gate fuses only the blocks the dtype's kernel takes
-    (``kernel_takes``) and runs the rest unfused: the bf16 kernel takes none
-    of RN50's block-256 shapes, the fp32 kernel every 128-aligned one at
-    bs >= 8.  The unfused fall-through gives the block's full output."""
+    (``kernel_takes``) and runs the rest unfused: both kernels take every
+    128-aligned RN50 block at bs >= 8, block 256's included.  The unfused
+    fall-through gives the block's full output."""
     n, gh, gw, bs = 1, 1, 2, block // stride
     fused = f32 if dtype == torch.float32 else bf16
-    # below bs 8 the gate refuses first; the fp32 kernel takes any bs
-    takes = fused or (bs < 8 and dtype == torch.float32)
+    # below bs 8 the gate refuses first; both kernels take any bs
+    takes = fused or bs < 8
     assert BT.kernel_takes(dtype, bs, planes, 4 * planes) == takes
     rs = np.random.RandomState(block + planes)
     frame = torch.from_numpy(rs.randn(n, gh * bs, gw * bs, 4 * planes)
@@ -298,24 +305,25 @@ def test_gate_asks_the_kernel(block, stride, planes, f32, bf16, dtype,
 @pytest.mark.parametrize("dtype,bs,cm,co,takes", [
     (torch.float32, 1, 64, 64, True), (torch.float32, 3, 192, 320, True),
     (torch.float32, 8, 96, 512, False), (torch.float32, 8, 128, 480, False),
-    (torch.bfloat16, 16, 128, 768, True), (torch.bfloat16, 16, 128, 640, False),
-    (torch.bfloat16, 32, 128, 512, False), (torch.float16, 8, 128, 512, False),
+    (torch.bfloat16, 16, 128, 768, True), (torch.bfloat16, 16, 128, 640, True),
+    (torch.bfloat16, 32, 128, 512, True), (torch.float16, 8, 128, 512, False),
 ])
 def test_kernel_takes_widths(dtype, bs, cm, co, takes):
-    """The fp32 kernel takes Cm and Co multiples of its 64-column tile at
-    any bs (the C entry's own rule); the bf16 kernel its (bs, Cm) table at
-    Co a multiple of 256; no other dtype has a kernel."""
+    """Both kernels take Cm and Co multiples of the 64-column tile at any
+    bs (the C entry's own rule): bf16 on the wgmma route for its (bs, Cm)
+    table at Co a multiple of 256, else on the row route; no other dtype
+    has a kernel."""
     assert BT.kernel_takes(dtype, bs, cm, co) == takes
 
 
 @pytest.mark.parametrize("block,dtype,per_frame", [
-    (256, torch.bfloat16, 0), (256, torch.float32, 10),
+    (256, torch.bfloat16, 10), (256, torch.float32, 10),
     (128, torch.bfloat16, 8), (128, torch.float32, 8)])
 def test_rn50_fused_tails_per_frame(block, dtype, per_frame, monkeypatch):
     """The tails RN50 hands the fused kernel per executed ladder frame
     (256x512, 3 frames), routed on the CPU as on the card: at block 256
-    bf16 runs every bottleneck unfused, fp32 fuses layers 2-4 (3 + 5 + 2);
-    at block 128 both fuse layers 2-3 (3 + 5)."""
+    both dtypes fuse layers 2-4 (3 + 5 + 2), as JAX's gate does; at block
+    128 both fuse layers 2-3 (3 + 5)."""
     from blockcopy_tpu_torch.core.argparser import default_settings
     from blockcopy_tpu_torch.core.engine import BlockCopyModel
     from blockcopy_tpu_torch.tools.measure import synthetic_frames

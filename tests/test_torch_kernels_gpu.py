@@ -171,9 +171,11 @@ def test_bottleneck_kernel_matches_plain(cuda_device, bs, cm, co, dtype):
     gpu = _gpu(_tail_inputs(np.random.RandomState(bs), 6, bs, cm, co),
                cuda_device, dtype)
     ref = BT.bottleneck_tail_plain(*gpu)
-    before = kernels.launches["bottleneck_tail"]
+    key = ("bottleneck_tail" if dtype == torch.bfloat16
+           else "bottleneck_tail_f32")
+    before = dict(kernels.launches)
     got = BT.bottleneck_tail(*gpu)
-    assert kernels.launches["bottleneck_tail"] == before + 1
+    assert kernels.launches == {**before, key: before[key] + 1}
     assert got.dtype == dtype and got.shape == (6, bs, bs, co)
     t = 3e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(got.float(), ref.float(), rtol=t, atol=t)
@@ -225,13 +227,15 @@ def test_bottleneck_weight_update_in_place(cuda_device):
 
 
 def test_bottleneck_kernel_refuses_unsupported_width(cuda_device):
-    # fp32: Cm not a multiple of the kernel's 64-column tile
-    args = _tail_inputs(np.random.RandomState(0), 2, 8, 96, 256)
-    with pytest.raises(ValueError, match="Cm"):
-        BT.bottleneck_tail(*_gpu(args, cuda_device, torch.float32))
-    args = _tail_inputs(np.random.RandomState(0), 2, 16, 256, 1024)
-    with pytest.raises(ValueError, match="Cm"):
-        BT.bottleneck_tail(*_gpu(args, cuda_device, torch.bfloat16))
+    # Cm, then Co, not a multiple of the 64-column tile, in both dtypes;
+    # nothing launches
+    before = dict(kernels.launches)
+    for cm, co in ((96, 256), (128, 480)):
+        args = _tail_inputs(np.random.RandomState(0), 2, 8, cm, co)
+        for dtype in (torch.float32, torch.bfloat16):
+            with pytest.raises(ValueError, match="Cm"):
+                BT.bottleneck_tail(*_gpu(args, cuda_device, dtype))
+    assert kernels.launches == before
 
 
 def _tail_inputs_cuda(seed, k, bs, cm, co):
@@ -265,9 +269,10 @@ def test_bottleneck_f32_matches_plain(cuda_device, k, bs, cm, co):
     """The 3xTF32 kernel within 1e-4 of the plain version (TF32 off) from
     1 to 128 blocks: one launch of the wrapper, two kernels."""
     args = _tail_inputs_cuda(k * 7 + bs + cm, k, bs, cm, co)
-    before = kernels.launches["bottleneck_tail"]
+    before = dict(kernels.launches)
     got = BT.bottleneck_tail(*args)
-    assert kernels.launches["bottleneck_tail"] == before + 1
+    assert kernels.launches == {
+        **before, "bottleneck_tail_f32": before["bottleneck_tail_f32"] + 1}
     assert got.dtype == torch.float32 and got.shape == (k, bs, bs, co)
     torch.testing.assert_close(got, BT.bottleneck_tail_plain(*args),
                                rtol=1e-4, atol=1e-4)
@@ -284,6 +289,98 @@ def test_bottleneck_f32_ragged_rows(cuda_device, k, bs, cm, co):
     torch.testing.assert_close(BT.bottleneck_tail(*args),
                                BT.bottleneck_tail_plain(*args),
                                rtol=1e-4, atol=1e-4)
+
+
+# the bf16 row route's blocks: RN50's fused blocks at block 256 (layer2,
+# layer3, layer4), wide_resnet50_2's at block 128 (layer1, layer2, layer3)
+ROW_SHAPES = [(32, 128, 512), (16, 256, 1024), (8, 512, 2048),
+              (32, 128, 256), (16, 256, 512), (8, 512, 1024)]
+K2_KEYS = ("bottleneck_tail", "bottleneck_tail_rows", "bottleneck_tail_f32")
+
+
+def _bf16(args):
+    return [{k: v.bfloat16() for k, v in a.items()} if isinstance(a, dict)
+            else a.bfloat16() for a in args]
+
+
+@pytest.mark.parametrize("bs,cm,co", ROW_SHAPES)
+@pytest.mark.parametrize("k", [1, 2, 5, 16, 32, 65])
+def test_bottleneck_rows_matches_plain(cuda_device, k, bs, cm, co):
+    """The bf16 row route within 3e-2 of the plain version from 1 to 65
+    blocks: grids under one wave, and K bs^2 rows that end in a part of a
+    row tile (K = 1, 5 and 65 at bs 8); one launch of the wrapper, counted
+    under ``bottleneck_tail_rows`` alone."""
+    args = _bf16(_tail_inputs_cuda(k * 11 + bs + cm, k, bs, cm, co))
+    ref = BT.bottleneck_tail_plain(*args).float()
+    before = dict(kernels.launches)
+    got = BT.bottleneck_tail(*args)
+    assert kernels.launches == {
+        **before, "bottleneck_tail_rows": before["bottleneck_tail_rows"] + 1}
+    assert got.dtype == torch.bfloat16 and got.shape == (k, bs, bs, co)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), ref, rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("k,bs,cm,co", [(16, 16, 128, 640), (3, 12, 64, 192),
+                                        (5, 8, 128, 320), (2, 3, 256, 64),
+                                        (4, 16, 256, 1024)])
+def test_bottleneck_rows_other_widths(cuda_device, k, bs, cm, co):
+    """Blocks only the row route takes: Co not a multiple of 256 (640, 192,
+    320, 64), Cm 64, bs 12 and 3 (rows that end in a part of a tile), and
+    (16, 256), a wgmma-sized Cm at a bs the wgmma route does not hold."""
+    args = _bf16(_tail_inputs_cuda(k + bs + co, k, bs, cm, co))
+    assert BT.route(torch.bfloat16, bs, cm, co) == "bottleneck_tail_rows"
+    torch.testing.assert_close(BT.bottleneck_tail(*args).float(),
+                               BT.bottleneck_tail_plain(*args).float(),
+                               rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("bs,cm,co", [(16, 128, 512), (8, 256, 1024),
+                                      (8, 128, 512)])
+@pytest.mark.parametrize("k", [8, 64])
+def test_bottleneck_rows_at_wgmma_blocks(cuda_device, k, bs, cm, co):
+    """The row route forced at the wgmma route's blocks (the private entry
+    ``chip_smoke.py`` times it through) agrees with the plain version and
+    the wgmma route, each counted under its own key."""
+    args = _bf16(_tail_inputs_cuda(k + cm, k, bs, cm, co))
+    before = dict(kernels.launches)
+    rows = BT._bottleneck_tail_rows(*args).float()
+    wgmma = BT.bottleneck_tail(*args).float()
+    assert kernels.launches == {
+        **before, "bottleneck_tail": before["bottleneck_tail"] + 1,
+        "bottleneck_tail_rows": before["bottleneck_tail_rows"] + 1}
+    ref = BT.bottleneck_tail_plain(*args).float()
+    for got in (rows, wgmma):
+        torch.testing.assert_close(got, ref, rtol=3e-2, atol=3e-2)
+
+
+def test_bottleneck_rows_weight_update_in_place(cuda_device):
+    """On the row route too the prepared weights follow an in-place update
+    of w3 between two calls."""
+    gpu = _bf16(_tail_inputs_cuda(9, 4, 32, 128, 512))
+    first = BT.bottleneck_tail(*gpu)
+    gpu[6].mul_(-1.5)
+    second = BT.bottleneck_tail(*gpu)
+    ref = BT.bottleneck_tail_plain(*gpu).float()
+    torch.testing.assert_close(second.float(), ref, rtol=3e-2, atol=3e-2)
+    assert not torch.allclose(first.float(), ref, rtol=3e-2, atol=3e-2)
+
+
+def test_bottleneck_launches_by_route(cuda_device):
+    """Each launch lands on its route's key and no other: bf16 (16, 128,
+    512) on the wgmma route, bf16 (32, 128, 512) on the row route, fp32 on
+    the fp32 route."""
+    cases = [((16, 128, 512), torch.bfloat16, "bottleneck_tail"),
+             ((32, 128, 512), torch.bfloat16, "bottleneck_tail_rows"),
+             ((16, 128, 512), torch.float32, "bottleneck_tail_f32"),
+             ((32, 128, 512), torch.float32, "bottleneck_tail_f32")]
+    for (bs, cm, co), dtype, key in cases:
+        args = _tail_inputs_cuda(bs, 2, bs, cm, co)
+        args = _bf16(args) if dtype == torch.bfloat16 else args
+        assert BT.route(dtype, bs, cm, co) == key
+        before = dict(kernels.launches)
+        BT.bottleneck_tail(*args)
+        assert kernels.launches == {**before, key: before[key] + 1}, key
 
 
 def _ladder_rn50(device, dtype, block, frames, draws):
@@ -303,24 +400,24 @@ def _ladder_rn50(device, dtype, block, frames, draws):
     outs, counts, tails = [], [], []
     for frame, d in zip(frames, draws):
         d = None if d is None else tuple(x.to(device) for x in d)
-        before = kernels.launches["bottleneck_tail"]
+        before = dict(kernels.launches)
         outs.append(model(frame.to(device, dtype), d).float().cpu())
         counts.append(model.policy_meta["num_exec"])
-        tails.append(kernels.launches["bottleneck_tail"] - before)
+        tails.append({k: kernels.launches[k] - before[k] for k in K2_KEYS})
     return outs, counts, tails
 
 
 @pytest.mark.parametrize("block,dtype,per_frame,tol", [
-    (256, torch.bfloat16, 0, 3e-2), (256, torch.float32, 10, 1e-3),
+    (256, torch.bfloat16, 10, 3e-2), (256, torch.float32, 10, 1e-3),
     (128, torch.bfloat16, 8, 3e-2), (128, torch.float32, 8, 1e-3)])
 def test_rn50_ladder_frames_by_block_size(cuda_device, monkeypatch, block,
                                           dtype, per_frame, tol):
     """RN50 ladder frames on the card against the CPU run (plain versions),
     within ``tol`` of the largest |CPU output| (bf16: 3e-2; fp32: 1e-3, a
     3-frame clip through the whole net), with K2's launches per executed
-    frame: at block 256 the bf16 kernel takes none of the fused blocks,
-    which run unfused (0), the fp32 kernel all of layers 2-4 (3 + 5 + 2);
-    at block 128 both take layers 2-3 (3 + 5)."""
+    frame by route: at block 256 layers 2-4 (3 + 5 + 2), on the row route in
+    bf16; at block 128 layers 2-3 (3 + 5), on the wgmma route in bf16; fp32
+    on its own route."""
     from blockcopy_tpu_torch.policy import net as policy_net
     from blockcopy_tpu_torch.tools.measure import synthetic_frames
     monkeypatch.setattr(policy_net, "COMPUTE_DTYPE", torch.float32)
@@ -338,7 +435,9 @@ def test_rn50_ladder_frames_by_block_size(cuda_device, monkeypatch, block,
     gpu, counts, tails = _ladder_rn50("cuda", dtype, block, frames, draws)
     cpu, cpu_counts, _ = _ladder_rn50("cpu", dtype, block, frames, draws)
     assert counts == cpu_counts == [gh * gw, 1, gh * gw - 1]
-    assert tails == [per_frame] * 3
+    key = ("bottleneck_tail_f32" if dtype == torch.float32 else
+           "bottleneck_tail" if block == 128 else "bottleneck_tail_rows")
+    assert tails == [{k: per_frame if k == key else 0 for k in K2_KEYS}] * 3
     for a, b in zip(gpu, cpu):
         assert torch.isfinite(a).all()
         assert (a - b).abs().max().item() <= tol * b.abs().max().item()
@@ -359,7 +458,7 @@ def test_detection_step_matches_cpu(cuda_device, monkeypatch):
     gpu = detection_clip("cuda")
     used = {k: kernels.launches[k] - before[k] for k in before}
     cpu = detection_clip("cpu")
-    assert used["halo_strips"] == 27 and used["bottleneck_tail"] == 6
+    assert used["halo_strips"] == 27 and used["bottleneck_tail_f32"] == 6
     grids, canvas_err, dets_err = compare_clips(gpu, cpu)
     assert grids and canvas_err <= 1e-3
     assert None not in dets_err and max(dets_err) <= 1e-3
@@ -379,7 +478,9 @@ def test_csp_full_depth_launches(cuda_device, dtype):
     state = st.first_step(params, st.init_state(params, seed=1), frames[0])
     state = st.step(params, state, frames[1])
     used = {k: kernels.launches[k] - before[k] for k in before}
-    assert used["halo_strips"] == 26 and used["bottleneck_tail"] == 16
+    key = ("bottleneck_tail" if dtype == torch.bfloat16
+           else "bottleneck_tail_f32")
+    assert used["halo_strips"] == 26 and used[key] == 16
     assert bool(torch.isfinite(state["dets"]).all())
 
 
@@ -419,15 +520,18 @@ def test_csp_ladder_frames(cuda_device, dtype):
     for clip in range(2):
         model.reset_temporal()
         for t, frame in enumerate(frames, start=1):
-            _check_ladder_frame(model, frame, t, check_syncs=clip == 1)
+            _check_ladder_frame(model, frame, t, check_syncs=clip == 1,
+                                dtype=dtype)
     meta = model.policy_meta
     assert isinstance(meta["information_gain"], torch.Tensor)
     assert meta["information_gain"].device.type == "cuda"
 
 
-def _check_ladder_frame(model, frame, t, check_syncs):
-    """One ``CSPBlockCopy`` frame: its syncs (``check_syncs``), launches,
-    gain tensors and boxes."""
+def _check_ladder_frame(model, frame, t, check_syncs, dtype):
+    """One ``CSPBlockCopy`` frame: its syncs (``check_syncs``), launches
+    (K2 on the route of ``dtype``), gain tensors and boxes."""
+    key = ("bottleneck_tail" if dtype == torch.bfloat16
+           else "bottleneck_tail_f32")
     before = dict(kernels.launches)
     boxes, syncs, where = _frame_syncs(lambda: model(frame))
     meta = model.policy_meta
@@ -436,9 +540,9 @@ def _check_ladder_frame(model, frame, t, check_syncs):
     if check_syncs:
         assert syncs == want, (t, syncs, want, where)
     used = {k: kernels.launches[k] - before[k]
-            for k in ("halo_strips", "bottleneck_tail")}
-    assert used == ({"halo_strips": 13, "bottleneck_tail": 8} if count
-                    else {"halo_strips": 0, "bottleneck_tail": 0})
+            for k in ("halo_strips", key)}
+    assert used == ({"halo_strips": 13, key: 8} if count
+                    else {"halo_strips": 0, key: 0})
     assert meta["output_repr"].device.type == "cuda"
     assert meta["output_repr"].dtype == torch.float32
     if t == 1:
@@ -477,7 +581,8 @@ def test_detection_cli_on_card(cuda_device, extra):
     frames = 8 if "--speed-mode" in extra else executed[0]
     assert frames >= 2
     assert used["halo_strips"] == 13 * frames
-    assert used["bottleneck_tail"] == 8 * frames
+    key = "bottleneck_tail" if "--half" in extra else "bottleneck_tail_f32"
+    assert used[key] == 8 * frames
     assert all(0 <= res[f"MR_{k}"] <= 100 or res[f"MR_{k}"] == -1
                for k in ("Reasonable", "All"))
     assert res["fps"] > 0 and res["gmacs_per_image"] > 0
