@@ -22,11 +22,12 @@ from typing import Dict, Optional
 import torch
 
 from blockcopy_tpu_torch.ops.kernels.halo import (
-    gather_halo_strips,
+    gather_halo_strips_plain,
     halo_gather_canvas,
     halo_gather_canvas_plain,
     halo_gather_strips as halo_gather_strips_kernel,
     halo_gather_strips_plain,
+    halo_pieces,
 )
 
 # Halo storage and assembly (``blocked.py:52`` of the JAX package):
@@ -40,6 +41,7 @@ HALO_IMPL = os.environ.get("BLOCKCOPY_TPU_HALO", "strips")
 # Plain versions under the JAX package's names.
 halo_gather = halo_gather_canvas_plain
 halo_gather_strips = halo_gather_strips_plain
+gather_halo_strips = gather_halo_strips_plain
 
 __all__ = [
     "BlockPack", "ExecCtx", "alloc_canvas", "split_dense",
@@ -291,14 +293,14 @@ class ExecCtx:
 
     def exchange_pieces(self, name: str, x: BlockPack,
                         pad: int) -> Optional[Dict[str, torch.Tensor]]:
-        """Like ``exchange`` but returns the 8 halo pieces unassembled;
-        ``None`` under the full-canvas modes."""
+        """Like ``exchange`` but returns the 8 halo pieces unassembled
+        (the halo kernel's ``halo_pieces`` entry, one launch); ``None``
+        under the full-canvas modes."""
         if HALO_IMPL != "strips":
             return None
         strips = self.strip_canvas_for(name, x, pad)
         scatter_strips(strips, x, pad)
-        return gather_halo_strips(strips, x.idx, pad, self.n, self.gh,
-                                  self.gw)
+        return halo_pieces(strips, x.idx, pad, self.n, self.gh, self.gw)
 
     def store_blocks(self, name: str, x: BlockPack) -> torch.Tensor:
         """Scatter blocks into the named canvas; return it in block layout."""

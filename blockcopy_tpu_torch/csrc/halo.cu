@@ -1,9 +1,12 @@
 // Halo gather: assemble each executed block's halo-padded tile.
 //
 // Replaces the Pallas kernel blockcopy_tpu/ops/pallas/halo.py
-// (halo_gather_pallas :68, _kernel :34), and adds an entry point over the
+// (halo_gather_pallas :68, _kernel :34), and adds two entry points over the
 // edge-strip storage that the default halo mode keeps
-// (blockcopy_tpu/core/blocked.py:213-274).
+// (blockcopy_tpu/core/blocked.py:213-274): halo_gather_strips assembles the
+// padded tiles, halo_pieces writes the 8 pieces unassembled
+// (gather_halo_strips, blocked.py:234), the form the fused bottleneck tail
+// and the stem's plane pool read.
 //
 // out[k] (bs+2p, bs+2p, C) = interior <- center[k]; the 8 halo pieces
 // (top/bottom p rows, left/right p cols, 4 corners) <- the neighbour blocks
@@ -118,6 +121,41 @@ int launch(void* out, const void* src0, const void* src1, const void* center,
   return (int)cudaGetLastError();
 }
 
+// halo_pieces: CTA (k, j) copies piece j (top, bottom, left, right,
+// top_left, top_right, bottom_left, bottom_right) of block k from its
+// neighbour's strips.  Pieces j < 2 and the corners read the rows strip
+// (T+1, 2p, bs, U), left and right the cols strip (T+1, bs, 2p, U); each
+// piece is a (ph, pw) window of its neighbour's strip at (sy0, sx0).
+struct Pieces {
+  void* out[8];
+};
+
+template <typename U>
+__global__ void __launch_bounds__(kThreads)
+pieces_kernel(Pieces o, const U* __restrict__ rows, const U* __restrict__ cols,
+              const long long* __restrict__ idx, int bs, int p, int units,
+              int n, int gh, int gw) {
+  const int k = blockIdx.x, j = blockIdx.y;
+  // the piece's neighbour among TL, T, TR, L, R, BL, B, BR
+  const int slot = j == 0 ? 1 : j == 1 ? 6 : j == 2 ? 3 : j == 3 ? 4
+                 : j == 4 ? 0 : j == 5 ? 2 : j == 6 ? 5 : 7;
+  const long long b = neighbour(idx[k], slot, n, gh, gw);
+  const bool side = j == 2 || j == 3;
+  const int ph = side ? bs : p, pw = j < 2 ? bs : p;
+  // the neighbour above gives its bottom rows, the left one its right
+  // columns, and so on
+  const int sy0 = (j == 0 || j == 4 || j == 5) ? p : 0;
+  const int sx0 = j == 2 ? p : (j == 4 || j == 6) ? bs - p : 0;
+  const int sw = side ? 2 * p : bs, sh = side ? bs : 2 * p;
+  const U* src = (side ? cols : rows) + (size_t)b * sh * sw * units;
+  U* dst = static_cast<U*>(o.out[j]) + (size_t)k * ph * pw * units;
+  const int count = ph * pw * units;
+  for (int e = threadIdx.x; e < count; e += kThreads) {
+    const int u = e % units, px = e / units;
+    dst[e] = src[((size_t)(sy0 + px / pw) * sw + sx0 + px % pw) * units + u];
+  }
+}
+
 }  // namespace
 
 extern "C" int halo_gather_canvas(void* out, const void* canvas,
@@ -134,4 +172,29 @@ extern "C" int halo_gather_strips(void* out, const void* rows,
                                   int p, int n, int gh, int gw, void* stream) {
   return launch<true>(out, rows, cols, center, idx, k, bs, c_bytes, p, n, gh,
                       gw, stream);
+}
+
+// out: the 8 pieces' device pointers in PIECES order (top, bottom, left,
+// right, top_left, top_right, bottom_left, bottom_right), each 16-byte
+// aligned: top/bottom (K, p, bs, C), left/right (K, bs, p, C), corners
+// (K, p, p, C).  One launch of K x 8 CTAs.
+extern "C" int halo_pieces(void* const* out, const void* rows,
+                           const void* cols, const void* idx, int k, int bs,
+                           int c_bytes, int p, int n, int gh, int gw,
+                           void* stream) {
+  if (k <= 0) return (int)cudaGetLastError();
+  Pieces o;
+  for (int j = 0; j < 8; ++j) o.out[j] = out[j];
+  auto s = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto unit) {
+    using U = decltype(unit);
+    pieces_kernel<U><<<dim3(k, 8), kThreads, 0, s>>>(
+        o, static_cast<const U*>(rows), static_cast<const U*>(cols),
+        static_cast<const long long*>(idx), bs, p, c_bytes / (int)sizeof(U),
+        n, gh, gw);
+  };
+  if (c_bytes % 16 == 0) go(uint4{});
+  else if (c_bytes % 4 == 0) go(uint32_t{});
+  else go(uint16_t{});
+  return (int)cudaGetLastError();
 }

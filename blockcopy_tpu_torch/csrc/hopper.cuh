@@ -28,17 +28,18 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// A 2-D row-major tensor (outer rows of `inner` elements, rows `row_bytes`
-// apart) cut into boxes of box_outer rows x box_inner elements.  Boxes that
-// reach past the tensor are zero-filled on load and clipped on store.
+// A row-major tensor of `rank` (2 or 3) dimensions, innermost first: dims[0]
+// elements a row, the outer dimensions `strides` bytes apart, cut into
+// boxes of box[i] along dimension i.  Boxes that reach past the tensor are
+// zero-filled on load and clipped on store, in each dimension on its own.
 // Returns a cudaError_t value.  Pure host work: safe while a CUDA graph is
 // being captured.
-inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type,
-                     const void* base, uint64_t inner, uint64_t outer,
-                     uint64_t row_bytes, uint32_t box_inner,
-                     uint32_t box_outer, CUtensorMapSwizzle swizzle) {
-  static EncodeTiled encode = nullptr;
-  if (!encode) {
+inline int encode(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                  const void* base, const uint64_t* dims,
+                  const uint64_t* strides, const uint32_t* box,
+                  CUtensorMapSwizzle swizzle) {
+  static EncodeTiled encode_tiled = nullptr;
+  if (!encode_tiled) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
 #if CUDART_VERSION >= 12050
@@ -51,17 +52,46 @@ inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type,
     if (err != cudaSuccess) return (int)err;
     if (found != cudaDriverEntryPointSuccess || !fn)
       return (int)cudaErrorSymbolNotFound;
-    encode = reinterpret_cast<EncodeTiled>(fn);
+    encode_tiled = reinterpret_cast<EncodeTiled>(fn);
   }
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t steps[2] = {1, 1};
-  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims,
-                            strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  cuuint64_t d[3], st[2];
+  cuuint32_t bx[3], steps[3];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    bx[i] = box[i];
+    steps[i] = 1;
+    if (i) st[i - 1] = strides[i - 1];
+  }
+  const CUresult r = encode_tiled(
+      map, type, rank, const_cast<void*>(base), d, st, bx, steps,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A 2-D row-major tensor (outer rows of `inner` elements, rows `row_bytes`
+// apart) cut into boxes of box_outer rows x box_inner elements.
+inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type,
+                     const void* base, uint64_t inner, uint64_t outer,
+                     uint64_t row_bytes, uint32_t box_inner,
+                     uint32_t box_outer, CUtensorMapSwizzle swizzle) {
+  const uint64_t dims[2] = {inner, outer}, strides[1] = {row_bytes};
+  const uint32_t box[2] = {box_inner, box_outer};
+  return encode(map, type, 2, base, dims, strides, box, swizzle);
+}
+
+// A 3-D row-major tensor (outer x middle rows of `inner` elements) cut
+// into boxes of 1 x box_middle x box_inner.
+inline int encode_3d(CUtensorMap* map, CUtensorMapDataType type,
+                     const void* base, uint64_t inner, uint64_t middle,
+                     uint64_t outer, uint32_t box_inner,
+                     uint32_t box_middle, CUtensorMapSwizzle swizzle,
+                     int item_bytes) {
+  const uint64_t dims[3] = {inner, middle, outer};
+  const uint64_t strides[2] = {inner * item_bytes,
+                               inner * middle * item_bytes};
+  const uint32_t box[3] = {box_inner, box_middle, 1};
+  return encode(map, type, 3, base, dims, strides, box, swizzle);
 }
 
 // ---------------------------------------------------------- device side ----
@@ -183,6 +213,34 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
       "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+// 3-D box (c0 inner, c1, c2 outer) of `map`, as tma_load_2d and tma_store_2d
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+// Fetch a 3-D box of `map` into L2 only (no shared memory, no barrier).
+__device__ __forceinline__ void tma_prefetch_3d(const CUtensorMap* map,
+                                                int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.prefetch.tensor.3d.L2.global.tile [%0, {%1, %2, %3}];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {
@@ -367,6 +425,36 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (m64 x n128 fp32) += A (registers: each warp's 16 rows as the
+// mma.sync m16n8k16 A fragment) * B (desc, K-major)
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[64],
+                                              const unsigned (&a)[4],
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 

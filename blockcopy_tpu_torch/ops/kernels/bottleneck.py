@@ -13,10 +13,11 @@ a CUDA tensor launches the kernel or raises.
 The kernel has three routes, each counted under its own key of
 ``kernels.launches``: bf16 blocks of ``BF16_BLOCKS`` with Co a multiple of
 256 run the ``wgmma`` route (``bottleneck_tail``); every other bf16 block
-runs the row route (``bottleneck_tail_rows``: two GEMM launches over rows
-flattened across blocks, h2 in a bf16 scratch); fp32 runs the 3xTF32 route
-(``bottleneck_tail_f32``).  Between them the kernel takes any block with Cm
-and Co multiples of 64, a superset of what the JAX gate fuses.
+runs the row route (``bottleneck_tail_rows``: one launch over bands of a
+block's rows, h2 kept on chip, laid out by ``row_plan``); fp32 runs the
+3xTF32 route (``bottleneck_tail_f32``).  Between them the kernel takes any
+block with Cm and Co multiples of 64 (on the row route bs up to 128 and Cm
+up to 1024), a superset of what the JAX gate fuses.
 
 The kernel reads its weights in the layouts of ``prepare_tail_weights``.
 The wrapper prepares each parameter set once (``prepared_tail_weights``,
@@ -34,14 +35,18 @@ import torch.nn.functional as F
 
 from blockcopy_tpu_torch.ops import kernels
 from blockcopy_tpu_torch.ops.kernels import build
-
-PIECES = ("top", "bottom", "left", "right", "top_left", "top_right",
-          "bottom_left", "bottom_right")
+from blockcopy_tpu_torch.ops.kernels.halo import PIECES
 # (bs, Cm) of the blocks the bf16 wgmma route holds in shared memory, at
 # Co a multiple of 256; the row route takes the other bf16 blocks
 BF16_BLOCKS = ((16, 128), (8, 256), (8, 128))
 # the column tile and depth chunk of the row and fp32 routes
 TILE = 64
+# shared memory a row-route CTA may take: the card's 232,448 bytes less 1 KB
+# for its static barriers
+ROW_SMEM_MAX = 232448 - 1024
+# (ring stages, x / y buffers) of a row-route plan, the first that fits
+RING_FITS = ((8, 2), (8, 1), (6, 2), (6, 1), (4, 2), (4, 1), (3, 2), (3, 1),
+             (2, 1))
 
 
 def kernel_takes(dtype, bs: int, cm: int, co: int) -> bool:
@@ -60,6 +65,75 @@ def route(dtype, bs: int, cm: int, co: int) -> str:
     if (bs, cm) in BF16_BLOCKS and co % 256 == 0:
         return "bottleneck_tail"
     return "bottleneck_tail_rows"
+
+
+def _row_smem(bs, cm, mt, rows, np_, nt, stages, xbuf):
+    m = 64 * mt
+    band = -(-(rows + 2) * (bs + 2) * 144 // 1024) * 1024
+    return (stages * max(np_, 128) * 128 + cm * m * 2 + xbuf * nt * m * 2
+            + 2 * band + 1024)
+
+
+
+def row_plan(k: int, bs: int, cm: int, co: int, sms: int):
+    """The row route's launch plan (``csrc/bottleneck.cu`` ``band_plan``,
+    whose ``bottleneck_rows_plan`` entry the GPU tests hold this against):
+    a dict of ``mt`` (m64 tiles a band), ``rows`` (image rows a band),
+    ``bands`` (a block), ``cs`` (CTAs a cluster, splitting h2's and y's
+    channels), ``np`` (channels of a 3x3 pass), ``nt`` (of a 1x1 tile),
+    ``stages`` (weight ring), ``xbuf`` (x / y tile buffers) and ``smem``
+    (bytes), or None where no plan fits.  Of the (mt, cs) pairs whose
+    buffers fit, the one with the fewest product rows x columns a CTA issues
+    times waves of CTAs on ``sms`` SMs; ties to the smaller cs, then the
+    larger mt."""
+    best, best_cost = None, None
+    for cs in (1, 2, 4):
+        if cm % (64 * cs) or co % (64 * cs):
+            continue
+        for mt in (2, 1):
+            m = 64 * mt
+            rows = min(bs, m // bs)
+            if rows == 0 or (mt == 2 and bs * bs <= 64):
+                continue
+            n3, cap = cm // cs, 256 if mt == 1 else 128
+            widest = 64
+            while 2 * widest <= min(n3, cap):
+                widest *= 2
+            # the widest 3x3 pass, then 1x1 tiles of 128 channels a
+            # warpgroup, then the deepest ring, then two x / y buffers
+            fit = next(((np_, nt, st, xb)
+                        for np_ in (widest, widest // 2, widest // 4)
+                        if np_ >= 64
+                        for nt in ((256, 128) if mt == 1 else (128,))
+                        for st, xb in RING_FITS
+                        # a chunk's stages are released one chunk late
+                        if st >= 2 * (nt // 128)
+                        and _row_smem(bs, cm, mt, rows, np_, nt, st, xb)
+                        <= ROW_SMEM_MAX), None)
+            if fit is None:
+                continue
+            np_, nt = fit[:2]
+            bands = -(-bs // rows)
+            ctas = k * bands * cs
+            passes, tiles = -(-n3 // np_), -(-(co // cs) // nt)
+            cost = (-(-ctas // sms) * m
+                    * (9 * cm * passes * np_ + cm * tiles * nt))
+            if best_cost is None or cost < best_cost:
+                best_cost = cost
+                best = {"mt": mt, "rows": rows, "bands": bands, "cs": cs,
+                        "np": np_, "nt": nt, "stages": fit[2],
+                        "xbuf": fit[3],
+                        "smem": _row_smem(bs, cm, mt, rows, *fit)}
+    return best
+
+
+def row_plan_c(k: int, bs: int, cm: int, co: int, sms: int):
+    """``row_plan`` as the CUDA library computes it (card only)."""
+    out = (ctypes.c_int * 9)()
+    _lib().bottleneck_rows_plan(k, bs, cm, co, sms, out)
+    keys = ("mt", "rows", "bands", "cs", "np", "nt", "stages", "xbuf",
+            "smem")
+    return dict(zip(keys, out)) if out[8] else None
 
 
 def _padded(h1: torch.Tensor, pieces: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -128,6 +202,9 @@ def _lib():
             ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         lib.bottleneck_tail.restype = ctypes.c_int
+        lib.bottleneck_rows_plan.argtypes = [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        lib.bottleneck_rows_plan.restype = None
         lib._typed = True
     return lib
 
@@ -174,6 +251,9 @@ def _launch(h1, x, pieces, weights, rows):
         raise ValueError(f"the {dt} kernel takes Cm and Co multiples of "
                          f"{TILE}, got (bs {bs}, Cm {cm}), Co {co}")
     key = "bottleneck_tail_rows" if rows else route(dt, bs, cm, co)
+    if key == "bottleneck_tail_rows" and row_plan(k, bs, cm, co, 1) is None:
+        raise ValueError(f"the row route has no plan for (bs {bs}, Cm {cm}) "
+                         f"-> Co {co}: bs above 128 or Cm above 1024")
     x = x.to(dt).contiguous()
     piece = {name: pieces[name].to(dt).contiguous() for name in PIECES}
     w2p, s2p, b2p, w3p, s3p, b3p = prepared_tail_weights(*weights, dt)
@@ -189,8 +269,8 @@ def _launch(h1, x, pieces, weights, rows):
     for name, v, c in zip(("s2", "b2", "s3", "b3"), bn, (cm, cm, co, co)):
         _expect(name, v, (c,), dt, dev)
     y = torch.empty_like(x)
-    # h2 between the two launches of the fp32 and row routes
-    scratch = None if key == "bottleneck_tail" else torch.empty(
+    # h2 between the two launches of the fp32 route
+    scratch = None if key != "bottleneck_tail_f32" else torch.empty(
         (k, bs * bs, cm), dtype=dt, device=dev)
     tensors = [h1, x, *(piece[name] for name in PIECES), w2p, w3p, *bn, y]
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])

@@ -1,12 +1,14 @@
 """Halo gather: the CUDA kernel ``csrc/halo.cu`` with its plain versions.
 
 Replaces the Pallas kernel ``blockcopy_tpu/ops/pallas/halo.py``
-(``halo_gather_pallas`` :68).  Two entry points:
+(``halo_gather_pallas`` :68).  Three entry points:
 
 * ``halo_gather_canvas`` over a full block-layout canvas
   (contract of ``blockcopy_tpu/core/blocked.py:halo_gather`` with center);
 * ``halo_gather_strips`` over edge-strip storage
-  (contract of ``blockcopy_tpu/core/blocked.py:halo_gather_strips``).
+  (contract of ``blockcopy_tpu/core/blocked.py:halo_gather_strips``);
+* ``halo_pieces``, the 8 pieces unassembled from edge-strip storage
+  (contract of ``blockcopy_tpu/core/blocked.py:gather_halo_strips``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
@@ -56,11 +58,11 @@ def halo_gather_canvas_plain(canvas, pack_idx, pad, n, gh, gw, center=None):
     return torch.cat([row_top, row_mid, row_bot], dim=1)
 
 
-def gather_halo_strips(strips: Dict[str, torch.Tensor], pack_idx, pad, n, gh,
-                       gw) -> Dict[str, torch.Tensor]:
-    """The 8 halo pieces of every executed block from strip storage
-    (``blocked.py:234``): ``top``/``bottom`` (K,p,bs,C), ``left``/``right``
-    (K,bs,p,C), corners (K,p,p,C)."""
+def gather_halo_strips_plain(strips: Dict[str, torch.Tensor], pack_idx, pad,
+                             n, gh, gw) -> Dict[str, torch.Tensor]:
+    """Plain version of ``halo_pieces``: the 8 halo pieces of every executed
+    block from strip storage (``blocked.py:234``): ``top``/``bottom``
+    (K,p,bs,C), ``left``/``right`` (K,bs,p,C), corners (K,p,p,C)."""
     p = pad
     rows, cols = strips["rows"], strips["cols"]
     if rows.shape[1] != 2 * p:
@@ -82,7 +84,7 @@ def gather_halo_strips(strips: Dict[str, torch.Tensor], pack_idx, pad, n, gh,
 def halo_gather_strips_plain(strips, pack_idx, pad, n, gh, gw, center):
     """Plain version: assemble padded blocks from strip storage
     (``blocked.py:263``); same result as ``halo_gather_canvas_plain``."""
-    h = gather_halo_strips(strips, pack_idx, pad, n, gh, gw)
+    h = gather_halo_strips_plain(strips, pack_idx, pad, n, gh, gw)
     row_top = torch.cat([h["top_left"], h["top"], h["top_right"]], dim=2)
     row_mid = torch.cat([h["left"], center, h["right"]], dim=2)
     row_bot = torch.cat([h["bottom_left"], h["bottom"], h["bottom_right"]],
@@ -138,8 +140,11 @@ def _lib():
             ctypes.c_void_p]
         lib.halo_gather_strips.argtypes = [ctypes.c_void_p] * 5 + ints + [
             ctypes.c_void_p]
+        lib.halo_pieces.argtypes = [ctypes.c_void_p] * 4 + ints + [
+            ctypes.c_void_p]
         lib.halo_gather_canvas.restype = ctypes.c_int
         lib.halo_gather_strips.restype = ctypes.c_int
+        lib.halo_pieces.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -178,4 +183,47 @@ def halo_gather_strips(strips, pack_idx, pad, n, gh, gw, center):
         bs, c_bytes, pad, n, gh, gw, _stream())
     build.check(err, "halo_gather_strips")
     kernels.launches["halo_strips"] += 1
+    return out
+
+
+PIECES = ("top", "bottom", "left", "right", "top_left", "top_right",
+          "bottom_left", "bottom_right")
+
+
+def halo_pieces(strips, pack_idx, pad, n, gh,
+                gw) -> Dict[str, torch.Tensor]:
+    """The 8 halo pieces of every executed block from strip storage in one
+    launch: ``top``/``bottom`` (K,p,bs,C), ``left``/``right`` (K,bs,p,C),
+    corners (K,p,p,C), in the strips' dtype.  The pieces are contiguous,
+    16-byte aligned views of one buffer."""
+    rows, cols = strips["rows"], strips["cols"]
+    if rows.device.type in ("cpu", "meta"):
+        return gather_halo_strips_plain(strips, pack_idx, pad, n, gh, gw)
+    dev, dt, p = rows.device, rows.dtype, pad
+    if dev.type != "cuda":
+        raise ValueError(f"halo kernel needs CUDA tensors, got {dev}")
+    if dt not in _DTYPES:
+        raise ValueError(f"unsupported dtype {dt}")
+    if p <= 0:
+        raise ValueError(f"pad must be positive, got {p}")
+    total, bs, c = n * gh * gw, rows.shape[2], rows.shape[-1]
+    k = pack_idx.shape[0]
+    _check("rows", rows, dt, dev, (total + 1, 2 * p, bs, c))
+    _check("cols", cols, dt, dev, (total + 1, bs, 2 * p, c))
+    _check("idx", pack_idx, torch.int64, dev, (k,))
+    shapes = [(k, p, bs, c)] * 2 + [(k, bs, p, c)] * 2 + [(k, p, p, c)] * 4
+    align = 16 // rows.element_size()
+    starts, end = [], 0
+    for shape in shapes:
+        starts.append(end)
+        end += -(-(k * shape[1] * shape[2] * c) // align) * align
+    buf = torch.empty(end, dtype=dt, device=dev)
+    out = {name: buf[o:o + k * s[1] * s[2] * c].view(s)
+           for name, o, s in zip(PIECES, starts, shapes)}
+    ptrs = (ctypes.c_void_p * 8)(*[out[name].data_ptr() for name in PIECES])
+    err = _lib().halo_pieces(ptrs, _ptr(rows), _ptr(cols), _ptr(pack_idx), k,
+                             bs, c * rows.element_size(), p, n, gh, gw,
+                             _stream())
+    build.check(err, "halo_pieces")
+    kernels.launches["halo_pieces"] += 1
     return out

@@ -308,10 +308,10 @@ def device_times(fn, samples, inner):
     return times
 
 
-def tail_stage_ms(fn, kernel, calls=20):
-    """Device ms per call of ``fn`` in each stage of a two-launch K2 route,
-    ``kernel`` ``tail_f32`` (fp32) or ``tail_rows`` (bf16 row route):
-    ``<BM, true>`` is the 3x3 conv into h2, ``<BM, false>`` the 1x1 into y.
+def tail_stage_ms(fn, calls=20):
+    """Device ms per call of ``fn`` in each stage of K2's two-launch fp32
+    route (``tail_f32``): ``<BM, true>`` is the 3x3 conv into h2,
+    ``<BM, false>`` the 1x1 into y.
     Returns ``{"3x3": (ms, BM), "1x1": (ms, BM)}`` from the profiler's
     kernel records over ``calls`` calls, BM the row tiles it ran."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
@@ -323,7 +323,7 @@ def tail_stage_ms(fn, kernel, calls=20):
         torch.cuda.synchronize()
     out = {"3x3": [0.0, set()], "1x1": [0.0, set()]}
     for e in prof.events():
-        found = re.search(kernel + r"<(\d+), (true|false)>", e.name)
+        found = re.search(r"tail_f32<(\d+), (true|false)>", e.name)
         if e.device_type == DeviceType.CUDA and found:
             key = "3x3" if found.group(2) == "true" else "1x1"
             out[key][0] += e.time_range.elapsed_us() / 1e3 / calls

@@ -32,6 +32,8 @@ line holds:
 * ``kernels_per_step``: GPU kernel launches per step;
 * ``k2_launches_per_step``: the bottleneck-tail wrapper's launches per
   step, by route (``ops/kernels`` ``launches``);
+* ``halo_pieces_launches_per_step``: the halo kernel's ``halo_pieces``
+  launches per step (one per fused tail and one for the stem's plane pool);
 * ``top``: the kernels with the most device time per step, by name.
 
 Without a GPU it exits non-zero; if the trace holds no device events it
@@ -188,6 +190,8 @@ def main() -> int:
               "backbone": args.backbone, "block_size": args.block_size,
               "fused_bottleneck": swiftnet.FUSED_BOTTLENECK,
               "k2_launches_per_step": k2,
+              "halo_pieces_launches_per_step":
+                  kernels.launches["halo_pieces"] / steps,
               "wall_ms_per_step": wall_ms / steps,
               "device_busy_ms_per_step": None, "device_idle_share": None,
               "kernels_per_step": None, "top": None}

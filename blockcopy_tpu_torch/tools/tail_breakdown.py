@@ -2,7 +2,7 @@
 
     python3 -m blockcopy_tpu_torch.tools.tail_breakdown
 
-Builds ``csrc/bottleneck.cu`` three more times with its ablation switches
+Builds ``csrc/bottleneck.cu`` once more for each of its ablation switches
 (``TAIL_NO_1X1_STAGE``: stop once h2 is built and exchanged;
 ``TAIL_NO_3X3_PRODUCTS``: drop the 3x3 conv's products but keep its fragment
 loads, barriers and epilogue), times each build at the main path's two
@@ -22,10 +22,14 @@ launch.
 
 Then the bf16 row route (the route of every bf16 block the wgmma route
 does not hold: RN50 at block 256, the wide ResNets): at RN50's three
-block-256 shapes and K = 2, 16 and 32, each of its two stages' device time
-(the 3x3 conv into h2, the 1x1 into y; profiler) and the launch timed with
-the library's row-tile rule and with every stage on 128-row or on 64-row
-tiles (builds with ``TAIL_ROWS_BM=128`` and ``=64``): ``rows_stages``, us.
+block-256 shapes and K = 2, 16 and 32, its launch plan and the same three
+builds, giving ``rows_parts`` in us per launch:
+
+* ``3x3_products``  = full - no 3x3 products;
+* ``1x1_stage``     = full - no 1x1 stage (its products, x in, the
+  epilogue, y out);
+* ``staging_rest``  = the band staging by cp.async, the w2 boxes' ring,
+  the 3x3 epilogue and the exchange of h2 across the cluster.
 
 The variants are written to ``_build/ablation/``; the outputs of a variant
 are not checked (they are wrong by design).
@@ -42,13 +46,12 @@ import torch
 
 from blockcopy_tpu_torch.ops.kernels import bottleneck as BT
 from blockcopy_tpu_torch.ops.kernels import build
-from blockcopy_tpu_torch.tools.measure import device_ms, tail_stage_ms
+from blockcopy_tpu_torch.tools.measure import device_ms
 
 VARIANTS = {"full": [], "no_1x1_stage": ["-DTAIL_NO_1X1_STAGE"],
             "no_3x3_products": ["-DTAIL_NO_3X3_PRODUCTS"],
-            "f32_bm64": ["-DTAIL_F32_BM=64"], "f32_bm32": ["-DTAIL_F32_BM=32"],
-            "rows_bm128": ["-DTAIL_ROWS_BM=128"],
-            "rows_bm64": ["-DTAIL_ROWS_BM=64"]}
+            "f32_bm64": ["-DTAIL_F32_BM=64"], "f32_bm32": ["-DTAIL_F32_BM=32"]}
+PARTS = ("full", "no_1x1_stage", "no_3x3_products")
 SHAPES = [(16, 128, 512), (8, 256, 1024)]   # RN50 layer2, layer3
 K = 64
 F32_KS = (8, 64, 128)
@@ -58,11 +61,14 @@ ROW_SHAPES = [(32, 128, 512), (16, 256, 1024), (8, 512, 2048)]
 ROW_KS = (2, 16, 32)
 
 
-def _build_variants():
+def build_variants(names=tuple(VARIANTS)):
+    """The library built with each named variant's switches, all ``nvcc``
+    processes started together."""
     out = build.BUILD_DIR / "ablation"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, flags in VARIANTS.items():
+    for name in names:
+        flags = VARIANTS[name]
         lib = out / f"bottleneck-{name}.so"
         procs[name] = (lib, subprocess.Popen(
             [*build._compile_cmd("bottleneck", lib), *flags]))
@@ -106,11 +112,30 @@ def _launch_us(lib, name, ptrs, scratch, k, bs, cm, co, dtype_code):
     return device_ms(launch, samples=30) * 1e3
 
 
+def row_parts(libs, cases, gen):
+    """The row route's plan and parts (us per launch) at each ``(k, bs, cm,
+    co)`` of ``cases``, from the ``PARTS`` builds in ``libs``."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for k, bs, cm, co in cases:
+        tensors, ptrs = _inputs(bs, cm, co, gen, k)
+        t = {name: _launch_us(libs[name], name, ptrs, None, k, bs, cm, co, 2)
+             for name in PARTS}
+        products = t["full"] - t["no_3x3_products"]
+        out.append({"k": k, "bs": bs, "cm": cm, "co": co,
+                    "plan": BT.row_plan(k, bs, cm, co, sms),
+                    "full_us": t["full"], "3x3_products_us": products,
+                    "1x1_stage_us": t["full"] - t["no_1x1_stage"],
+                    "staging_rest_us": t["no_1x1_stage"] - products})
+        del tensors
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("tail_breakdown: CUDA is not available", file=sys.stderr)
         return 2
-    libs = _build_variants()
+    libs = build_variants()
     gen = torch.Generator("cuda").manual_seed(0)
     rows = []
     for bs, cm, co in SHAPES:
@@ -135,27 +160,11 @@ def main() -> int:
                                  cm, co, 0)
                 for name, lib in (("rule_us", "full"), ("bm64_us", "f32_bm64"),
                                   ("bm32_us", "f32_bm32"))}})
-    stages = []
-    for k in ROW_KS:
-        for bs, cm, co in ROW_SHAPES:
-            tensors, ptrs = _inputs(bs, cm, co, gen, k)
-            scratch = torch.empty((k, bs * bs, cm), dtype=torch.bfloat16,
-                                  device="cuda")
-            h2 = ctypes.c_void_p(scratch.data_ptr())
-            part = tail_stage_ms(
-                lambda: build.check(_launch(libs["full"], ptrs, h2, k, bs, cm,
-                                            co, 2), "bottleneck_tail (rows)"),
-                "tail_rows")
-            stages.append({"k": k, "bs": bs, "cm": cm, "co": co, **{
-                f"{key}_us": ms * 1e3 for key, (ms, _) in part.items()},
-                "rule_bm": {key: bm for key, (_, bm) in part.items()}, **{
-                name: _launch_us(libs[lib], lib, ptrs, h2, k, bs, cm, co, 2)
-                for name, lib in (("rule_us", "full"),
-                                  ("bm128_us", "rows_bm128"),
-                                  ("bm64_us", "rows_bm64"))}})
+    parts = row_parts(libs, [(k, *sh) for k in ROW_KS for sh in ROW_SHAPES],
+                      gen)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "tail_breakdown": rows, "f32_row_tiles": tiles,
-                      "rows_stages": stages}))
+                      "rows_parts": parts}))
     return 0
 
 

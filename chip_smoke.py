@@ -9,7 +9,10 @@ Phases (any failure raises and exits non-zero):
    ``blockcopy_tpu_torch/csrc`` built in parallel, with the build seconds;
 2. halo kernel (both entry points) against its plain versions, bitwise, at
    every main-path shape, bf16 and fp32, pad 1 and 3, on a partial grid with
-   padding slots; times at the main-path shapes;
+   padding slots; times at the main-path shapes; then its ``halo_pieces``
+   entry (the 8 pieces of every fused tail and of the stem's plane pool in
+   one launch) likewise at every (bs, C) of the block-128 and block-256
+   paths, timed at each path's shapes and capacity beside its bytes bound;
 3. bottleneck-tail kernel (bf16 3e-2, fp32 1e-4 with TF32 off) against its
    plain version at the RN50 layer2 and layer3 shapes at K = 8, 64 and 128
    (ladder mode's smallest capacity, the main path's, ladder mode's
@@ -18,17 +21,21 @@ Phases (any failure raises and exits non-zero):
    each fp32 stage's device time, and the per-frame sums at K = 64; then
    its bf16 row route (3e-2) at RN50's block-256 shapes at K = 2, 16 and 32,
    at ``wide_resnet50_2``'s block-128 shapes at K = 8, 64 and 128 and at Co
-   640, each timed beside its bound and plain version with its two stages'
-   device times, and forced at the wgmma route's shapes, timed beside it;
+   640, each with its launch plan (bands, cluster, pass width; one fused
+   launch) timed beside its bound and plain version, its parts (3x3
+   products, 1x1 stage, staging and the rest: ``tools/tail_breakdown.py``)
+   at the block-256 shapes at K = 2 and 16, and forced at the wgmma route's
+   shapes, timed beside it;
 4. the main path at full width: SwiftNet-RN50 BlockCopy fixed-capacity step,
    1024x2048 bf16, fast policy, block 128, target 0.5 (64 of 128 blocks),
    REINFORCE every 4th frame; ``init_state``, ``first_step`` and 12 steps,
    each step under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync
-   fails the run); launch counts (zeroed just before ``init_state``), blocks
-   per step, policy updates, ms/frame and peak memory; (4b) the same at
-   block 256, capacity 16 of 32: 10 K1 launches a frame
-   (``HALO_SHAPES_256``) and 10 K2 launches on its bf16 row route
-   (``TAIL_SHAPES_256``), none on its other routes;
+   fails the run); launch counts (zeroed just before ``init_state``: 12 K1
+   ``halo_strips``, 9 K1 ``halo_pieces`` and 8 K2 a frame), blocks per
+   step, policy updates, ms/frame and peak memory; (4b) the same at block
+   256, capacity 16 of 32: 10 K1 launches a frame (``HALO_SHAPES_256``), 11
+   ``halo_pieces`` (``PIECE_SHAPES_256``) and 10 K2 launches on its bf16
+   row route (``TAIL_SHAPES_256``), none on its other routes;
 5. modes: the step on the GPU against the same step on the CPU (plain
    versions) on a small RN50 clip, and the ``pallas`` halo mode (canvas
    entry point) against the ``strips`` mode, bitwise, on a small RN18 clip;
@@ -49,10 +56,10 @@ Phases (any failure raises and exits non-zero):
    ``ref`` policy) on SwiftNet-RN50 1024x2048 bf16, 2 clips of 8 frames:
    frame 1 of a clip executes all 128 blocks, every count is on the
    capacity ladder, exactly one host sync per frame (torch's sync debug
-   mode), 12 halo and 8 tail launches per executed frame (launch counts
-   zeroed just before the first clip), policy updates on frames 4 and 8
-   only; capacities, ms/frame and peak memory; (b) the semseg CLI
-   in-process at the same width, on the ladder engine and with
+   mode), 12 halo, 9 halo_pieces and 8 tail launches per executed frame
+   (launch counts zeroed just before the first clip), policy updates on
+   frames 4 and 8 only; capacities, ms/frame and peak memory; (b) the
+   semseg CLI in-process at the same width, on the ladder engine and with
    ``--speed-mode``, in bf16 (``--half``) and in fp32 (as it ships), launch
    counts zeroed just before each run; (c) the ladder engine on the GPU
    against the CPU (RN50 256x512 fp32, 4 frames, injected draws, counts 8,
@@ -60,7 +67,8 @@ Phases (any failure raises and exits non-zero):
    ladder frames at block 256 in bf16 and fp32 and at block 128 in fp32,
    and ``wide_resnet50_2`` at block 128 in bf16, with K2's launches per
    executed frame asserted by route (10 on the row route, 10 and 8 on the
-   fp32 route, 10 on the row route);
+   fp32 route, 10 on the row route), and one ``halo_pieces`` launch more
+   than K2's;
 9. detection, before the JSON lines: (a) ``DetectionStepper`` on CSP-R50 at
    full width and depth (``CSPConfig()``), 1024x2048 bf16, fast policy,
    block 128, target 0.3 (38 of 128 blocks), REINFORCE every 4th frame,
@@ -70,8 +78,9 @@ Phases (any failure raises and exits non-zero):
    ``first_step`` and 12 steps, each under ``set_sync_debug_mode("error")``;
    38 blocks a step, finite (100, 5) dets, at least 8 valid dets a frame,
    each inside the 1024x2048 image with its score at least ``score_thr``,
-   policy updates at frames 4, 8 and 12 only, and 13 K1 and 8 K2 launches a
-   frame (``DET_HALO_SHAPES``, ``DET_TAIL_SHAPES``; counts zeroed just
+   policy updates at frames 4, 8 and 12 only, and 13 K1 ``halo_strips``, 9
+   K1 ``halo_pieces`` and 8 K2 launches a frame (``DET_HALO_SHAPES``,
+   ``PIECE_SHAPES``, ``DET_TAIL_SHAPES``; counts zeroed just
    before ``init_state``); ms/frame, peak memory, valid dets a frame; (b) the
    detection step on the GPU against the CPU (plain versions), CSP
    ``stage_blocks=(1, 2, 2, 1)`` 256x512 fp32, capacity 4, 3 frames,
@@ -88,10 +97,11 @@ Phases (any failure raises and exits non-zero):
    bf16, the ``csp_cls`` bias 0, 2 clips of 8 frames: frame 1 of a clip
    executes all 128 blocks, every count is on the ladder, the host syncs of
    each frame are those ``_det_frame_syncs`` names (torch's sync debug
-   mode), 13 K1 and 8 K2 launches per executed frame (counts zeroed just
-   before the first clip), policy updates on frames 4 and 8 only, at least
-   8 boxes a frame inside the image with score >= 0.1; capacities, ms/frame,
-   peak memory and the host ms of painting the masks; (b) the detection
+   mode), 13 K1 ``halo_strips``, 9 ``halo_pieces`` and 8 K2 launches per
+   executed frame (counts zeroed just before the first clip), policy
+   updates on frames 4 and 8 only, at least 8 boxes a frame inside the
+   image with score >= 0.1; capacities, ms/frame, peak memory and the host
+   ms of painting the masks; (b) the detection
    CLI in-process (``--synthetic --res 1024 --clip-length 8``, 1 warmup and
    1 eval clip, the 0.3 config, an npz of random weights with the bias at
    0) on the ladder and with ``--speed-mode`` in bf16 and on the ladder in
@@ -127,8 +137,9 @@ Phases (any failure raises and exits non-zero):
    stepping its own clip through phase 4's path (SwiftNet-RN50 1024x2048
    bf16, capacity 64, REINFORCE every 4th frame), ``first_step`` and 12
    steps, the REINFORCE gradients averaged in one all_reduce a train
-   frame: 12 K1 and 8 K2 launches a frame on each rank (counts zeroed just
-   before each rank's ``init_state``), updates at frames 4, 8, 12, the
+   frame: 12 K1 ``halo_strips``, 9 ``halo_pieces`` and 8 K2 launches a
+   frame on each rank (counts zeroed just before each rank's
+   ``init_state``), updates at frames 4, 8, 12, the
    policy parameters bitwise equal across the ranks after every one, no
    host sync on a steady frame (``set_sync_debug_mode("error")``); the
    syncs each train frame reports, ms/frame per rank, the two ranks'
@@ -138,10 +149,10 @@ Phases (any failure raises and exits non-zero):
    too) with no host sync; (c) the averaged gradient of (a)'s first train
    frame against the mean of the two ranks' own gradients, taken in this
    process; (d) the semseg CLI at full width with ``--speed-mode
-   --num-devices 1`` under ``WORLD_SIZE=1`` (12 K1 and 8 K2 launches a
+   --num-devices 1`` under ``WORLD_SIZE=1`` (12 + 9 K1 and 8 K2 launches a
    frame), which takes the CLI's single-process path (a world of one joins
    no process group), and the detection stepper (phase 9's workload) on two gloo
-   ranks on ``cuda:0``: ``first_step`` and 8 steps, 13 K1 and 8 K2 a frame
+   ranks on ``cuda:0``: ``first_step`` and 8 steps, 13 + 9 K1 and 8 K2 a frame
    on each rank, the parameters bitwise equal after every update.
 
 It needs one CUDA GPU and the repository around it: without either it exits
@@ -174,6 +185,10 @@ HALO_SHAPES = ([(32, 48)] + [(32, 64)] * 3 + [(32, 128), (16, 256),
                (8, 512)] + [(4, 512)] * 2 + [(8, 128), (16, 128), (32, 128)])
 # main-path bottleneck-tail launches per step (bs, Cm, Co)
 TAIL_SHAPES = [(16, 128, 512)] * 3 + [(8, 256, 1024)] * 5
+# main-path halo_pieces launches per step (bs, C), pad 1: the stem's plane
+# pool (its s2d planes, 4 x 64 channels at bs / 4) and each fused tail's h1;
+# the detection path makes the same
+PIECE_SHAPES = [(32, 256)] + [(bs, cm) for bs, cm, _ in TAIL_SHAPES]
 N, GH, GW, K = 1, 8, 16, 64
 # the block-256 path (phase 4b): K1 launches per step (bs, C): the stem's
 # s2d planes, layer1's three 3x3s, the strided first blocks of layers 2-4
@@ -183,6 +198,7 @@ HALO_SHAPES_256 = ([(64, 48)] + [(64, 64)] * 3 + [(64, 128), (32, 256),
                    (16, 512), (16, 128), (32, 128), (64, 128)])
 TAIL_SHAPES_256 = [(32, 128, 512)] * 3 + [(16, 256, 1024)] * 5 \
     + [(8, 512, 2048)] * 2
+PIECE_SHAPES_256 = [(64, 256)] + [(bs, cm) for bs, cm, _ in TAIL_SHAPES_256]
 # block 256's capacities: ladder mode's smallest (quantum 1/16 of 32
 # blocks), the stepper's (target 0.5), every block
 K_256, TAIL_KS_256 = 16, (2, 16, 32)
@@ -190,6 +206,7 @@ K_256, TAIL_KS_256 = 16, (2, 16, 32)
 # blocks 1-3, layer3 blocks 1-5 (row route; timed at TAIL_KS)
 WIDE_TAIL_SHAPES = [(32, 128, 256)] * 2 + [(16, 256, 512)] * 3 \
     + [(8, 512, 1024)] * 5
+PIECE_SHAPES_WIDE = [(32, 256)] + [(bs, cm) for bs, cm, _ in WIDE_TAIL_SHAPES]
 # the wgmma route's blocks, where phase 3 also times the row route
 WGMMA_SHAPES = [(16, 128, 512), (8, 256, 1024), (8, 128, 512)]
 # detection path (phase 9) K1 launches per step (bs, C, pad) at K = 38, bf16;
@@ -261,6 +278,80 @@ def halo_bytes(bs, c, p, itemsize, k=K):
     halo = k * (4 * p * bs + 4 * p * p) * c
     out = k * (bs + 2 * p) ** 2 * c
     return (interior + halo + out) * itemsize + 8 * k
+
+
+def pieces_bytes(bs, c, p, itemsize, k=K):
+    """Bytes ``halo_pieces`` must move: each piece read once from its
+    neighbour's strip and written once, and the block indices."""
+    return 2 * k * (4 * p * bs + 4 * p * p) * c * itemsize + 8 * k
+
+
+def _pieces_case(gen, bs, c, p, dtype, n_set, k):
+    """Strip storage of the 1024x2048 block-128 grid (random strips, zero
+    sentinel) and ``k`` block indices, ``n_set`` executed and the rest
+    padding slots."""
+    from blockcopy_tpu_torch.core import grid as G
+    total = N * GH * GW
+    strips = {"rows": torch.randn((total + 1, 2 * p, bs, c), generator=gen,
+                                  device="cuda").to(dtype),
+              "cols": torch.randn((total + 1, bs, 2 * p, c), generator=gen,
+                                  device="cuda").to(dtype)}
+    for t in strips.values():
+        t[-1] = 0
+    order = torch.randperm(total, generator=gen, device="cuda")
+    grid = torch.zeros(total, dtype=torch.bool, device="cuda")
+    grid[order[:n_set]] = True
+    return strips, G.exec_indices(grid.view(N, GH, GW), k)
+
+
+def phase_pieces(gen):
+    """K1's ``halo_pieces`` entry bitwise against its plain version at
+    every shape of the block-128 and block-256 paths, bf16 and fp32, pad 1
+    and 3, on a partial grid with padding slots; then timed at each path's
+    shapes and capacity beside its bytes bound.  Returns the per-step sums
+    of the block-128 and the block-256 path."""
+    from blockcopy_tpu_torch.ops.kernels import halo as H
+    from blockcopy_tpu_torch.tools.measure import device_ms
+    shapes = sorted(set(PIECE_SHAPES + PIECE_SHAPES_256))
+    err = 0.0
+    for bs, c in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            for p in (1, 3):
+                strips, idx = _pieces_case(gen, bs, c, p, dtype, K - 4, K)
+                got = H.halo_pieces(strips, idx, p, N, GH, GW)
+                ref = H.gather_halo_strips_plain(strips, idx, p, N, GH, GW)
+                err = max([err] + [(got[n].float() - ref[n].float()).abs()
+                                   .max().item() for n in H.PIECES])
+                if not all(torch.equal(got[n], ref[n]) for n in H.PIECES):
+                    raise AssertionError(f"halo_pieces disagrees with its "
+                                         f"plain version at bs={bs} C={c} "
+                                         f"p={p} {dtype}")
+    log(f"[2] halo_pieces bitwise == plain at {len(shapes)} shapes x "
+        f"bf16/fp32 x pad 1/3 (partial grid, 4 padding slots): True")
+    out = {}
+    for name, path, k in (("block128", PIECE_SHAPES, K),
+                          ("block256", PIECE_SHAPES_256, K_256)):
+        rows = {}
+        for bs, c in sorted(set(path)):
+            strips, idx = _pieces_case(gen, bs, c, 1, torch.bfloat16, k, k)
+            args = (strips, idx, 1, N, GH, GW)
+            t = {"kernel": device_ms(lambda: H.halo_pieces(*args)),
+                 "plain": device_ms(
+                     lambda: H.gather_halo_strips_plain(*args)),
+                 "bound": pieces_bytes(bs, c, 1, 2, k) / HBM_BYTES_PER_S
+                 * 1e3}
+            rows[(bs, c)] = t
+            log(f"[2] halo_pieces bs={bs:2d} C={c:3d} bf16 K={k}: kernel "
+                f"{t['kernel']:.4f} ms (one launch), plain "
+                f"{t['plain']:.4f} ms, bound {t['bound']:.5f} ms (bytes, "
+                f"{pieces_bytes(bs, c, 1, 2, k) / 1e6:.3f} MB)")
+        out[name] = {key: sum(rows[sh][key] for sh in path)
+                     for key in ("kernel", "plain", "bound")}
+        log(f"[2] halo_pieces per {name} step at K={k} ({len(path)} "
+            f"launches): " + ", ".join(f"{key} {v:.4f} ms"
+                                       for key, v in out[name].items()))
+    out["err"] = err
+    return out
 
 
 def phase_halo(gen):
@@ -390,8 +481,7 @@ def phase_tail(gen):
                 if name == "bf16":
                     ctas = f"{2 * k} CTAs in clusters of 2"
                 else:
-                    stage = tail_stage_ms(lambda: BT.bottleneck_tail(*args),
-                                          "tail_f32")
+                    stage = tail_stage_ms(lambda: BT.bottleneck_tail(*args))
                     ctas = ", ".join(
                         f"{key} stage {ms:.4f} ms ({bm}-row tiles)"
                         for key, (ms, bm) in stage.items())
@@ -441,14 +531,18 @@ def phase_tail_rows(gen):
     """K2's bf16 row route against its plain version (3e-2,
     ``torch.allclose``, outputs finite) at RN50's block-256 shapes at
     ``TAIL_KS_256``, ``wide_resnet50_2``'s block-128 shapes at ``TAIL_KS``
-    and a Co that is no multiple of 256 (16, 128, 640): time per launch
-    beside its bound (989 TFLOP/s, 3.35 TB/s) and the plain version's, and
-    its two stages' device times (profiler); then the row route forced at
-    the wgmma route's blocks, timed beside the wgmma route at ``TAIL_KS``
-    (a reading; no route choice rests on it).  Returns the per-frame sums at
-    block 256, K = 16, and the largest error."""
+    and a Co that is no multiple of 256 (16, 128, 640): its launch plan,
+    time per launch beside its bound (989 TFLOP/s, 3.35 TB/s) and the
+    plain version's; its parts at the block-256 shapes at K = 2 and 16
+    (``tools/tail_breakdown.py``: two more builds with its ablation
+    switches); then the row route forced at the wgmma route's blocks, timed
+    beside the wgmma route at ``TAIL_KS`` (a reading; no route choice rests
+    on it).  Returns the per-frame sums at block 256, K = 16, and at the
+    wide shapes, K = 64, and the largest error."""
     from blockcopy_tpu_torch.ops.kernels import bottleneck as BT
-    from blockcopy_tpu_torch.tools.measure import device_ms, tail_stage_ms
+    from blockcopy_tpu_torch.tools import tail_breakdown as TBD
+    from blockcopy_tpu_torch.tools.measure import device_ms
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cases = ([(k, sh) for k in TAIL_KS_256
@@ -470,16 +564,19 @@ def phase_tail_rows(gen):
              "bound": max(t_ops, t_bytes) * 1e3,
              "by": "operations" if t_ops > t_bytes else "bytes"}
         rows[(k, bs, cm, co)] = t
-        stage = tail_stage_ms(lambda: BT.bottleneck_tail(*args), "tail_rows")
+        plan = BT.row_plan(k, bs, cm, co, sms)
         log(f"[3] tail rows K={k:3d} bs={bs} Cm={cm} Co={co} bf16: max abs "
             f"err {err:.3g} (rtol and atol 3e-2) ok; kernel {t['kernel']:.4f} ms "
             f"per launch, plain {t['plain']:.4f} ms, bound {t['bound']:.4f} "
             f"ms ({t['by']}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), "
             f"kernel at {t['bound'] / t['kernel']:.1%} of it, "
-            f"{flops / t['kernel'] / 1e9:.0f} TFLOP/s; "
-            + ", ".join(f"{key} stage {ms:.4f} ms ({bm}-row tiles)"
-                        for key, (ms, bm) in stage.items())
-            + f"; h2 scratch {k * bs * bs * cm * 2 / 1e6:.1f} MB")
+            f"{flops / t['kernel'] / 1e9:.0f} TFLOP/s; one fused launch of "
+            f"{k * plan['bands'] * plan['cs']} CTAs: bands of "
+            f"{plan['rows']} rows ({plan['bands']} a block, "
+            f"{64 * plan['mt']} product rows), clusters of {plan['cs']}, "
+            f"{plan['np']}-channel 3x3 passes, {plan['nt']}-channel 1x1 "
+            f"tiles, {plan['stages']} ring "
+            f"stages, {plan['xbuf']} x/y buffers, {plan['smem']} B shared")
         del args
     out = {}
     for name, shapes, k in (("block256", TAIL_SHAPES_256, K_256),
@@ -493,6 +590,16 @@ def phase_tail_rows(gen):
             f"launches): kernel {out[name]['kernel']:.4f} ms, plain "
             f"{out[name]['plain']:.4f} ms, bound {out[name]['bound']:.4f} ms "
             f"({out[name]['by']})")
+    libs = TBD.build_variants(TBD.PARTS)
+    for part in TBD.row_parts(libs, [(k, *sh) for k in (2, K_256)
+                                     for sh in sorted(set(TAIL_SHAPES_256))],
+                              gen):
+        log(f"[3] tail rows parts K={part['k']:3d} bs={part['bs']} "
+            f"Cm={part['cm']} Co={part['co']} (tools/tail_breakdown.py): "
+            f"full {part['full_us']:.2f} us, 3x3 products "
+            f"{part['3x3_products_us']:.2f} us, 1x1 stage "
+            f"{part['1x1_stage_us']:.2f} us, staging and the rest "
+            f"{part['staging_rest_us']:.2f} us")
     for k in TAIL_KS:
         for bs, cm, co in WGMMA_SHAPES:
             args, err = _rows_case(gen, k, bs, cm, co,
@@ -592,6 +699,7 @@ def phase_main():
                                        dtype, "cuda", train_interval=4)
     frames = synthetic_frames(frame_shape, steps + 1, dtype)
     per_frame = {"halo_strips": len(HALO_SHAPES), "halo_canvas": 0,
+                 "halo_pieces": len(PIECE_SHAPES),
                  "bottleneck_tail": len(TAIL_SHAPES), "mm_bf16": 0,
                  "mm_int8": 0}
     state, launches, ms, trained, _, peak = _drive_stepper(
@@ -604,7 +712,8 @@ def phase_main():
     log(f"[4] RN50 1024x2048 bf16: {steps} steps, no host sync, "
         f"{capacity} blocks/step, outputs {tuple(out.shape)} finite, "
         f"policy updated at frames {trained} (per frame: halo "
-        f"{len(HALO_SHAPES)}, bottleneck tail {len(TAIL_SHAPES)})")
+        f"{len(HALO_SHAPES)}, halo_pieces {len(PIECE_SHAPES)}, bottleneck "
+        f"tail {len(TAIL_SHAPES)})")
     return launches, _log_steps("4", ms, launches, peak), ms
 
 
@@ -624,6 +733,7 @@ def phase_main_256():
         raise AssertionError(f"block-256 capacity {stepper.capacity}")
     frames = synthetic_frames(frame_shape, steps + 1, dtype)
     per_frame = {"halo_strips": len(HALO_SHAPES_256),
+                 "halo_pieces": len(PIECE_SHAPES_256),
                  "bottleneck_tail_rows": len(TAIL_SHAPES_256)}
     state, launches, ms, trained, _, peak = _drive_stepper(
         "4b", stepper, params, frames, per_frame)
@@ -635,8 +745,8 @@ def phase_main_256():
     log(f"[4b] RN50 1024x2048 bf16 block 256: {steps} steps, no host sync, "
         f"{stepper.capacity} blocks/step, outputs {tuple(out.shape)} finite, "
         f"policy updated at frames {trained} (per frame: halo "
-        f"{len(HALO_SHAPES_256)}, bottleneck tail rows "
-        f"{len(TAIL_SHAPES_256)})")
+        f"{len(HALO_SHAPES_256)}, halo_pieces {len(PIECE_SHAPES_256)}, "
+        f"bottleneck tail rows {len(TAIL_SHAPES_256)})")
     med = _log_steps("4b", ms, launches, peak)
     return launches, {"ms": med, "peak_gib": peak}
 
@@ -760,6 +870,7 @@ def phase_ladder():
              for c in range(2)]
     ladder = set(capacity_ladder(128, settings["block_quantize_number_exec"]))
     per_exec = {"halo_strips": len(HALO_SHAPES),
+                "halo_pieces": len(PIECE_SHAPES),
                 "bottleneck_tail": len(TAIL_SHAPES)}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -848,9 +959,11 @@ def phase_cli():
         key = "bottleneck_tail" if "--half" in extra else \
             "bottleneck_tail_f32"
         if (launches["halo_strips"] != 16 * len(HALO_SHAPES)
+                or launches["halo_pieces"] != 16 * len(PIECE_SHAPES)
                 or launches[key] != 16 * len(TAIL_SHAPES)):
             raise AssertionError(f"CLI {name} launches {launches}, expected "
-                                 f"{len(HALO_SHAPES)} K1 and "
+                                 f"{len(HALO_SHAPES)} K1 strips, "
+                                 f"{len(PIECE_SHAPES)} K1 pieces and "
                                  f"{len(TAIL_SHAPES)} K2 a frame")
         line["launches"] = launches
         out[name] = line
@@ -876,7 +989,9 @@ def phase_block_sizes():
 
     torch.backends.cudnn.allow_tf32 = True
     shape = (1, 1024, 2048, 3)
-    k2 = ("bottleneck_tail", "bottleneck_tail_rows", "bottleneck_tail_f32")
+    # and the halo_pieces launches: one per fused tail and the stem's
+    k2 = ("halo_pieces", "bottleneck_tail", "bottleneck_tail_rows",
+          "bottleneck_tail_f32")
     out = {}
     for backbone, block, dtype, key, per_frame in (
             ("resnet50", 256, torch.bfloat16, "bottleneck_tail_rows", 10),
@@ -910,12 +1025,14 @@ def phase_block_sizes():
                 not bool(torch.isfinite(y.float()).all()):
             raise AssertionError(f"{backbone} block {block} {dtype}: outputs "
                                  f"{tuple(y.shape)} not finite")
-        want = [{k: per_frame if c and k == key else 0 for k in k2}
+        want = [{k: 0 if not c else per_frame if k == key
+                 else per_frame + 1 if k == "halo_pieces" else 0 for k in k2}
                 for c in counts]
         if tails != want or not counts[0]:
             raise AssertionError(f"{backbone} block {block} {dtype}: K2 "
                                  f"launches {tails}, expected {per_frame} "
-                                 f"{key} per executed frame")
+                                 f"{key} and {per_frame + 1} halo_pieces "
+                                 f"per executed frame")
         out[(backbone, block, str(dtype))] = launches
         del model, params
     return out
@@ -988,6 +1105,7 @@ def phase_detection():
     params["head"]["csp_cls"]["b"].zero_()
     frames = synthetic_frames(frame_shape, steps + 1, dtype)
     per_frame = {"halo_strips": len(DET_HALO_SHAPES), "halo_canvas": 0,
+                 "halo_pieces": len(PIECE_SHAPES),
                  "bottleneck_tail": len(DET_TAIL_SHAPES), "mm_bf16": 0,
                  "mm_int8": 0}
     state, launches, ms, trained, outs, peak = _drive_stepper(
@@ -1192,6 +1310,7 @@ def phase_detection_ladder():
              for c in range(2)]
     ladder = set(capacity_ladder(128, settings["block_quantize_number_exec"]))
     per_exec = {"halo_strips": len(DET_HALO_SHAPES),
+                "halo_pieces": len(PIECE_SHAPES),
                 "bottleneck_tail": len(DET_TAIL_SHAPES)}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1852,6 +1971,7 @@ def phase_parallel(main_ms):
 
     steps = 12
     per_frame = {"halo_strips": len(HALO_SHAPES),
+                 "halo_pieces": len(PIECE_SHAPES),
                  "bottleneck_tail": len(TAIL_SHAPES)}
     two = clip_parallel.make_group(2, ["cuda:0", "cuda:0"], backend="gloo")
     t0 = time.perf_counter()
@@ -1912,6 +2032,7 @@ def phase_parallel(main_ms):
     line = json.loads(buf.getvalue().strip().splitlines()[-1])
     if (torch.distributed.is_initialized() or line["fps"] != res["fps"]
             or cli_launches["halo_strips"] != 8 * len(HALO_SHAPES)
+            or cli_launches["halo_pieces"] != 8 * len(PIECE_SHAPES)
             or cli_launches["bottleneck_tail"] != 8 * len(TAIL_SHAPES)):
         raise AssertionError(f"[12d] CLI under WORLD_SIZE=1: {line}, "
                              f"launches {cli_launches}")
@@ -1919,6 +2040,7 @@ def phase_parallel(main_ms):
         f"{json.dumps(line)}; launches {cli_launches}")
 
     det_per_frame = {"halo_strips": len(DET_HALO_SHAPES),
+                     "halo_pieces": len(PIECE_SHAPES),
                      "bottleneck_tail": len(DET_TAIL_SHAPES)}
     det = clip_parallel.spawn(two, parallel_stepper_rank, "csp", 8,
                               timeout=600)
@@ -2038,6 +2160,7 @@ def main() -> int:
     smi = phase_card()
     gen = torch.Generator("cuda").manual_seed(0)
     halo = phase_halo(gen)
+    pieces = phase_pieces(gen)
     tail = phase_tail(gen)
     rows = phase_tail_rows(gen)
     launches, step_ms, main_ms = phase_main()
@@ -2093,6 +2216,23 @@ def main() -> int:
          "max_abs_err": halo["err"], "ms": halo["strips"],
          "plain_ms": halo["strips_plain"], "bound_ms": halo["bound"],
          "bound_by": "bytes", **common},
+        {"name": "halo_pieces", "source": source + "halo.cu",
+         "replaces": "blockcopy_tpu/ops/pallas/halo.py:69",
+         "path": "every fused tail and the stem's plane pool (main, "
+                 "block 256, ladder, detection)",
+         "launches": launches["halo_pieces"],
+         "block256_launches": launches_256["halo_pieces"],
+         "ladder_launches": ladder_launches["halo_pieces"],
+         "detection_launches": det_launches["halo_pieces"],
+         "detection_ladder_launches": dl_launches["halo_pieces"],
+         **parallel_keys(par, "halo_pieces"),
+         "block256_ms": pieces["block256"]["kernel"],
+         "block256_plain_ms": pieces["block256"]["plain"],
+         "block256_bound_ms": pieces["block256"]["bound"],
+         "max_abs_err": pieces["err"], "ms": pieces["block128"]["kernel"],
+         "plain_ms": pieces["block128"]["plain"],
+         "bound_ms": pieces["block128"]["bound"], "bound_by": "bytes",
+         **common},
         {"name": "halo_gather_canvas", "source": source + "halo.cu",
          "replaces": "blockcopy_tpu/ops/pallas/halo.py:69",
          "path": "pallas halo mode", "launches": canvas_launches,
@@ -2165,9 +2305,11 @@ def main() -> int:
          **parallel_keys(par, name), "route": "cuda",
          "matched": True, **mm[name]}
         for name in ("mm_bf16", "mm_int8")]
-    log(f"[7] halo and tail times are per main-path frame (sums over its "
-        f"launch shapes), their library_ms null: no single PyTorch call "
-        f"computes either function; bottleneck_tail_rows times are per "
+    log(f"[7] halo, halo_pieces and tail times are per main-path frame "
+        f"(sums over its launch shapes; halo_pieces block256_*: per "
+        f"block-256 frame at K = {K_256}), their library_ms null: no single "
+        f"PyTorch call computes any of them; bottleneck_tail_rows times are "
+        f"per "
         f"block-256 frame at K = {K_256} (wide_*: per wide_resnet50_2 frame "
         f"at K = {K}); mm times are per launch at "
         f"{'x'.join(map(str, MM_SHAPES[0]))}; main path {step_ms:.2f} "

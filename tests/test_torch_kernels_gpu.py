@@ -88,6 +88,50 @@ def _halo_full_grid(device, bs, c, pad, dtype, n_set, k, seed):
                                  idx.to(**dev), pad, n, gh, gw,
                                  center.to(**dev))
     assert torch.equal(got_c.cpu(), ref) and torch.equal(got_s.cpu(), ref)
+    got_p = H.halo_pieces({k: v.contiguous().to(**dev)
+                           for k, v in strips.items()}, idx.to(**dev), pad, n,
+                          gh, gw)
+    ref_p = H.gather_halo_strips_plain(strips, idx, pad, n, gh, gw)
+    assert all(torch.equal(got_p[name].cpu(), ref_p[name]) for name in ref_p)
+
+
+# every (bs, C) of the halo sites of the semseg paths at block 128 and 256
+# and of the detection path
+PIECE_SHAPES = sorted({(32, 48), (32, 64), (32, 128), (16, 256), (8, 512),
+                       (4, 512), (8, 128), (16, 128), (64, 48), (64, 64),
+                       (64, 128), (32, 256), (16, 512), (32, 768)})
+
+
+@pytest.mark.parametrize("bs,c", PIECE_SHAPES)
+def test_halo_pieces_matches_plain(cuda_device, bs, c):
+    """The ``halo_pieces`` entry bitwise against its plain version at pad 1
+    and 3, in fp32 and bf16, on two images' partial 3x4 grids with 3
+    padding slots (border neighbours read the zero sentinel): one launch a
+    call, every piece a contiguous 16-byte-aligned view of one buffer."""
+    n, gh, gw = 2, 3, 4
+    total = n * gh * gw
+    for pad in (1, 3):
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator().manual_seed(bs + c + pad)
+            rows = torch.randn((total + 1, 2 * pad, bs, c), generator=gen)
+            cols = torch.randn((total + 1, bs, 2 * pad, c), generator=gen)
+            rows[-1] = 0
+            cols[-1] = 0
+            strips = {"rows": rows.to(dtype), "cols": cols.to(dtype)}
+            grid = torch.rand((n, gh, gw), generator=gen) < 0.5
+            idx = TG.exec_indices(grid, int(grid.sum()) + 3)
+            ref = H.gather_halo_strips_plain(strips, idx, pad, n, gh, gw)
+            before = dict(kernels.launches)
+            got = H.halo_pieces({k: v.to(cuda_device)
+                                 for k, v in strips.items()},
+                                idx.to(cuda_device), pad, n, gh, gw)
+            assert kernels.launches == {
+                **before, "halo_pieces": before["halo_pieces"] + 1}
+            for name in H.PIECES:
+                t = got[name]
+                assert t.is_contiguous() and t.data_ptr() % 16 == 0
+                assert t.dtype == dtype
+                assert torch.equal(t.cpu(), ref[name]), (pad, dtype, name)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -304,12 +348,13 @@ def _bf16(args):
 
 
 @pytest.mark.parametrize("bs,cm,co", ROW_SHAPES)
-@pytest.mark.parametrize("k", [1, 2, 5, 16, 32, 65])
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 16, 17, 32, 65])
 def test_bottleneck_rows_matches_plain(cuda_device, k, bs, cm, co):
     """The bf16 row route within 3e-2 of the plain version from 1 to 65
-    blocks: grids under one wave, and K bs^2 rows that end in a part of a
-    row tile (K = 1, 5 and 65 at bs 8); one launch of the wrapper, counted
-    under ``bottleneck_tail_rows`` alone."""
+    blocks: plans with clusters of 1 to 4 CTAs and one or two m64 tiles a
+    band, and ragged K (1, 3, 17) whose plans differ from their
+    neighbours'; one launch of the wrapper, counted under
+    ``bottleneck_tail_rows`` alone, outputs finite."""
     args = _bf16(_tail_inputs_cuda(k * 11 + bs + cm, k, bs, cm, co))
     ref = BT.bottleneck_tail_plain(*args).float()
     before = dict(kernels.launches)
@@ -319,6 +364,35 @@ def test_bottleneck_rows_matches_plain(cuda_device, k, bs, cm, co):
     assert got.dtype == torch.bfloat16 and got.shape == (k, bs, bs, co)
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got.float(), ref, rtol=3e-2, atol=3e-2)
+
+
+def _tail_plain_f64(h1, x, pieces, w2, s2, b2, w3, s3, b3):
+    """``bottleneck_tail_plain`` with both products summed in float64 (one
+    rounding of each sum to bf16, then the same bf16 steps)."""
+    dt = h1.dtype
+    full = BT._padded(h1, pieces).permute(0, 3, 1, 2).double()
+    acc = torch.nn.functional.conv2d(full, w2.to(dt).double())
+    h2 = torch.clamp_min(acc.permute(0, 2, 3, 1).to(dt) * s2.to(dt)
+                         + b2.to(dt), 0)
+    y = torch.matmul(h2.double(), w3.to(dt)[:, :, 0, 0].t().double())
+    return torch.clamp_min(y.to(dt) * s3.to(dt) + b3.to(dt) + x.to(dt), 0)
+
+
+@pytest.mark.parametrize("k,bs,cm,co", [(16, 32, 128, 512),
+                                        (16, 16, 256, 1024),
+                                        (16, 8, 512, 2048),
+                                        (32, 8, 256, 1024)])
+def test_bottleneck_rows_rounds_as_pallas(cuda_device, k, bs, cm, co):
+    """The row route rounds where the Pallas kernel does (acc -> bf16, x s,
+    + b, + x, each to bf16): at least 99% of its outputs equal, bit for
+    bit, the result of exact sums taken through those roundings.  Only the
+    fp32 sums' order and the tensor cores' rounding differ; an epilogue that
+    fused a multiply and an add into one rounding fails it by far."""
+    args = _bf16(_tail_inputs_cuda(k * 3 + cm, k, bs, cm, co))
+    got = (BT._bottleneck_tail_rows(*args) if (bs, cm) in BT.BF16_BLOCKS
+           else BT.bottleneck_tail(*args))
+    same = (got == _tail_plain_f64(*args)).float().mean().item()
+    assert same >= 0.99, same
 
 
 @pytest.mark.parametrize("k,bs,cm,co", [(16, 16, 128, 640), (3, 12, 64, 192),
@@ -352,6 +426,22 @@ def test_bottleneck_rows_at_wgmma_blocks(cuda_device, k, bs, cm, co):
     ref = BT.bottleneck_tail_plain(*args).float()
     for got in (rows, wgmma):
         torch.testing.assert_close(got, ref, rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 16, 17, 32, 64, 128])
+def test_bottleneck_rows_plan_matches_mirror(cuda_device, k):
+    """The library's launch plan (``bottleneck_rows_plan``) equals the
+    Python mirror ``row_plan`` on this card's SM count, at every row-route
+    shape the tests and ``chip_smoke.py`` run, and on 132 SMs."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = ROW_SHAPES + [(16, 128, 640), (12, 64, 192), (8, 128, 320),
+                           (3, 256, 64), (16, 256, 1024), (16, 128, 512),
+                           (8, 256, 1024), (8, 128, 512), (64, 128, 256),
+                           (8, 1024, 2048), (4, 2048, 64)]
+    for bs, cm, co in shapes:
+        for n in (sms, 132):
+            assert BT.row_plan_c(k, bs, cm, co, n) == \
+                BT.row_plan(k, bs, cm, co, n), (k, bs, cm, co, n)
 
 
 def test_bottleneck_rows_weight_update_in_place(cuda_device):
