@@ -5,7 +5,9 @@
 Each annotated frame anchors a clip built by walking back
 ``clip_length - 1`` frames in ``leftImg8bit_sequence`` by file-name
 arithmetic, reversed so the annotated frame comes last.  Labels are encoded
-to train ids.  PIL is imported when an image is read.
+to train ids.  PIL is imported when an image is read through it; with
+``native=True`` and no labels the clip comes from the C++ IO library
+(``blockcopy_tpu_torch/native``) and PIL is never imported.
 """
 
 from __future__ import annotations
@@ -81,10 +83,13 @@ class CityscapesVid:
                  target_type: str = "semantic", transform=None,
                  clip_length: int = 20, has_labels: bool = True,
                  native: bool = False, native_size=None):
-        if native:
-            raise NotImplementedError(
-                "native clip decoding needs the C++ IO library "
-                "(blockcopy_tpu/native), not ported yet (ROADMAP Queue 1 item 15)")
+        """``native=True`` decodes clip frames with the C++ IO library
+        (threaded PNG decode + PIL-equivalent antialiased resize +
+        normalize in one pass; built at first use, a failed build raises);
+        ``native_size`` is the (h, w) target.  Labels always go through
+        PIL (palette exactness)."""
+        if native and native_size is None:
+            raise ValueError("native=True needs native_size")
         self.root = os.path.expanduser(root)
         self.mode = "gtFine"
         self.images_dir = os.path.join(self.root, "leftImg8bit", split)
@@ -97,6 +102,8 @@ class CityscapesVid:
         self.interval = 1
         self.has_labels = has_labels
         self.split = split
+        self.native = native
+        self.native_size = native_size
 
         if split not in ("train", "test", "val"):
             raise ValueError("split must be train/test/val")
@@ -141,27 +148,44 @@ class CityscapesVid:
         return img
 
     def __getitem__(self, index):
-        from PIL import Image
-
         rng_state = random.getstate()
-        img = Image.open(self.images[index]).convert("RGB")
-        target = Image.open(self.targets[index]) if self.has_labels else None
-        if self.transform is not None:
-            img, target = self.transform(img, target)
-        if target is not None:
-            target = self.encode_target(target)
+        if self.native and not self.has_labels:
+            # the whole clip, the annotated frame included, comes from the
+            # native decoder: no PIL decode and transform to throw away
+            img, target = None, None
+        else:
+            from PIL import Image
+
+            img = Image.open(self.images[index]).convert("RGB")
+            target = Image.open(self.targets[index]) \
+                if self.has_labels else None
+            if self.transform is not None:
+                img, target = self.transform(img, target)
+            if target is not None:
+                target = self.encode_target(target)
 
         fn = self.relative_dirs[index].replace("_leftImg8bit.png", "")
         parts = fn.split("_")
         prefix = "_".join(parts[:-1])
         frame_id = int(parts[-1])
-        clip = [img]
-        for i in range(1, self.clip_length):
-            this_fn = (f"{prefix}_{str(frame_id - i * self.interval).zfill(6)}"
-                       "_leftImg8bit.png")
-            clip.append(self._load(os.path.join(self.vid_dir, this_fn),
-                                   rng_state=rng_state))
-        clip = clip[::-1]
+        # the clip's earlier frames, newest first
+        earlier = [
+            os.path.join(self.vid_dir, f"{prefix}_"
+                         f"{str(frame_id - i * self.interval).zfill(6)}"
+                         "_leftImg8bit.png")
+            for i in range(1, self.clip_length)]
+        if self.native:
+            from blockcopy_tpu_torch import native as native_lib
+
+            h, w = self.native_size
+            arr = native_lib.decode_clip(
+                earlier[::-1] + [self.images[index]], w, h,
+                np.asarray(self.mean), np.asarray(self.std))
+            clip = list(arr)
+        else:
+            clip = [img] + [self._load(p, rng_state=rng_state)
+                            for p in earlier]
+            clip = clip[::-1]
         meta = {"relpath": self.relative_dirs[index]}
         if target is None:
             target = 0

@@ -1,4 +1,5 @@
-"""Build and load the CUDA kernels of ``blockcopy_tpu_torch/csrc``.
+"""Build and load the port's native libraries: the CUDA kernels of
+``blockcopy_tpu_torch/csrc`` and the host C++ of ``HOST_SOURCES``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own by
 ``nvcc`` for ``sm_90a`` into ``_build/<name>-<hash>.so`` at first use, then
@@ -6,6 +7,12 @@ loaded with ``ctypes``.  The file name carries a hash of the source and of
 the shared headers ``csrc/*.cuh``, so an edited source or header is rebuilt
 and a stale library is never loaded.  Tensor maps for TMA are encoded
 through ``cudaGetDriverEntryPoint``, so nothing links ``libcuda``.
+
+A host source (the clip IO library ``native/io.cpp``) is compiled the same
+way by ``g++`` with the JAX package's Makefile flags (``-O3``, no
+fast-math), its hash over that one file; it needs no card.  Every build
+writes a temporary file and renames it into place, so processes that build
+at once never load a half-written library.
 """
 
 from __future__ import annotations
@@ -27,6 +34,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas=-v"]
 
+# host C++ libraries: name -> source, built by g++ (linked with zlib)
+HOST_SOURCES = {"io": PKG / "native" / "io.cpp"}
+GXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall"]
+GXX_LIBS = ["-shared", "-lz", "-lpthread"]
+
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -42,23 +54,41 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found (put it on PATH)")
+
+
+def source(name: str) -> Path:
+    """The source file of library ``name``."""
+    return HOST_SOURCES.get(name, CSRC / f"{name}.cu")
+
+
 def _target(name: str) -> Path:
     digest = hashlib.sha256()
-    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    deps = [source(name)] if name in HOST_SOURCES \
+        else [source(name), *sorted(CSRC.glob("*.cuh"))]
+    for path in deps:
         digest.update(path.read_bytes())
     digest = digest.hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
 def _compile_cmd(name: str, out: Path) -> list:
-    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+    if name in HOST_SOURCES:
+        return [_gxx(), *GXX_FLAGS, str(source(name)), "-o", str(out),
+                *GXX_LIBS]
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(source(name))]
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:
-    """Compile every missing library among ``names``, one ``nvcc`` process
+    """Compile every missing library among ``names``, one compiler process
     per source, all started together.  Returns ``{name: compiler output}``
-    for the sources it compiled (``-Xptxas -v``: registers, shared memory
-    and spills of every kernel)."""
+    for the sources it compiled (for a ``.cu``, ``-Xptxas -v``: registers,
+    shared memory and spills of every kernel).  A failed compile raises
+    with the compiler's output."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in names:
@@ -78,7 +108,8 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         logs[name] = out
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            failed.append(f"nvcc failed for {name}.cu:\n{out}")
+            failed.append(f"{Path(proc.args[0]).name} failed for "
+                          f"{source(name).name}:\n{out}")
         else:
             os.replace(tmp, target)
     if failed:
@@ -87,7 +118,8 @@ def build(names: Iterable[str]) -> Dict[str, str]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built if needed."""
+    """The loaded library of ``name`` (``csrc/<name>.cu`` or a host
+    source), built if needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -115,8 +115,9 @@ def build_argparser():
     parser.add_argument("--fast", action="store_true")
     parser.add_argument("--single-clip-loop", action="store_true")
     parser.add_argument("--native-io", action="store_true",
-                        help="decode clips with the C++ IO library (not "
-                        "ported: refused)")
+                        help="decode Cityscapes clips with the C++ IO "
+                        "library (threaded PNG decode, resize and normalize "
+                        "in one pass; with --fast or --mode test no PIL)")
     parser.add_argument("--policy-checkpoint", type=str, default="",
                         help="npz path: load the online policy state before "
                         "warmup if present, save it after warmup")
@@ -135,20 +136,10 @@ def build_argparser():
     return parser
 
 
-def _refuse_unported(args) -> None:
-    """Paths of the JAX CLI this port does not have yet: raise, never run
-    something else in their place."""
-    if args.native_io:
-        raise NotImplementedError(
-            "--native-io needs the C++ IO library (blockcopy_tpu/native), "
-            "not ported yet (ROADMAP Queue 1 item 15)")
-
-
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_argparser().parse_args(argv)
     logger.info("Arguments: %s", args)
-    _refuse_unported(args)
     if args.num_devices > 1 or detect_env() is not None:
         if not args.speed_mode or args.block_policy == "static":
             raise ValueError("clip-parallel runs need --speed-mode (the "
@@ -197,14 +188,16 @@ def _run(argv, device, group):
         dataset_eval = DemoImageDataset(args.demo_dir, val_transform)
     elif args.cityscapes_dir:
         has_labels = not args.fast and args.mode != "test"
+        native_kw = dict(native=True, native_size=(args.res, args.res * 2)) \
+            if args.native_io else {}
         dataset_warmup = CityscapesVid(args.cityscapes_dir, split="train",
                                        transform=val_transform,
                                        clip_length=args.clip_length,
-                                       has_labels=has_labels)
+                                       has_labels=has_labels, **native_kw)
         dataset_eval = CityscapesVid(args.cityscapes_dir, split=args.mode,
                                      transform=val_transform,
                                      clip_length=args.clip_length,
-                                     has_labels=has_labels)
+                                     has_labels=has_labels, **native_kw)
     else:
         raise AttributeError("need --synthetic, --demo-dir or --cityscapes-dir")
 

@@ -2,14 +2,17 @@
 SwiftNet and CSP steppers they drive, a small detection clip and a small
 train step for GPU-CPU comparisons, device timing by CUDA graph replay, and
 the body of one clip-parallel rank with the group that records its gradient
-averages."""
+averages, and PNG files and Cityscapes-layout clips written without PIL."""
 
 from __future__ import annotations
 
 import contextlib
 import re
 import statistics
+import struct
 import time
+import zlib
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -469,3 +472,107 @@ def parallel_stepper_rank(group, model="swiftnet", steps=12):
             "grad_mean": _flat(keep.records[0][1]).cpu(),
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "capacity": stepper.capacity}
+
+
+# -- PNG files without PIL (the card's machine may have none) -----------------
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def png_bytes(img, palette=None) -> bytes:
+    """``img`` (uint8) as a PNG file: (H, W) gray, or palette indices when
+    ``palette`` ((n, 3) uint8 colours) is given; (H, W, 3) RGB.  8 bits, no
+    interlace, one IDAT.  Row y is filtered with filter ``y % 5`` (None,
+    Sub, Up, Average, Paeth), so a decoder meets every filter."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape[:2]
+    bpp = 1 if img.ndim == 2 else img.shape[2]
+    if bpp not in (1, 3) or (palette is not None and bpp != 1):
+        raise ValueError(f"png_bytes writes gray, palette or RGB, got "
+                         f"{img.shape}")
+    color = 2 if bpp == 3 else (0 if palette is None else 3)
+    rows = img.reshape(h, w * bpp).astype(np.int16)
+    zero_row = np.zeros((1, w * bpp), np.int16)
+    zero_px = np.zeros((h, bpp), np.int16)
+    up = np.vstack([zero_row, rows[:-1]])
+    left = np.hstack([zero_px, rows[:, :-bpp]])
+    upleft = np.hstack([zero_px, up[:, :-bpp]])
+    filt = np.arange(h) % 5
+    preds = (0, left, up, (left + up) // 2, _paeth(left, up, upleft))
+    raw = np.empty((h, w * bpp + 1), np.uint8)
+    raw[:, 0] = filt
+    for f, pred in enumerate(preds):
+        sel = filt == f
+        body = rows[sel] if f == 0 else rows[sel] - pred[sel]
+        raw[sel, 1:] = (body % 256).astype(np.uint8)
+    out = b"\x89PNG\r\n\x1a\n" + _chunk(
+        b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+    if palette is not None:
+        out += _chunk(b"PLTE", np.ascontiguousarray(palette, np.uint8)
+                      .tobytes())
+    return out + _chunk(b"IDAT", zlib.compress(raw.tobytes())) \
+        + _chunk(b"IEND", b"")
+
+
+def write_png(path, img, palette=None) -> None:
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_bytes(png_bytes(img, palette))
+
+
+def street_frame(height, width, clip, t, seed=0) -> np.ndarray:
+    """A (H, W, 3) uint8 frame of clip ``clip`` at time ``t``: a blocky
+    background with fine noise (fixed for the clip) and a square (160 px,
+    or half the height if less) sliding along the diagonal, inverted."""
+    rs = np.random.RandomState(seed + clip)
+    coarse = rs.randint(0, 240, ((height + 7) // 8, (width + 7) // 8, 3))
+    img = np.repeat(np.repeat(coarse, 8, 0), 8, 1)[:height, :width]
+    img = (img + rs.randint(0, 16, (height, width, 3))).astype(np.uint8)
+    side = min(160, height // 2)
+    s = (37 * (clip + t)) % (height - side)
+    img[s:s + side, s:s + side] = 255 - img[s:s + side, s:s + side]
+    return img
+
+
+def cityscapes_layout(root, height, width, clips=2, frames=4,
+                      splits=("train", "val"), labels=True, seed=0,
+                      city="synth"):
+    """Write a Cityscapes-layout directory under ``root``: per split,
+    ``clips`` annotated frames in ``leftImg8bit/<split>/<city>/`` (frame 19
+    of sequence c, as Cityscapes annotates the 20th frame of a snippet),
+    the ``frames`` frames ending there in ``leftImg8bit_sequence/``, and
+    with ``labels`` a gray ``gtFine`` label-id map (ids 0-33) per annotated
+    frame.  Returns the number of files written."""
+    root = Path(root)
+    written = 0
+    for si, split in enumerate(splits):
+        for c in range(clips):
+            clip = si * clips + c
+            for t in range(frames):
+                fid = 19 - (frames - 1 - t)
+                name = f"{city}_{c:06d}_{fid:06d}_leftImg8bit.png"
+                data = png_bytes(street_frame(height, width, clip, t, seed))
+                dirs = ["leftImg8bit_sequence"] + (
+                    ["leftImg8bit"] if t == frames - 1 else [])
+                for top in dirs:
+                    path = root / top / split / city / name
+                    path.parent.mkdir(parents=True, exist_ok=True)
+                    path.write_bytes(data)
+                    written += 1
+            if labels:
+                rs = np.random.RandomState(seed + 7919 + clip)
+                ids = np.repeat(np.repeat(
+                    rs.randint(0, 34, ((height + 15) // 16,
+                                       (width + 15) // 16)), 16, 0), 16, 1)
+                write_png(root / "gtFine" / split / city
+                          / f"{city}_{c:06d}_000019_gtFine_labelIds.png",
+                          ids[:height, :width])
+                written += 1
+    return written

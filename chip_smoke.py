@@ -153,7 +153,23 @@ Phases (any failure raises and exits non-zero):
    frame), which takes the CLI's single-process path (a world of one joins
    no process group), and the detection stepper (phase 9's workload) on two gloo
    ranks on ``cuda:0``: ``first_step`` and 8 steps, 13 + 9 K1 and 8 K2 a frame
-   on each rank, the parameters bitwise equal after every update.
+   on each rank, the parameters bitwise equal after every update;
+13. native clip IO and the semseg validation tool, before the JSON lines:
+   (a) the clip IO library (``blockcopy_tpu_torch/native/io.cpp``) built by
+   g++ (seconds, zlib version); a Cityscapes-layout directory of 1024x2048
+   PNGs written without PIL (``tools/measure.py``, every row filter), 2
+   clips of 4 frames a split; decode bitwise against ``(img/255 -
+   mean)/std``, gray and palette labels exact, the 20 frames decoded on 6
+   threads at 1024x2048 and resized to 512x1024 (ms a frame), ``nms`` and
+   ``soft_nms`` against ``ops/nms.py``; (b) the semseg CLI on that
+   directory with ``--native-io --fast --speed-mode --half
+   --model-backbone resnet50 --clip-length 4`` and PIL unimportable: 12 K1
+   ``halo_strips``, 9 ``halo_pieces`` and 8 K2 (``wgmma``) launches in
+   every frame, FPS beside 8b's, decode ms a frame beside phase 4's step;
+   (c) ``tools/validate_capability.py`` at ``--warmup-clips 2 --eval-clips
+   1 --clip-length 4``, 512x1024 fp32: RN18 ``ref`` (K1 only) and RN50
+   ``fast`` at amp 8 (K1 and K2's fp32 route), the keys of
+   ``VALIDATION.json``, rates in [0, 1], 2 frames evaluated.
 
 It needs one CUDA GPU and the repository around it: without either it exits
 non-zero and prints no result.
@@ -2051,6 +2067,224 @@ def phase_parallel(main_ms):
             "cli_launches": cli_launches, "detection": d}
 
 
+# phase 13's Cityscapes-layout directory: 2 clips of 4 frames a split,
+# 1024x2048 (20 files: 16 sequence frames and 4 annotated ones)
+NATIVE_CLIPS, NATIVE_FRAMES = 2, 4
+# the validation tool at reduced counts (13c)
+CAPABILITY_ARGV = ["--warmup-clips", "2", "--eval-clips", "1",
+                   "--clip-length", "4"]
+
+
+def _median_ms(fn, reps=3):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_native_io(root):
+    """(13a) the clip IO library: build seconds and the zlib finding; a
+    Cityscapes-layout directory of 1024x2048 PNGs written without PIL
+    (``tools/measure.py``: every row filter); same-size decode bitwise
+    against ``(img/255 - mean)/std``; gray and palette labels; the 20-frame
+    clip decoded on 6 threads at 1024x2048 and resized to 512x1024 (median
+    of 3); ``nms``/``soft_nms`` against ``ops/nms.py``."""
+    import ctypes
+    from blockcopy_tpu_torch import native
+    from blockcopy_tpu_torch.data.cityscapes_vid import CityscapesVid
+    from blockcopy_tpu_torch.ops.kernels import build
+    from blockcopy_tpu_torch.ops.nms import nms_mask, soft_nms_numpy
+    from blockcopy_tpu_torch.tools import measure
+
+    t0 = time.perf_counter()
+    build.build(["io"])
+    build_s = time.perf_counter() - t0
+    zlib = ctypes.CDLL("libz.so.1")
+    zlib.zlibVersion.restype = ctypes.c_char_p
+    zver = zlib.zlibVersion().decode()
+    t0 = time.perf_counter()
+    files = measure.cityscapes_layout(root, 1024, 2048, clips=NATIVE_CLIPS,
+                                      frames=NATIVE_FRAMES, labels=False)
+    write_s = time.perf_counter() - t0
+    paths = sorted(str(p) for p in Path(root).rglob("*_leftImg8bit.png"))
+    if len(paths) != files or files != 2 * NATIVE_CLIPS * (NATIVE_FRAMES + 1):
+        raise AssertionError(f"13a wrote {files} files: {paths}")
+
+    mean = np.asarray(CityscapesVid.mean, np.float32)
+    std = np.asarray(CityscapesVid.std, np.float32)
+    # the first annotated frame: split 0, clip 0, its last frame
+    first = Path(root) / "leftImg8bit" / "train" / "synth" / \
+        "synth_000000_000019_leftImg8bit.png"
+    img = measure.street_frame(1024, 2048, 0, NATIVE_FRAMES - 1)
+    got = native.decode_image(str(first), 2048, 1024, mean, std)
+    if not np.array_equal(got, (img.astype(np.float32) / 255.0 - mean)
+                          / std):
+        raise AssertionError(f"13a decode of {first} is not bitwise "
+                             "(img/255 - mean)/std")
+    rs = np.random.RandomState(0)
+    lab = rs.randint(0, 34, (256, 512)).astype(np.uint8)
+    for name, palette in (("gray", None),
+                          ("palette", rs.randint(0, 256, (256, 3)))):
+        path = Path(root) / f"label_{name}.png"
+        measure.write_png(path, lab, palette)
+        if not np.array_equal(native.decode_label(str(path)), lab):
+            raise AssertionError(f"13a {name} label decode")
+
+    clip = {}
+    for h, w in ((1024, 2048), (512, 1024)):
+        out = native.decode_clip(paths, w, h, mean, std, num_threads=6)
+        if out.shape != (len(paths), h, w, 3) or not np.isfinite(out).all():
+            raise AssertionError(f"13a clip decode {out.shape}")
+        clip[h] = _median_ms(lambda: native.decode_clip(
+            paths, w, h, mean, std, num_threads=6)) / len(paths)
+
+    nms_ok = 0
+    for seed in range(4):
+        rs = np.random.RandomState(seed)
+        xy = rs.rand(200, 2) * 400
+        dets = np.concatenate([xy, xy + rs.rand(200, 2) * 60 + 5,
+                               rs.rand(200, 1)], 1).astype(np.float32)
+        order = np.argsort(-dets[:, 4], kind="mergesort")
+        keep = native.nms(dets, 0.5)
+        mask = nms_mask(torch.from_numpy(dets[order, :4]),
+                        torch.from_numpy(dets[order, 4]), 0.5).numpy()
+        rows, kept = native.soft_nms(dets, 0.3, "linear", min_score=0.05)
+        nrows, nkept = soft_nms_numpy(dets, 0.3, "linear", min_score=0.05)
+        if (set(keep.tolist()) != set(order[mask].tolist())
+                or not np.array_equal(kept, nkept)
+                or not np.allclose(rows, nrows, rtol=1e-5, atol=1e-6)):
+            raise AssertionError(f"13a NMS disagrees with ops/nms.py "
+                                 f"(seed {seed})")
+        nms_ok += 1
+    log(f"[13a] clip IO library built in {build_s:.2f} s (g++ "
+        f"{' '.join(build.GXX_FLAGS)}; zlib: <zlib.h> found, libz "
+        f"{zver} linked); {files} 1024x2048 PNGs written without PIL in "
+        f"{write_s:.1f} s; decode bitwise against (img/255 - mean)/std, "
+        f"gray and palette labels exact; {len(paths)}-frame clip on 6 "
+        f"threads: {clip[1024]:.2f} ms a frame at 1024x2048, "
+        f"{clip[512]:.2f} ms a frame resized to 512x1024 (median of 3); "
+        f"nms and soft_nms agree with ops/nms.py on {nms_ok} sets")
+    return {"build_s": build_s, "zlib": zver, "decode_ms": clip[1024],
+            "decode_512_ms": clip[512]}
+
+
+def phase_native_cli(root, synthetic_fps, step_ms):
+    """(13b) the semseg CLI in-process on the 13a directory with
+    ``--native-io --fast --speed-mode --half --model-backbone resnet50
+    --clip-length 4`` and PIL unimportable: 2 + 2 clips of 4 frames, 12 K1
+    ``halo_strips``, 9 ``halo_pieces`` and 8 K2 (``wgmma`` route) launches
+    a frame (counts zeroed just before); FPS beside phase 8b's synthetic
+    CLI, and the decode's ms a frame (the dataset's ``decode_clip`` calls,
+    on the loader's threads) beside phase 4's step."""
+    import contextlib
+    import io
+    from blockcopy_tpu_torch import native
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.tasks.semseg import eval as cli
+
+    torch.backends.cudnn.allow_tf32 = True
+    argv = ["--cityscapes-dir", str(root), "--native-io", "--fast",
+            "--speed-mode", "--half", "--model-backbone", "resnet50",
+            "--clip-length", str(NATIVE_FRAMES), "--model-checkpoint", ""]
+    decode = native.decode_clip
+    spent = []
+
+    def timed(paths, *a, **kw):
+        t0 = time.perf_counter()
+        out = decode(paths, *a, **kw)
+        spent.append(((time.perf_counter() - t0) * 1e3, len(paths)))
+        return out
+
+    blocked = {k: sys.modules.get(k) for k in ("PIL", "PIL.Image")}
+    buf = io.StringIO()
+    native.decode_clip = timed
+    sys.modules.update({k: None for k in blocked})
+    kernels.reset_launches()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = cli.main(argv)
+    finally:
+        native.decode_clip = decode
+        for k, v in blocked.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+    launches = dict(kernels.launches)
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    frames = 2 * NATIVE_CLIPS * NATIVE_FRAMES
+    per_frame = {"halo_strips": len(HALO_SHAPES),
+                 "halo_pieces": len(PIECE_SHAPES),
+                 "bottleneck_tail": len(TAIL_SHAPES),
+                 "bottleneck_tail_rows": 0, "bottleneck_tail_f32": 0}
+    decode_ms = sum(ms for ms, _ in spent) / sum(n for _, n in spent)
+    log(f"[13b] CLI {' '.join(argv[2:])} on a Cityscapes-layout directory, "
+        f"PIL unimportable: {json.dumps(line)}; launches {launches} over "
+        f"{frames} frames; FPS {line['fps']:.2f} against phase 8b's "
+        f"synthetic speed-mode {synthetic_fps:.2f}; decode "
+        f"{decode_ms:.2f} ms a frame ({len(spent)} clips on the loader's "
+        f"threads) against phase 4's step {step_ms:.2f} ms a frame")
+    if (line["fps"] != res["fps"] or not line["fps"] > 0
+            or "Mean IoU" in line or len(spent) != 2 * NATIVE_CLIPS
+            or any(launches[k] != frames * n for k, n in per_frame.items())):
+        raise AssertionError(f"13b CLI {line}, launches {launches}, "
+                             f"decodes {spent}")
+    return {"fps": line["fps"], "decode_ms": decode_ms,
+            "launches": launches}
+
+
+def phase_capability():
+    """(13c) the semseg validation tool at reduced counts (2 warmup clips,
+    1 eval clip, 4 frames), 512x1024 fp32, launch counts zeroed just before
+    each run: RN18 ``ref`` launches K1 only; RN50 ``fast`` at amp 8 K1 and
+    K2 on its fp32 route.  The JSON has the keys of ``VALIDATION.json``,
+    every rate lies in [0, 1], 2 frames are evaluated."""
+    import contextlib
+    import io
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.tools import validate_capability as V
+
+    torch.backends.cudnn.allow_tf32 = True
+    keys = list(json.loads((ROOT / "VALIDATION.json").read_text()))
+    out = {}
+    for name, extra in (("resnet18", []),
+                        ("resnet50", ["--backbone", "resnet50",
+                                      "--policy-arch", "fast",
+                                      "--object-amp", "8.0"])):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = V.main(CAPABILITY_ARGV + extra)
+        secs = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        log(f"[13c] validate_capability {' '.join(CAPABILITY_ARGV + extra)}"
+            f" ({secs:.1f} s): {json.dumps(res)}; launches {launches}")
+        k2 = {k: launches[k] for k in ("bottleneck_tail",
+                                       "bottleneck_tail_rows",
+                                       "bottleneck_tail_f32")}
+        k2_ok = (not any(k2.values()) if name == "resnet18" else
+                 k2["bottleneck_tail_f32"] > 0
+                 and k2["bottleneck_tail"] == k2["bottleneck_tail_rows"] == 0)
+        rates_ok = all(0 <= res[k] <= 1 for k in (
+            "exec_rate_final_mean", "running_cost", "agreement_vs_dense",
+            "agreement_frozen_baseline", "moving_block_exec_rate"))
+        if (list(res) != keys or not rates_ok
+                or res["frames_evaluated"] != 2
+                or not launches["halo_strips"] > 0 or not k2_ok):
+            raise AssertionError(f"13c {name}: {res}, launches {launches}")
+        out[name] = {"result": res, "launches": launches, "seconds": secs}
+    return out
+
+
+def native_keys(native_cli, capability, name):
+    """The kernels line's phase-13 launches of kernel ``name``."""
+    return {"native_cli_launches": native_cli["launches"][name],
+            "capability_launches": {k: v["launches"][name]
+                                    for k, v in capability.items()}}
+
+
 def parallel_keys(par, name):
     """The kernels line's phase-12 launches of kernel ``name``."""
     return {"parallel_launches": [r["launches"][name]
@@ -2186,6 +2420,10 @@ def main() -> int:
     train_err = phase_train_modes()
     valid = phase_validation()
     par = phase_parallel(main_ms)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        nio = phase_native_io(tmp)
+        native_cli = phase_native_cli(tmp, cli["speed-mode"]["fps"], step_ms)
+    capability = phase_capability()
 
     def phase11_keys(name):
         return {"train_launches": train_launches[name],
@@ -2213,6 +2451,7 @@ def main() -> int:
          **ladder_keys(dl_kern, "halo"),
          **phase11_keys("halo_strips"),
          **parallel_keys(par, "halo_strips"),
+         **native_keys(native_cli, capability, "halo_strips"),
          "max_abs_err": halo["err"], "ms": halo["strips"],
          "plain_ms": halo["strips_plain"], "bound_ms": halo["bound"],
          "bound_by": "bytes", **common},
@@ -2226,6 +2465,7 @@ def main() -> int:
          "detection_launches": det_launches["halo_pieces"],
          "detection_ladder_launches": dl_launches["halo_pieces"],
          **parallel_keys(par, "halo_pieces"),
+         **native_keys(native_cli, capability, "halo_pieces"),
          "block256_ms": pieces["block256"]["kernel"],
          "block256_plain_ms": pieces["block256"]["plain"],
          "block256_bound_ms": pieces["block256"]["bound"],
@@ -2259,6 +2499,7 @@ def main() -> int:
          "detection_ladder_max_abs_err": dl_kern["tail_err"]["bf16"],
          **phase11_keys("bottleneck_tail"),
          **parallel_keys(par, "bottleneck_tail"),
+         **native_keys(native_cli, capability, "bottleneck_tail"),
          "max_abs_err": tail["bf16"]["err"], "ms": tail["bf16"]["kernel"],
          "plain_ms": tail["bf16"]["plain"], "bound_ms": tail["bf16"]["bound"],
          "bound_by": tail["bf16"]["by"], **common},
@@ -2294,6 +2535,7 @@ def main() -> int:
              "bottleneck_tail_f32"],
          "detection_ladder_max_abs_err": dl_kern["tail_err"]["f32"],
          **parallel_keys(par, "bottleneck_tail_f32"),
+         **native_keys(native_cli, capability, "bottleneck_tail_f32"),
          "max_abs_err": tail["f32"]["err"], "ms": tail["f32"]["kernel"],
          "plain_ms": tail["f32"]["plain"], "bound_ms": tail["f32"]["bound"],
          "bound_by": tail["f32"]["by"], **common},
@@ -2343,6 +2585,13 @@ def main() -> int:
         f"averaged gradient err "
         f"{par['grad_err']:.3g}, NCCL world of one "
         f"{par['nccl'][0]['ms']:.2f} ms/frame"
+        + f"; clip IO built in {nio['build_s']:.2f} s (zlib {nio['zlib']}), "
+        f"decode {nio['decode_ms']:.2f} ms a 1024x2048 frame "
+        f"({nio['decode_512_ms']:.2f} resized to 512x1024); native CLI "
+        f"{native_cli['fps']:.2f} fps, decode {native_cli['decode_ms']:.2f} "
+        f"ms a frame; validate_capability (reduced) exec rate "
+        + ", ".join(f"{k} {v['result']['exec_rate_final_mean']:.3f}"
+                    for k, v in capability.items())
         + f"; total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kern}))

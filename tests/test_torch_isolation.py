@@ -71,6 +71,17 @@ def test_walk_covers_parallel():
         "distributed", "clip_parallel")} <= names
 
 
+def test_walk_covers_native_io():
+    """The import walk reaches the clip IO binding and the semseg
+    validation tool."""
+    import pkgutil
+    import blockcopy_tpu_torch as p
+    names = {m.name for m in pkgutil.walk_packages(p.__path__,
+                                                    p.__name__ + ".")}
+    assert {"blockcopy_tpu_torch.native",
+            "blockcopy_tpu_torch.tools.validate_capability"} <= names
+
+
 def test_cli_runs_without_jax_or_pil():
     """The semseg CLI on ``--synthetic`` clips imports neither JAX, nor the
     JAX package, nor PIL (the card's machine has no PIL)."""
@@ -114,6 +125,36 @@ def test_no_source_imports_jax():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     offenders = [str(f) for f in files if FORBIDDEN.search(f.read_text())]
+    assert not offenders, offenders
+
+
+def test_compiled_sources_lie_in_the_port():
+    """Every source the port compiles (the CUDA kernels and the host C++)
+    lies inside ``blockcopy_tpu_torch/``, and a host compile names no other
+    source."""
+    from blockcopy_tpu_torch.ops.kernels import build
+    names = [p.stem for p in sorted(build.CSRC.glob("*.cu"))] \
+        + sorted(build.HOST_SOURCES)
+    assert {"halo", "bottleneck", "mm", "io"} <= set(names)
+    for name in names:
+        src = build.source(name).resolve()
+        assert src.is_file() and src.is_relative_to(PKG.resolve()), src
+    for name in build.HOST_SOURCES:
+        cmd = build._compile_cmd(name, Path("out.so"))
+        sources = [a for a in cmd if a.endswith((".cpp", ".cc", ".cu"))]
+        assert sources == [str(build.source(name))], cmd
+
+
+# the JAX package's native library, by path or by module name
+JAX_NATIVE = re.compile(r"blockcopy_tpu[/.\\]native")
+
+
+def test_no_path_names_the_jax_native_library():
+    files = [f for f in sorted(PKG.rglob("*"))
+             if f.suffix in (".py", ".cpp", ".cu", ".cuh", ".h")
+             and "_build" not in f.parts] + [ROOT / "chip_smoke.py"]
+    assert any(f.suffix == ".cpp" for f in files)
+    offenders = [str(f) for f in files if JAX_NATIVE.search(f.read_text())]
     assert not offenders, offenders
 
 
@@ -231,6 +272,11 @@ def _validate_detection():
     validate_detection.main(["--train-iters", "1"])
 
 
+def _validate_capability():
+    from blockcopy_tpu_torch.tools import validate_capability
+    validate_capability.main(["--warmup-clips", "1"])
+
+
 def _dryrun_multichip():
     from blockcopy_tpu_torch.parallel import clip_parallel
     clip_parallel.dryrun_multichip(2)
@@ -256,7 +302,8 @@ def _mesh_detection_cli():
                                    _build_detector, _load_csp_checkpoint,
                                    _detection_cli, _bench_detection,
                                    _trainer, _train_cli, _validate_detection,
-                                   _dryrun_multichip, _mesh_cli,
+                                   _validate_capability, _dryrun_multichip,
+                                   _mesh_cli,
                                    _mesh_detection_cli])
 def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -11,6 +11,7 @@ wrote (model parameters, ladder and stepper policy state), the capacity
 ladder, ``StreamSegMetrics``, ``PrefetchLoader`` and the eval transforms."""
 
 import json
+import sys
 
 import numpy as np
 import pytest
@@ -171,12 +172,27 @@ def test_cli_policy_checkpoint_roundtrip(tmp_path, capsys):
 
 
 def test_cli_refuses_what_is_not_ported():
-    """``--native-io`` is not ported; clip-parallel is, and asking for more
-    ranks than devices raises."""
+    """Clip-parallel is ported, and asking for more ranks than devices
+    raises."""
     with pytest.raises(ValueError, match="available"):
         tcli.main(SMALL + ["--speed-mode", "--num-devices", "1000"])
-    with pytest.raises(NotImplementedError, match="native"):
-        tcli.main(SMALL + ["--native-io"])
+
+
+def test_cli_native_io_without_pil(tmp_path, monkeypatch, capsys):
+    """``--native-io --fast`` on a Cityscapes-layout directory decodes every
+    frame with the C++ IO library: it runs with PIL unimportable."""
+    from blockcopy_tpu_torch.tools.measure import cityscapes_layout
+
+    cityscapes_layout(tmp_path, 128, 256, clips=2, frames=2, labels=False)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setitem(sys.modules, "PIL.Image", None)
+    res = tcli.main(["--cityscapes-dir", str(tmp_path), "--native-io",
+                     "--fast", "--res", "128", "--clip-length", "2",
+                     "--workers", "2", "--model-checkpoint", "",
+                     "--device", "cpu"])
+    line = _last_json(capsys)
+    assert line["fps"] == res["fps"] > 0
+    assert "Mean IoU" not in line and 0 < line["perc_exec"] <= 1
 
 
 # -- the pieces ---------------------------------------------------------------
