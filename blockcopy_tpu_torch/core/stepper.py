@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -28,13 +29,18 @@ from blockcopy_tpu_torch.core.blocked import (
     split_dense,
 )
 from blockcopy_tpu_torch.device import resolve_device
-from blockcopy_tpu_torch.ops.layers import adaptive_max_pool2d
+from blockcopy_tpu_torch.ops.layers import (
+    adaptive_max_pool2d,
+    resize_bilinear,
+)
+from blockcopy_tpu_torch.policy import net as _polnet
 from blockcopy_tpu_torch.policy import optim as rmsprop
 from blockcopy_tpu_torch.policy.information_gain import (
     semseg_information_gain,
 )
 from blockcopy_tpu_torch.policy.net import (
     assemble_policy_input,
+    assemble_policy_input_split,
     init_policy_net,
     policy_in_channels,
     policy_net_apply,
@@ -44,6 +50,14 @@ from blockcopy_tpu_torch.utils.flops import policy_net_macs
 
 FRAME_STATE = "__frame_state__"
 OUT = "__out__"
+# The JAX package's off-by-default output layouts (``stepper.py:61-68``),
+# read when a step runs.  OUT_BLOCKS carries the semseg outputs in block
+# layout, (N*GH*GW+1, bs/4, bs/4, C), and computes the reward per block;
+# PACKED_OUT stores the OUT canvas lane-packed as (N*GH*GW+1, bs/4,
+# bs/4*C).  OUT_BLOCKS wins where both are set.  Readers of the outputs go
+# through ``fetch_outputs``.
+OUT_BLOCKS = os.environ.get("BLOCKCOPY_TPU_OUT_BLOCKS", "0") == "1"
+PACKED_OUT = os.environ.get("BLOCKCOPY_TPU_PACKED_OUT", "0") == "1"
 # The policy reads the frame-state composite at 32 px per block, so the
 # canvas stores blocks already nearest-downsampled to 32x32.
 FS_BS = 32
@@ -116,23 +130,76 @@ class FixedCapacityStepper:
     # -- task hooks ----------------------------------------------------------
 
     def _model_fn(self, params, pack, ctx) -> Dict:
+        """The blocked model's stride-4 logits: dense, or the block-layout
+        canvas under ``OUT_BLOCKS`` (a copy: the canvas is updated in
+        place next frame, while the state keeps this frame's outputs as
+        ``outputs_prev``)."""
         out = self.apply_fn(params, pack, ctx)
+        if OUT_BLOCKS:
+            return {"outputs": ctx.store_blocks(OUT, out).clone()}
+        if PACKED_OUT:
+            return {"outputs": self._store_dense_packed(ctx, out)}
         return {"outputs": ctx.store_dense(OUT, out)}
 
+    def _store_dense_packed(self, ctx, out) -> torch.Tensor:
+        """``store_dense`` through a lane-packed (total+1, bs, bs*C) canvas
+        (``stepper.py:169``); returns the same dense (N, H/4, W/4, C).  A
+        contiguous packed canvas is the same memory as ``store_dense``'s
+        (total+1, bs, bs, C) one: the store is ``store_dense``'s, and the
+        carried canvas is its packed view."""
+        _, b, _, c = out.data.shape
+        if OUT in ctx.canvases:
+            ctx.canvases[OUT] = ctx.canvases[OUT].view(self.total + 1, b, b,
+                                                       c)
+        dense = ctx.store_dense(OUT, out)
+        ctx.canvases[OUT] = ctx.canvases[OUT].view(self.total + 1, b, b * c)
+        return dense
+
+    def _blocks_out(self, state) -> bool:
+        return OUT_BLOCKS and "outputs" in state \
+            and state["outputs"].shape[0] == self.total + 1
+
     def fetch_outputs(self, state) -> torch.Tensor:
-        """Dense (N, H/4, W/4, C) task outputs."""
+        """Dense (N, H/4, W/4, C) task outputs whatever the carried layout
+        (callers: the CLIs, tools, tests)."""
+        if self._blocks_out(state):
+            n, gh, gw = self.geom
+            return block_layout_to_dense(state["outputs"], n, gh, gw)
         return state["outputs"]
 
     def _output_repr(self, state):
-        return state["outputs"]
+        """The previous outputs for the policy input.  Under
+        ``OUT_BLOCKS`` each block is nearest-resized to the policy's 32 px
+        and then laid out dense, which equals resizing the dense image:
+        block borders align with the sampling groups."""
+        if not self._blocks_out(state):
+            return state["outputs"]
+        n, gh, gw = self.geom
+        blocks = state["outputs"][: self.total]
+        b = blocks.shape[1]
+        if b != FS_BS:
+            r = torch.arange(FS_BS, device=blocks.device) * b // FS_BS
+            blocks = blocks.index_select(1, r).index_select(2, r)
+        return block_layout_to_dense(blocks, n, gh, gw)
 
     def _information_gain(self, state):
         return semseg_information_gain(state["outputs"],
                                        state["outputs_prev"])
 
     def _reward_grid(self, state) -> torch.Tensor:
-        """(n, gh, gw) information gain, max-pooled per block."""
-        _, gh, gw = self.geom
+        """(n, gh, gw) information gain, max-pooled per block.  Under
+        ``OUT_BLOCKS`` the KL is taken per block on the canvases, equal to
+        the dense pipeline: the 0.25 bilinear taps stay inside aligned 4 px
+        groups (``stepper.py:220``)."""
+        n, gh, gw = self.geom
+        if self._blocks_out(state):
+            cur = state["outputs"][: self.total].float()
+            prev = state["outputs_prev"][: self.total].float()
+            oh = max(1, cur.shape[1] // 4)
+            log_p = torch.log_softmax(resize_bilinear(cur, (oh, oh)), dim=-1)
+            log_q = torch.log_softmax(resize_bilinear(prev, (oh, oh)), dim=-1)
+            kl = (torch.exp(log_q) * (log_q - log_p)).mean(dim=-1)
+            return kl.amax(dim=(1, 2)).reshape(n, gh, gw)
         return adaptive_max_pool2d(self._information_gain(state),
                                    (gh, gw))[..., 0]
 
@@ -322,12 +389,21 @@ class FixedCapacityStepper:
         with torch.no_grad():
             fs_dense = block_layout_to_dense(state["canvases"][FRAME_STATE],
                                              n, gh, gw)
-            cache_x = assemble_policy_input(
-                frame, fs_dense, self._output_repr(state),
-                state["prev_grid"], self.cfg.block_size,
-                # fast arch: bf16 assembly (its convs run bf16 anyway)
-                dtype=torch.bfloat16 if self.cfg.policy_arch == "fast"
-                else torch.float32)
+            if self.cfg.policy_arch == "fast" \
+                    and _polnet.POLICY_SPLIT_STEM \
+                    and _polnet.POLICY_STEM_CONV4:
+                # the four sources apart: the stem convolves each, and the
+                # REINFORCE backward recomputes from this tuple
+                cache_x = assemble_policy_input_split(
+                    frame, fs_dense, self._output_repr(state),
+                    state["prev_grid"], self.cfg.block_size)
+            else:
+                cache_x = assemble_policy_input(
+                    frame, fs_dense, self._output_repr(state),
+                    state["prev_grid"], self.cfg.block_size,
+                    # fast arch: bf16 assembly (its convs run bf16 anyway)
+                    dtype=torch.bfloat16 if self.cfg.policy_arch == "fast"
+                    else torch.float32)
             logits, bn_state = policy_net_apply(
                 pol["params"], pol["bn_state"], cache_x, update_stats=True,
                 arch=self.cfg.policy_arch)

@@ -53,6 +53,17 @@ HEAD_BLOCKED_FINAL = os.environ.get(
 HEAD_FUSED_BRANCH_CONV = os.environ.get(
     "BLOCKCOPY_TPU_HEAD_FUSED_BRANCH_CONV", "1") == "1"
 
+# The decode's top ``nms_pre`` (``csp.py:89``): 'sort' (the port's default)
+# is a stable descending sort, ties to the lowest index as ``lax.top_k``;
+# 'approx' is ``torch.topk``, the counterpart of JAX's default
+# ``approx_max_k`` at recall 1.0: the same values, ties in unspecified
+# order.  Both are read when the decode runs.
+TOPK_IMPL = os.environ.get("BLOCKCOPY_TPU_TOPK", "sort")
+# The candidates' points from their flat index (on, as in JAX), or gathered
+# from the full (H/4*W/4, 2) points array (``csp.py:101``); bit-equal.
+DECODE_LEAN_POINTS = os.environ.get(
+    "BLOCKCOPY_TPU_DECODE_LEAN_POINTS", "1") == "1"
+
 
 @dataclasses.dataclass(frozen=True)
 class CSPConfig:
@@ -296,23 +307,35 @@ def decode_candidates(cls_score, bbox_pred, offset_pred, img_shape,
     the top ``nms_pre`` positions, their boxes.  Returns (flat indices
     (nms_pre,), boxes (nms_pre, 4), scores (nms_pre, C)).
 
-    The top ``nms_pre`` come from a stable descending sort, which breaks ties
-    to the lowest index as ``lax.top_k`` does (the 'sort' lowering);
-    ``torch.topk`` leaves the order of ties unspecified.  The candidates'
-    points are computed from their flat index (the lean form of
-    ``DECODE_LEAN_POINTS``, bit-exact with gathering them)."""
+    The top ``nms_pre`` follow ``TOPK_IMPL``: under 'sort' a stable
+    descending sort, which breaks ties to the lowest index as ``lax.top_k``
+    does; under 'approx' ``torch.topk``, whose values are exact and whose
+    order of ties is unspecified, as ``approx_max_k`` at recall 1.0.  The
+    candidates' points follow ``DECODE_LEAN_POINTS``: computed from their
+    flat index, or gathered from the full points array (bit-equal)."""
     stride = cfg.head_stride
-    w = cls_score.shape[2]
+    h, w = cls_score.shape[1], cls_score.shape[2]
     scores = torch.sigmoid(cls_score[0].reshape(-1, cfg.cls_out_channels))
     heights = torch.exp(bbox_pred[0].reshape(-1, bbox_pred.shape[-1]))
     offsets = offset_pred[0].reshape(-1, 2)
 
     nms_pre = min(cfg.nms_pre, scores.shape[0])
     max_scores = scores.max(dim=1).values
-    topk = torch.sort(max_scores, descending=True,
-                      stable=True).indices[:nms_pre]
-    points = torch.stack([(topk % w) * stride, (topk // w) * stride],
+    if TOPK_IMPL == "approx":
+        topk = torch.topk(max_scores, nms_pre, sorted=True).indices
+    elif TOPK_IMPL == "sort":
+        topk = torch.sort(max_scores, descending=True,
+                          stable=True).indices[:nms_pre]
+    else:
+        raise ValueError(f"unknown TOPK_IMPL {TOPK_IMPL!r}")
+    # lean: the points of the candidates' flat indices; else the points of
+    # every position, gathered
+    flat = topk if DECODE_LEAN_POINTS else torch.arange(h * w,
+                                                        device=topk.device)
+    points = torch.stack([(flat % w) * stride, (flat // w) * stride],
                          -1).float() + stride // 2
+    if not DECODE_LEAN_POINTS:
+        points = points.index_select(0, topk)
     heights = heights.index_select(0, topk)
     offsets = offsets.index_select(0, topk)
     scores = scores.index_select(0, topk)

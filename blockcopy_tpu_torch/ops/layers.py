@@ -32,6 +32,23 @@ BLOCKPAD_WITH_ZEROES = os.environ.get("BLOCKCOPY_TPU_ZERO_HALO", "0") == "1"
 STEM_PLANE_POOL = os.environ.get(
     "BLOCKCOPY_TPU_STEM_PLANE_POOL", "1") == "1"
 
+# The JAX package's off-by-default lowerings, under its variables and
+# defaults.  Each is read when a layer runs, so a caller may flip the module
+# global between frames.
+#
+# Stride-1 blocked convs whose output blocks are at most this many px run as
+# one tall conv over the padded blocks stacked along H, then a row gather
+# (``layers.py:54``); 0 is off.
+TALL_CONV_MAX_BS = int(os.environ.get("BLOCKCOPY_TPU_TALL_CONV_BS", "0"))
+# Blocked 3x3 convs (p == d, s in {1, 2}) and 3x3/p1 max pools read the halo
+# as its 8 unassembled pieces and correct the output borders, instead of
+# convolving halo-padded blocks (``layers.py:74``).
+BORDER_CONV = os.environ.get("BLOCKCOPY_TPU_BORDER_CONV", "0") == "1"
+# The 7x7 s2 p3 stem conv on few-channel blocked input as a 3x3 conv over
+# space-to-depth-4 cells, then depth-to-space-2 (``layers.py:86``).  Reached
+# only where the plane-pool stem does not take the stem.
+S2D_STEM = os.environ.get("BLOCKCOPY_TPU_S2D_STEM", "0") == "1"
+
 
 def _data(x: Arrayish) -> torch.Tensor:
     return x.data if isinstance(x, BlockPack) else x
@@ -76,30 +93,169 @@ def _conv(data, w, b, stride, dilation, padding, groups):
     return out
 
 
+def _halo_rows(strip: torch.Tensor, s: int, d: int, bs: int, dim: int,
+               bottom: bool):
+    """The rows (``dim`` 1) or columns (``dim`` 2) of a ``p``-deep halo
+    strip that some output row reads, and the first output row they land
+    on.  A padded row ``r`` is read by output row ``y`` through tap row
+    ``i`` where ``y*s + i*d == r``; with ``p == d`` and ``s`` in {1, 2} the
+    top strip is read only by tap 0 (rows ``0, s, ...`` onto output rows
+    ``0, 1, ...``) and the bottom only by tap 2 (rows ``r0, r0 + s, ...``
+    with ``(bs - d + r0) % s == 0``, onto output rows from
+    ``(bs - d + r0) // s``)."""
+    p = strip.shape[dim]
+    r0 = (d - bs) % s if bottom else 0
+    if r0 >= p:
+        return None, 0
+    idx = [slice(None)] * strip.dim()
+    idx[dim] = slice(r0, None, s)
+    return strip[tuple(idx)], ((bs - d + r0) // s if bottom else 0)
+
+
+def _border_conv(ctx: ExecCtx, name: str, x: BlockPack, w: torch.Tensor,
+                 b: Optional[torch.Tensor], s: int, d: int, p: int,
+                 groups: int) -> Optional[torch.Tensor]:
+    """Blocked 3x3 conv without the halo-padded blocks (``BORDER_CONV``,
+    ``layers.py:134``): the conv of the packed centres with zero padding,
+    plus strip convs of the halo pieces added to the output borders.
+
+    The top and bottom pieces are full rows (``bs + 2p`` wide, corners
+    included) and take tap rows ``W[0]`` / ``W[2]``; the left and right
+    pieces are centre rows only, zero-padded by ``p`` above and below, and
+    take tap columns ``W[:, 0]`` / ``W[:, 2]``.  Each correction is a matmul
+    over the three stacked shifted slices of its strip.  The pieces come
+    from the strip canvas ``name`` that ``ctx.exchange`` writes, so the
+    carried state is the exchange path's.  Returns ``None`` where the
+    canvas is not strip storage.
+
+    Halo rows and columns are placed by ``_halo_rows``, which also covers
+    ``s = 2`` at ``p = d = 2``, where the JAX lowering adds the second left
+    halo column, which no tap reads, and leaves out the bottom row and the
+    right column, which tap 2 reads."""
+    pieces = ctx.exchange_pieces(name, x, p)
+    if pieces is None:
+        return None
+    data = x.data
+    bs, dt = data.shape[1], data.dtype
+    cout, cin_g = w.shape[0], w.shape[1]
+    out = _conv(data, w, None, s, d, p, groups).float()
+    out_bs = out.shape[1]
+    # taps[i, j, c, g, o]: HWIO with the output channels split by group
+    wt = w.to(dt).permute(2, 3, 1, 0).reshape(3, 3, cin_g, groups,
+                                              cout // groups)
+    span = s * (out_bs - 1) + 1
+
+    def tap_dot(stack, taps):
+        # stack (K, rows, cols, 3, C) of shifted slices; taps (3, Cg, G, Og)
+        k_, r_, c_ = stack.shape[:3]
+        stack = stack.reshape(k_, r_, c_, 3, groups, cin_g)
+        return torch.einsum("krztgc,tcgo->krzgo", stack, taps) \
+            .reshape(k_, r_, c_, cout).float()
+
+    def row_fix(strip, taps):      # strip (K, rows, bs+2p, C)
+        return tap_dot(torch.stack(
+            [strip[:, :, j * d:j * d + span:s] for j in range(3)], dim=3),
+            taps)
+
+    def col_fix(strip, taps):      # strip (K, bs, cols, C)
+        col = F.pad(strip, (0, 0, 0, 0, p, p))
+        return tap_dot(torch.stack(
+            [col[:, i * d:i * d + span:s] for i in range(3)], dim=3), taps)
+
+    cast = {k: v.to(dt) for k, v in pieces.items()}
+    # out is this conv's own fresh tensor: the border adds happen in place
+    for bottom, tap in ((False, 0), (True, 2)):
+        side = "bottom" if bottom else "top"
+        row = torch.cat([cast[f"{side}_left"], cast[side],
+                         cast[f"{side}_right"]], dim=2)
+        row, y0 = _halo_rows(row, s, d, bs, 1, bottom)
+        if row is not None:
+            fix = row_fix(row, wt[tap])
+            out[:, y0:y0 + fix.shape[1]] += fix
+        side = "right" if bottom else "left"
+        col, x0 = _halo_rows(cast[side], s, d, bs, 2, bottom)
+        if col is not None:
+            fix = col_fix(col, wt[:, tap])
+            out[:, :, x0:x0 + fix.shape[2]] += fix
+    if b is not None:
+        out = out + b.float()
+    return out.to(dt)
+
+
+def _s2d_stem_conv(ctx: ExecCtx, name: str, x: BlockPack, w: torch.Tensor,
+                   b: Optional[torch.Tensor]) -> torch.Tensor:
+    """The 7x7 s2 p3 stem conv as a 3x3 conv over s2d-4 cells giving the
+    four output sub-positions as channels, then depth-to-space-2 and the
+    bias (``S2D_STEM``, ``layers.py:249``).  The halo moves to the cells at
+    pad 1, through the canvas ``<name>.s2d``."""
+    k_blk, cells = x.data.shape[0], x.data.shape[1] // 4
+    c_out = w.shape[0]
+    out = _s2d_stem_conv_planes(ctx, name, x, w)
+    out = out.reshape(k_blk, cells, cells, 2, 2, c_out) \
+             .permute(0, 1, 3, 2, 4, 5) \
+             .reshape(k_blk, 2 * cells, 2 * cells, c_out)
+    if b is not None:
+        out = out + b.to(out.dtype)
+    return out
+
+
+def _tall_conv(data, w, b, dilation, groups, bs_out):
+    """Stride-1 conv of halo-padded square blocks ``(K, hp, hp, C)`` as one
+    image ``(1, K*hp, hp, C)`` (``TALL_CONV_MAX_BS``, ``layers.py:441``):
+    output rows that straddle two blocks are dropped by a row gather."""
+    k_blk, hp, wp, c = data.shape
+    o = _conv(data.reshape(1, k_blk * hp, wp, c), w, b, 1, dilation, 0,
+              groups)
+    o = o.reshape(-1, o.shape[2], o.shape[3])
+    dev = data.device
+    rows = (torch.arange(k_blk, device=dev)[:, None] * hp
+            + torch.arange(bs_out, device=dev)[None, :]).reshape(-1)
+    return o.index_select(0, rows).reshape(k_blk, bs_out, o.shape[1],
+                                           o.shape[2])
+
+
 def conv2d(ctx: ExecCtx, name: str, x: Arrayish, w: torch.Tensor,
            b: Optional[torch.Tensor] = None, stride: int = 1,
            dilation: int = 1, padding: Optional[int] = None,
            groups: int = 1) -> Arrayish:
     """2D convolution, ``w`` OIHW.  Blocked input with padding > 0 goes
-    through the canvas halo exchange; ``padding=None`` is
-    ``((k-1)//2) * dilation``."""
-    kh = w.shape[2]
+    through the canvas halo exchange, or one of the lowerings
+    ``S2D_STEM``, ``BORDER_CONV``, ``TALL_CONV_MAX_BS`` under the conditions
+    of ``layers.py:417-453``; ``padding=None`` is ``((k-1)//2) * dilation``."""
+    kh, kw, cin = w.shape[2], w.shape[3], w.shape[1]
     if padding is None:
         padding = ((kh - 1) // 2) * dilation
+    s, d, p = stride, dilation, padding
     if isinstance(x, BlockPack) and not ctx.is_dense:
         data = x.data
-        if padding > 0:
-            if BLOCKPAD_WITH_ZEROES:
-                p = padding
-                data = F.pad(data, (0, 0, p, p, p, p))
+        bs = data.shape[1]
+        o = None
+        if p > 0 and S2D_STEM and not BLOCKPAD_WITH_ZEROES and kh == kw == 7 \
+                and s == 2 and p == 3 and d == 1 and groups == 1 \
+                and cin <= 4 and bs % 4 == 0 and bs >= 8:
+            o = _s2d_stem_conv(ctx, name, x, w, b)
+        elif p > 0 and BORDER_CONV and not BLOCKPAD_WITH_ZEROES \
+                and kh == kw == 3 and p == d and s in (1, 2) \
+                and (s == 1 or bs % 2 == 0):
+            o = _border_conv(ctx, name, x, w, b, s, d, p, groups)
+        if o is not None:
+            out = x.with_data(o)
+        else:
+            if p > 0:
+                data = F.pad(data, (0, 0, p, p, p, p)) \
+                    if BLOCKPAD_WITH_ZEROES else ctx.exchange(name, x, p)
+            bs_out = (bs + 2 * p - d * (kh - 1) - 1) // s + 1
+            if p > 0 and TALL_CONV_MAX_BS and s == 1 \
+                    and bs_out <= TALL_CONV_MAX_BS \
+                    and data.shape[1] == data.shape[2]:
+                out = x.with_data(_tall_conv(data, w, b, d, groups, bs_out))
             else:
-                data = ctx.exchange(name, x, padding)
-        out = x.with_data(_conv(data, w, b, stride, dilation, 0, groups))
+                out = x.with_data(_conv(data, w, b, s, d, 0, groups))
     else:
         out = _rewrap(x, _conv(_data(x), w, b, stride, dilation, padding,
                                groups))
     # output elements x (Cin/groups) x taps, as ``layers.py:456-460``
-    ctx.add_macs(_data(out).numel() * w.shape[1] * kh * w.shape[3], name)
+    ctx.add_macs(_data(out).numel() * cin * kh * kw, name)
     return out
 
 
@@ -174,12 +330,53 @@ def batch_norm(x: Arrayish, scale: torch.Tensor,
     return emap(lambda d: d * scale.to(d.dtype) + bias.to(d.dtype), x)
 
 
+def _border_max_pool(ctx: ExecCtx, name: str, x: BlockPack,
+                     s: int) -> Optional[torch.Tensor]:
+    """Blocked 3x3/p1 max pool without the halo-padded blocks
+    (``BORDER_CONV``, ``layers.py:574``): pool the centres with -inf
+    padding, then take the max of the border rows and columns with window
+    maxima of the halo pieces (zeros past the image, as the exchange path
+    reads).  Under stride 2 the bottom/right halo is never read."""
+    pieces = ctx.exchange_pieces(name, x, 1)
+    if pieces is None:
+        return None
+    dt = x.data.dtype
+    out = nhwc(F.max_pool2d(nchw(x.data), 3, s, 1))
+    out_bs = out.shape[1]
+    cast = {k: v.to(dt) for k, v in pieces.items()}
+
+    def row_max(side):              # (K, 1, bs+2, C) -> (K, 1, out_bs, C)
+        row = torch.cat([cast[f"{side}_left"], cast[side],
+                         cast[f"{side}_right"]], dim=2)
+        return nhwc(F.max_pool2d(nchw(row), (1, 3), (1, s)))
+
+    def col_max(side):              # (K, bs, 1, C) -> (K, out_bs, 1, C)
+        return nhwc(F.max_pool2d(nchw(cast[side]), (3, 1), (s, 1), (1, 0)))
+
+    # out is this pool's own fresh tensor: the border maxima go in place
+    out[:, :1] = torch.maximum(out[:, :1], row_max("top"))
+    out[:, :, :1] = torch.maximum(out[:, :, :1], col_max("left"))
+    if s == 1:
+        out[:, out_bs - 1:] = torch.maximum(out[:, out_bs - 1:],
+                                            row_max("bottom"))
+        out[:, :, out_bs - 1:] = torch.maximum(out[:, :, out_bs - 1:],
+                                               col_max("right"))
+    return out
+
+
 def max_pool2d(ctx: ExecCtx, name: str, x: Arrayish, kernel: int = 3,
                stride: int = 2, padding: int = 1) -> Arrayish:
     """Max pooling.  The blocked path pads through the halo exchange (zeros
     past the image, reference blockpad semantics), the dense path with -inf
-    (``layers.py:640-657``)."""
+    (``layers.py:640-657``); under ``BORDER_CONV`` a 3x3/p1 pool corrects
+    its borders from the halo pieces instead."""
     if isinstance(x, BlockPack) and not ctx.is_dense:
+        if BORDER_CONV and kernel == 3 and padding == 1 \
+                and stride in (1, 2) \
+                and (stride == 1 or x.data.shape[1] % 2 == 0):
+            o = _border_max_pool(ctx, name, x, stride)
+            if o is not None:
+                return x.with_data(o)
         data = ctx.exchange(name, x, padding) if padding > 0 else x.data
         return x.with_data(nhwc(F.max_pool2d(nchw(data), kernel, stride)))
     return _rewrap(x, nhwc(F.max_pool2d(nchw(_data(x)), kernel, stride,

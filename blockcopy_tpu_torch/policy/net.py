@@ -28,6 +28,15 @@ BN_EPS = 1e-5
 COMPUTE_DTYPE = {"bf16": torch.bfloat16, "fp32": torch.float32}[
     os.environ.get("BLOCKCOPY_TPU_POLICY_COMPUTE", "bf16")]
 S2D = 4  # space-to-depth factor of the fast arch's stem
+# The fast arch's stem forms (``net.py:91-108``), read when the net runs.
+# POLICY_STEM_CONV4 (default on): one k4s4 conv; off, an explicit
+# space-to-depth and the 1x1 conv.  POLICY_SPLIT_STEM (default off; taken
+# by the stepper with the fast arch and the conv4 stem): the four policy
+# input sources stay apart and the stem is the sum of their convs.
+POLICY_STEM_CONV4 = os.environ.get(
+    "BLOCKCOPY_TPU_POLICY_STEM_CONV4", "1") == "1"
+POLICY_SPLIT_STEM = os.environ.get(
+    "BLOCKCOPY_TPU_POLICY_SPLIT_STEM", "0") == "1"
 
 
 # ---------------------------------------------------------------------------
@@ -164,13 +173,58 @@ def _conv_stem4(x, p):
     return nhwc(out).float()
 
 
+def _space_to_depth(x, r: int):
+    n, h, w, c = x.shape
+    return x.reshape(n, h // r, r, w // r, r, c).permute(0, 1, 3, 2, 4, 5) \
+        .reshape(n, h // r, w // r, r * r * c)
+
+
+def _conv_stem4_split(xs, p):
+    """``_conv_stem4`` of the four sources kept apart (``net.py:265``):
+    ``xs`` is ``assemble_policy_input_split``'s (frame, frame_state,
+    output_repr, prev_grid), unoffset, the grid at grid resolution.  The
+    conv is linear, so it is the sum of per-source convs; the -0.5 offset
+    of the outputs is a constant per channel, and the grid is constant in
+    every 4x4 window, so its term is ``(g - 0.5) * sum of its taps``
+    broadcast over the 8x8 stem positions of each grid cell."""
+    frame_q, fs_q, out_q, grid = xs
+    c_f, c_s, c_o = frame_q.shape[-1], fs_q.shape[-1], out_q.shape[-1]
+    w = p["w"]
+    co = w.shape[0]
+    w4 = w.reshape(co, S2D, S2D, c_f + c_s + c_o + 1).permute(0, 3, 1, 2) \
+        .to(COMPUTE_DTYPE)
+
+    def part(x, lo, hi):
+        return nhwc(F.conv2d(nchw(x.to(COMPUTE_DTYPE)), w4[:, lo:hi], None,
+                             S2D)).float()
+
+    y = part(frame_q, 0, c_f) + part(fs_q, c_f, c_f + c_s) \
+        + part(out_q, c_f + c_s, c_f + c_s + c_o)
+    y = y - 0.5 * w4[:, c_f + c_s:c_f + c_s + c_o].float().sum(dim=(1, 2, 3))
+    gsum = w4[:, c_f + c_s + c_o].float().sum(dim=(1, 2))
+    gterm = (grid.float() - 0.5)[..., None] * gsum
+    n, gh, gw, _ = gterm.shape
+    if tuple(y.shape[1:3]) != (gh * 8, gw * 8):
+        raise ValueError(
+            f"split stem: stem output {tuple(y.shape[1:3])} is not 8 "
+            f"positions per cell of the {gh}x{gw} grid")
+    gterm = gterm[:, :, None, :, None, :].expand(n, gh, 8, gw, 8, co)
+    return y + gterm.reshape(n, gh * 8, gw * 8, co)
+
+
 def policy_net_apply(params, bn_state, x, update_stats: bool = True,
                      arch: str = "ref"):
     """x: (N, H/4, W/4, Cin) -> logits (N, H/bs, W/bs, 1) fp32 and the new
-    ``bn_state`` (the input state when ``update_stats=False``)."""
+    ``bn_state`` (the input state when ``update_stats=False``).  The fast
+    arch also takes ``assemble_policy_input_split``'s tuple."""
     s = dict(bn_state)
     if arch == "fast":
-        x = _conv_stem4(x, params["stem"])
+        if isinstance(x, tuple):
+            x = _conv_stem4_split(x, params["stem"])
+        elif POLICY_STEM_CONV4:
+            x = _conv_stem4(x, params["stem"])
+        else:
+            x = _conv(_space_to_depth(x, S2D), params["stem"], 1)
         x, s["stem_bn"] = _bn_train(x, params["stem_bn"], s["stem_bn"],
                                     update_stats)
         x = torch.clamp_min(x, 0)
@@ -215,6 +269,20 @@ def assemble_policy_input(frame, frame_state, output_repr, prev_grid,
         resize_nearest(prev_grid.to(dtype)[..., None], (oh, ow)) - 0.5,
     ]
     return torch.cat(feats, dim=-1)
+
+
+def assemble_policy_input_split(frame, frame_state, output_repr, prev_grid,
+                                block_size: int, dtype=torch.bfloat16):
+    """``assemble_policy_input``'s sources as a tuple (``net.py:389``):
+    resized, not concatenated and not offset (``_conv_stem4_split`` folds
+    the offsets); ``prev_grid`` stays at grid resolution."""
+    n, h, w, _ = frame.shape
+    scale = 0.25 * 128 / block_size
+    oh, ow = int(h * scale), int(w * scale)
+    return (resize_nearest(frame.to(dtype), (oh, ow)),
+            resize_nearest(frame_state.to(dtype), (oh, ow)),
+            resize_nearest(output_repr.to(dtype), (oh, ow)),
+            prev_grid)
 
 
 def policy_in_channels(num_classes: int) -> int:

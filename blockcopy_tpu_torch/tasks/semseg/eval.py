@@ -290,7 +290,8 @@ def _run(argv, device, group):
                     stepper_state["state"] = fn(params,
                                                 stepper_state["state"],
                                                 inputs)
-                    out = stepper_state["state"]["outputs"]
+                    out = stepper_state["stepper"].fetch_outputs(
+                        stepper_state["state"])
                 elif model is not None:
                     out = model(inputs)
                 else:

@@ -2,7 +2,8 @@
 SwiftNet and CSP steppers they drive, a small detection clip and a small
 train step for GPU-CPU comparisons, device timing by CUDA graph replay, and
 the body of one clip-parallel rank with the group that records its gradient
-averages, and PNG files and Cityscapes-layout clips written without PIL."""
+averages, PNG files and Cityscapes-layout clips written without PIL, and
+the port's lowering switches set for a block of code."""
 
 from __future__ import annotations
 
@@ -18,6 +19,43 @@ import numpy as np
 import torch
 
 from blockcopy_tpu_torch.parallel.distributed import Group
+
+
+# The port's lowering switches by name: (module, global).  Each module reads
+# its global when it runs, so setting one in-process switches the lowering.
+SWITCHES = {
+    "BORDER_CONV": ("blockcopy_tpu_torch.ops.layers", "BORDER_CONV"),
+    "S2D_STEM": ("blockcopy_tpu_torch.ops.layers", "S2D_STEM"),
+    "STEM_PLANE_POOL": ("blockcopy_tpu_torch.ops.layers", "STEM_PLANE_POOL"),
+    "TALL_CONV_BS": ("blockcopy_tpu_torch.ops.layers", "TALL_CONV_MAX_BS"),
+    "OUT_BLOCKS": ("blockcopy_tpu_torch.core.stepper", "OUT_BLOCKS"),
+    "PACKED_OUT": ("blockcopy_tpu_torch.core.stepper", "PACKED_OUT"),
+    "POLICY_SPLIT_STEM": ("blockcopy_tpu_torch.policy.net",
+                          "POLICY_SPLIT_STEM"),
+    "POLICY_STEM_CONV4": ("blockcopy_tpu_torch.policy.net",
+                          "POLICY_STEM_CONV4"),
+    "POLICY_COMPUTE": ("blockcopy_tpu_torch.policy.net", "COMPUTE_DTYPE"),
+    "TOPK": ("blockcopy_tpu_torch.models.csp", "TOPK_IMPL"),
+    "DECODE_LEAN_POINTS": ("blockcopy_tpu_torch.models.csp",
+                           "DECODE_LEAN_POINTS"),
+}
+
+
+@contextlib.contextmanager
+def switches(**values):
+    """Set the named ``SWITCHES`` for the block and restore them after,
+    e.g. ``with switches(BORDER_CONV=True, TALL_CONV_BS=8): ...``."""
+    import importlib
+    targets = {k: (importlib.import_module(SWITCHES[k][0]), SWITCHES[k][1])
+               for k in values}
+    saved = {k: getattr(m, g) for k, (m, g) in targets.items()}
+    try:
+        for k, (m, g) in targets.items():
+            setattr(m, g, values[k])
+        yield
+    finally:
+        for k, (m, g) in targets.items():
+            setattr(m, g, saved[k])
 
 
 def synthetic_frames(shape, count, dtype, seed=0, device="cuda"):

@@ -169,7 +169,27 @@ Phases (any failure raises and exits non-zero):
    (c) ``tools/validate_capability.py`` at ``--warmup-clips 2 --eval-clips
    1 --clip-length 4``, 512x1024 fp32: RN18 ``ref`` (K1 only) and RN50
    ``fast`` at amp 8 (K1 and K2's fp32 route), the keys of
-   ``VALIDATION.json``, rates in [0, 1], 2 frames evaluated.
+   ``VALIDATION.json``, rates in [0, 1], 2 frames evaluated;
+14. the JAX package's off-by-default lowerings, set in-process through
+   ``tools/measure.py`` ``switches`` and restored after, before the JSON
+   lines: (a) phase 4's path (same parameters, frames and capacity) with
+   injected draws, switch off and under each of ``SWITCH_RUNS``
+   (``BORDER_CONV``; ``S2D_STEM`` with the plane-pool stem off;
+   ``TALL_CONV_BS=8``; ``OUT_BLOCKS``; ``PACKED_OUT``;
+   ``POLICY_SPLIT_STEM``; ``POLICY_STEM_CONV4=0``; all that combine):
+   no host sync, K1 ``halo_strips`` and ``halo_pieces`` launches a frame as
+   listed there and 8 K2 ``bottleneck_tail``, ms/frame, and agreement with
+   the switch-off run: grids equal on every frame for the layout switches,
+   outputs within 3e-2 of the largest |output| on every frame whose grids
+   agree so far; the stem forms again with fp32 policy convs against the
+   switch-off run so, grids equal on every frame; (b) the step on the GPU
+   against the CPU under the switches (``SMALL_SWITCH_RUNS``), as phase 5,
+   within 1e-3; (c) phase 9's detection step under ``TOPK='approx'``,
+   ``DECODE_LEAN_POINTS=0`` and ``BORDER_CONV`` against the switch-off step
+   on injected draws that fix the grids: 1 + 21 K1 and 8 K2 launches a
+   frame, the kept boxes equal as sets (IoU >= 0.9 pairs, scores within
+   3e-2; unpaired boxes only within 3e-2 of ``score_thr`` or of a full
+   set's lowest kept score: the ``max_per_img`` cut).
 
 It needs one CUDA GPU and the repository around it: without either it exits
 non-zero and prints no result.
@@ -631,7 +651,8 @@ def phase_tail_rows(gen):
     return out
 
 
-def _drive_stepper(tag, stepper, params, frames, per_frame, watch=None):
+def _drive_stepper(tag, stepper, params, frames, per_frame, watch=None,
+                   draws=None):
     """``init_state``, ``first_step`` and a ``step`` per further frame, each
     step under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync
     fails the run).  Launch counts are zeroed just before ``init_state`` and
@@ -639,7 +660,9 @@ def _drive_stepper(tag, stepper, params, frames, per_frame, watch=None):
     nothing, that every frame launches ``per_frame``, that every step runs
     ``capacity`` blocks and that the policy is updated exactly at frames
     = 0 (mod 4); a kernel ``per_frame`` does not name launches nothing.
-    ``watch(state)`` is kept after each step.  Returns the last state, the
+    ``watch(state)`` is kept after each step, and after the first step too
+    where ``draws`` is given: ``draws[t]`` is injected into step t (the
+    ``draws`` of ``step``).  Returns the last state, the
     launches, ms per step, the trained frames, what ``watch`` kept and the
     peak memory in GiB."""
     from blockcopy_tpu_torch.ops import kernels
@@ -658,11 +681,14 @@ def _drive_stepper(tag, stepper, params, frames, per_frame, watch=None):
         f"(capacity {stepper.capacity} of {stepper.total}); launches: "
         f"init_state {built}, first_step {first}")
     ms, executed, heads, frame_ids, kept = [], [], [], [], []
-    for frame in frames[1:]:
+    if watch is not None and draws is not None:
+        kept.append(watch(state))
+    for t, frame in enumerate(frames[1:]):
+        kw = {} if draws is None else {"draws": draws[t]}
         t0 = time.perf_counter()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            state = stepper.step(params, state, frame)
+            state = stepper.step(params, state, frame, **kw)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
@@ -789,12 +815,13 @@ def _small_run(backbone, device, steps=2, halo="strips", plane_stem=True):
                  for _ in range(steps)]
         state = stepper.init_state(params, seed=1)
         state = stepper.first_step(params, state, frames[0])
-        outs = [state["outputs"]]
+        # the dense outputs whatever the carried layout
+        outs = [stepper.fetch_outputs(state).float().cpu()]
         for t in range(steps):
             state = stepper.step(params, state, frames[t + 1],
                                  draws=draws[t])
-            outs.append(state["outputs"])
-        return [o.float().cpu() for o in outs]
+            outs.append(stepper.fetch_outputs(state).float().cpu())
+        return outs
     finally:
         blocked.HALO_IMPL, layers.STEM_PLANE_POOL = old
 
@@ -2278,6 +2305,333 @@ def phase_capability():
     return out
 
 
+# phase 14: the off-by-default lowerings on the main path, each with its K1
+# launches a frame by entry (bs, C); K2 stays at TAIL_SHAPES under every one.
+# BORDER_CONV takes every 3x3 conv and the pool through halo_pieces (only
+# the stem's s2d cells stay on halo_strips); S2D_STEM (plane pool off) adds
+# the stem pool's exchange at bs 64 and drops the plane pool's pieces
+SWITCH_RUNS = [
+    ("BORDER_CONV", {"BORDER_CONV": True}, HALO_SHAPES[:1],
+     PIECE_SHAPES + HALO_SHAPES[1:]),
+    ("S2D_STEM", {"S2D_STEM": True, "STEM_PLANE_POOL": False},
+     HALO_SHAPES + [(64, 64)], PIECE_SHAPES[1:]),
+    ("TALL_CONV_BS=8", {"TALL_CONV_BS": 8}, HALO_SHAPES, PIECE_SHAPES),
+    ("OUT_BLOCKS", {"OUT_BLOCKS": True}, HALO_SHAPES, PIECE_SHAPES),
+    ("PACKED_OUT", {"PACKED_OUT": True}, HALO_SHAPES, PIECE_SHAPES),
+    ("POLICY_SPLIT_STEM", {"POLICY_SPLIT_STEM": True}, HALO_SHAPES,
+     PIECE_SHAPES),
+    ("POLICY_STEM_CONV4=0", {"POLICY_STEM_CONV4": False}, HALO_SHAPES,
+     PIECE_SHAPES),
+    # every switch that combines (PACKED_OUT yields to OUT_BLOCKS, the split
+    # stem needs the conv4 stem, TALL_CONV_BS finds no conv BORDER_CONV
+    # leaves it)
+    ("all", {"BORDER_CONV": True, "S2D_STEM": True, "STEM_PLANE_POOL": False,
+             "TALL_CONV_BS": 8, "OUT_BLOCKS": True, "POLICY_SPLIT_STEM": True},
+     HALO_SHAPES[:1], PIECE_SHAPES[1:] + [(64, 64)] + HALO_SHAPES[1:]),
+]
+# equal grids in the bf16 run: the same numbers in another layout
+LAYOUT_SWITCHES = ("OUT_BLOCKS", "PACKED_OUT")
+# equal grids with fp32 policy convs (bf16 ones round the two forms apart)
+STEM_FORMS = ("POLICY_SPLIT_STEM", "POLICY_STEM_CONV4=0")
+SWITCH_TOL = 3e-2
+# 14c: the share of each frame's kept boxes that must pair, and the unpaired
+# boxes (both sides, all at a cut) allowed a frame over the clip; bf16
+# rounding swaps a few boxes at the 100th kept score (98-99 of 100 paired,
+# 22 unpaired over 9 frames on the H100)
+BOX_PAIRED, BOX_UNPAIRED = 0.95, 4
+
+
+def _clip_agreement(ref, got):
+    """Frames (from the first) whose grids equal the reference run's, and
+    the largest output error over those frames relative to the largest
+    |reference output| (later frames ran other blocks)."""
+    same = 0
+    for a, b in zip(ref["grids"], got["grids"]):
+        if not torch.equal(a, b):
+            break
+        same += 1
+    err = max((o - r).abs().max().item() / r.abs().max().item()
+              for o, r in zip(got["outs"][:same], ref["outs"][:same]))
+    return same, err
+
+
+def phase_switches():
+    """(14a) the main path (phase 4's parameters, frames, capacity) with
+    injected draws, switch off and under each lowering of ``SWITCH_RUNS``,
+    set in-process (``tools/measure.py`` ``switches``): no host sync, the
+    K1 and K2 launches a frame, ms/frame, and agreement with the switch-off
+    run; then the switch-off run and the two stem forms again with fp32
+    policy convs."""
+    from blockcopy_tpu_torch.tools.measure import (swiftnet_stepper,
+                                                   switches,
+                                                   synthetic_frames)
+
+    torch.backends.cudnn.allow_tf32 = True
+    frame_shape, steps, dtype = (1, 1024, 2048, 3), 12, torch.bfloat16
+    params, stepper = swiftnet_stepper("resnet50", frame_shape, K, dtype,
+                                       "cuda", train_interval=4)
+    frames = synthetic_frames(frame_shape, steps + 1, dtype)
+    gen = torch.Generator().manual_seed(14)
+    draws = [(torch.rand((N, GH, GW), generator=gen).cuda(),
+              torch.rand((N * GH * GW,), generator=gen).cuda())
+             for _ in range(steps)]
+
+    def run(tag, sw, strips, pieces):
+        per_frame = {"halo_strips": len(strips),
+                     "halo_pieces": len(pieces),
+                     "bottleneck_tail": len(TAIL_SHAPES)}
+        with switches(**sw):
+            _, launches, ms, trained, kept, peak = _drive_stepper(
+                f"14a {tag}", stepper, params, frames, per_frame,
+                watch=lambda st: (st["prev_grid"].clone(),
+                                  stepper.fetch_outputs(st).clone()),
+                draws=draws)
+        outs = [o for _, o in kept]
+        if not all(bool(torch.isfinite(o.float()).all()) for o in outs):
+            raise AssertionError(f"14a {tag}: non-finite outputs")
+        return {"ms": statistics.median(ms[2:]), "peak_gib": peak,
+                "per_frame": per_frame, "launches": launches,
+                "trained": trained, "grids": [g for g, _ in kept],
+                "outs": [o.float() for o in outs]}
+
+    ref = run("off", {}, HALO_SHAPES, PIECE_SHAPES)
+    log(f"[14a] off: {ref['ms']:.2f} ms/frame, 0 host syncs, per frame "
+        f"{ref['per_frame']}, policy updated at frames {ref['trained']}")
+    out = {"off": {"ms": ref["ms"], "per_frame": ref["per_frame"],
+                   "launches": ref["launches"]}}
+    for tag, sw, strips, pieces in SWITCH_RUNS:
+        got = run(tag, sw, strips, pieces)
+        same, err = _clip_agreement(ref, got)
+        frames_n = len(ref["grids"])
+        log(f"[14a] {tag}: {got['ms']:.2f} ms/frame (off "
+            f"{ref['ms']:.2f}), 0 host syncs, per frame "
+            f"{got['per_frame']}, peak {got['peak_gib']:.2f} GiB; grids "
+            f"equal to off's on frames 1-{same} of {frames_n}, outputs "
+            f"there within {err:.3g} of the largest |off output| (tol "
+            f"{SWITCH_TOL})")
+        if err > SWITCH_TOL or (tag in LAYOUT_SWITCHES and same < frames_n):
+            raise AssertionError(f"14a {tag} disagrees with the switch-off "
+                                 f"run: {same} equal grids, err {err:.3g}")
+        out[tag] = {"ms": got["ms"], "per_frame": got["per_frame"],
+                    "launches": got["launches"], "equal_grids": same,
+                    "max_rel_err": err}
+        del got
+    del ref
+
+    # the stem forms' grids, with fp32 policy convs (TF32 off)
+    torch.backends.cudnn.allow_tf32 = False
+    with switches(POLICY_COMPUTE=torch.float32):
+        ref32 = run("off, fp32 policy", {}, HALO_SHAPES, PIECE_SHAPES)
+        for tag, sw, strips, pieces in SWITCH_RUNS:
+            if tag not in STEM_FORMS:
+                continue
+            got = run(f"{tag}, fp32 policy", sw, strips, pieces)
+            same, err = _clip_agreement(ref32, got)
+            log(f"[14a] {tag} with fp32 policy convs: grids equal to off's "
+                f"on frames 1-{same} of {len(ref32['grids'])}, outputs "
+                f"within {err:.3g}")
+            if same < len(ref32["grids"]) or err > SWITCH_TOL:
+                raise AssertionError(f"14a {tag}: the stem form changes "
+                                     f"the grids ({same} equal)")
+            out[tag]["fp32_policy_equal_grids"] = same
+            out[tag]["fp32_policy_max_rel_err"] = err
+    torch.backends.cudnn.allow_tf32 = True
+    return out
+
+
+# (14b) GPU against CPU: every switch BORDER_CONV leaves something to do,
+# then those it preempts or that exclude the first set
+SMALL_SWITCH_RUNS = [
+    ("all", {"BORDER_CONV": True, "S2D_STEM": True, "STEM_PLANE_POOL": False,
+             "TALL_CONV_BS": 8, "OUT_BLOCKS": True,
+             "POLICY_SPLIT_STEM": True}),
+    ("rest", {"TALL_CONV_BS": 8, "PACKED_OUT": True,
+              "POLICY_STEM_CONV4": False}),
+]
+
+
+def phase_switches_modes():
+    """(14b) the step on the GPU against the CPU (plain versions) under the
+    switches, as phase 5: RN50 256x512 fp32, capacity 4, 3 frames.  Each
+    run counts its calls of the s2d stem conv, which must run on both
+    devices under ``S2D_STEM`` (the plane-pool stem preempts it)."""
+    from blockcopy_tpu_torch.ops import kernels, layers
+    from blockcopy_tpu_torch.tools.measure import switches
+
+    real_s2d = layers._s2d_stem_conv
+    s2d_calls = []
+
+    def counted_s2d(*args, **kwargs):
+        s2d_calls[-1] += 1
+        return real_s2d(*args, **kwargs)
+
+    def run(device, plane_stem):
+        s2d_calls.append(0)
+        return _small_run("resnet50", device, plane_stem=plane_stem)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    layers._s2d_stem_conv = counted_s2d
+    try:
+        with switches(POLICY_COMPUTE=torch.float32):
+            for tag, sw in SMALL_SWITCH_RUNS:
+                # _small_run sets the plane pool: hand it the run's own
+                plane_stem = sw.get("STEM_PLANE_POOL", True)
+                with switches(**sw):
+                    kernels.reset_launches()
+                    gpu = run("cuda", plane_stem)
+                    used = dict(kernels.launches)
+                    cpu = run("cpu", plane_stem)
+                err = rel_err(gpu, cpu)
+                s2d = s2d_calls[-2:]
+                log(f"[14b] {tag} {sw}: RN50 256x512 fp32 capacity 4, 3 "
+                    f"frames, GPU (kernels {used}) vs CPU: {err:.3g} of the "
+                    f"largest |CPU output| (tol 1e-3); s2d stem conv calls "
+                    f"GPU, CPU {s2d}")
+                want_pieces = sw.get("BORDER_CONV", False)
+                want_s2d = sw.get("S2D_STEM", False) and not plane_stem
+                if (err > 1e-3 or not used["bottleneck_tail_f32"]
+                        or not used["halo_strips"]
+                        or want_pieces and not used["halo_pieces"]
+                        or (min(s2d) == 0 if want_s2d else max(s2d) > 0)):
+                    raise AssertionError(f"14b {tag}: GPU step disagrees "
+                                         f"or took another stem ({s2d})")
+                out[tag] = {"max_rel_err": err, "launches": used,
+                            "s2d_stem_calls": s2d}
+    finally:
+        layers._s2d_stem_conv = real_s2d
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.allow_tf32 = True
+    return out
+
+
+def _box_sets(ref, got, thr, tol=SWITCH_TOL):
+    """Two frames' (dets, labels, valid): each kept box of one paired with
+    a kept box of the other (IoU >= 0.9, same label, one to one), scores
+    within ``tol``; a box without a partner is allowed only at a cut that
+    bf16 may put it on either side of: its score within ``tol`` of ``thr``,
+    or, where a set is full (every slot valid), of that set's lowest kept
+    score.  Returns (pairs, unpaired marginal boxes, largest score
+    difference, the smaller kept set, the reference's kept boxes within
+    ``tol`` of a cut: those the band would let go unpaired)."""
+    def kept(d):
+        dets, labels, valid = (t.cpu() for t in d)
+        return dets[valid].float(), labels[valid]
+
+    cuts = [thr] + [float(d[0][d[2]][:, 4].min()) for d in (ref, got)
+                    if bool(d[2].all())]
+
+    def area(d):
+        return (d[:, 2] - d[:, 0]) * (d[:, 3] - d[:, 1])
+
+    (rd, rl), (gd, gl) = kept(ref), kept(got)
+    lt = torch.maximum(rd[:, None, :2], gd[None, :, :2])
+    rb = torch.minimum(rd[:, None, 2:4], gd[None, :, 2:4])
+    inter = (rb - lt).clamp_min(0).prod(-1)
+    iou = inter / (area(rd)[:, None] + area(gd)[None, :] - inter)
+    iou[rl[:, None] != gl[None, :]] = 0
+    pairs, score_err, used, unpaired = 0, 0.0, set(), []
+    for i in range(len(rd)):
+        free = iou[i].clone()
+        free[list(used)] = 0
+        j = int(free.argmax()) if len(gd) else -1
+        if j >= 0 and free[j] >= 0.9:
+            used.add(j)
+            pairs += 1
+            score_err = max(score_err, abs(float(rd[i, 4] - gd[j, 4])))
+        else:
+            unpaired.append(float(rd[i, 4]))
+    unpaired += [float(gd[j, 4]) for j in range(len(gd)) if j not in used]
+    band = sum(min(abs(float(s) - c) for c in cuts) <= tol for s in rd[:, 4])
+    if score_err > tol or any(min(abs(s - c) for c in cuts) > tol
+                              for s in unpaired):
+        raise AssertionError(f"kept boxes differ: {pairs} paired, unpaired "
+                             f"scores {unpaired}, score err {score_err:.3g}")
+    return pairs, len(unpaired), score_err, min(len(rd), len(gd)), band
+
+
+def phase_switches_detection():
+    """(14c) phase 9's detection step (CSP-R50 ``CSPConfig()``, 1024x2048
+    bf16, K = 38) under ``TOPK='approx'``, ``DECODE_LEAN_POINTS=0`` and
+    ``BORDER_CONV``, against the switch-off step on the same frames and
+    draws.  The draws execute a random set of exactly K blocks, so both
+    runs take the same grids: 8 steps, the kept boxes held as sets."""
+    from blockcopy_tpu_torch.tools.measure import (csp_stepper, switches,
+                                                   synthetic_frames)
+
+    torch.backends.cudnn.allow_tf32 = True
+    frame_shape, steps, dtype = (1, 1024, 2048, 3), 8, torch.bfloat16
+    params, stepper = csp_stepper(frame_shape, DET_K, dtype, "cuda")
+    params["head"]["csp_cls"]["b"].zero_()
+    frames = synthetic_frames(frame_shape, steps + 1, dtype)
+    gen = torch.Generator().manual_seed(15)
+    total = N * GH * GW
+    draws = []
+    for _ in range(steps):
+        u = torch.full((total,), 2.0)
+        u[torch.randperm(total, generator=gen)[:DET_K]] = -1.0
+        draws.append((u.view(N, GH, GW).cuda(),
+                      torch.rand((total,), generator=gen).cuda()))
+    sw = {"TOPK": "approx", "DECODE_LEAN_POINTS": False, "BORDER_CONV": True}
+    runs = {}
+    for tag, cfg, strips, pieces in (
+            ("off", {}, DET_HALO_SHAPES, PIECE_SHAPES),
+            ("on", sw, DET_HALO_SHAPES[:1],
+             PIECE_SHAPES + DET_HALO_SHAPES[1:])):
+        per_frame = {"halo_strips": len(strips), "halo_pieces": len(pieces),
+                     "bottleneck_tail": len(DET_TAIL_SHAPES)}
+        with switches(**cfg):
+            _, launches, ms, _, kept, _ = _drive_stepper(
+                f"14c {tag}", stepper, params, frames, per_frame,
+                watch=lambda st: tuple(t.clone()
+                                       for t in stepper.fetch_outputs(st)),
+                draws=draws)
+        runs[tag] = {"ms": statistics.median(ms[2:]), "per_frame": per_frame,
+                     "launches": launches, "dets": kept}
+    thr = stepper.csp_cfg.score_thr
+    paired, kept_n, band, marginal, score_err = [], [], [], 0, 0.0
+    for a, b in zip(runs["off"]["dets"], runs["on"]["dets"]):
+        p, m, e, n_kept, n_band = _box_sets(a, b, thr)
+        paired.append(p)
+        kept_n.append(n_kept)
+        band.append(n_band)
+        marginal += m
+        score_err = max(score_err, e)
+    log(f"[14c] CSP-R50 1024x2048 bf16, K {DET_K}, {steps} steps, switches "
+        f"{sw}: {runs['on']['ms']:.2f} ms/frame (off "
+        f"{runs['off']['ms']:.2f}), 0 host syncs, per frame "
+        f"{runs['on']['per_frame']}; kept boxes paired per frame {paired} "
+        f"of {kept_n}, {marginal} unpaired within {SWITCH_TOL} of score_thr "
+        f"{thr} or of a full set's lowest kept score (off's kept boxes in "
+        f"that band per frame {band}; at least {BOX_PAIRED:.0%} paired a "
+        f"frame, at most {BOX_UNPAIRED} unpaired a frame over the clip), "
+        f"scores within {score_err:.3g}")
+    if (min(kept_n) < 8
+            or any(p < BOX_PAIRED * n for p, n in zip(paired, kept_n))
+            or marginal > BOX_UNPAIRED * len(paired)):
+        raise AssertionError(f"14c: kept boxes differ: {paired} paired of "
+                             f"{kept_n}, {marginal} unpaired")
+    return {"ms": runs["on"]["ms"], "off_ms": runs["off"]["ms"],
+            "per_frame": runs["on"]["per_frame"],
+            "launches": runs["on"]["launches"], "paired": paired,
+            "kept": kept_n, "in_band": band,
+            "unpaired_marginal": marginal, "score_err": score_err}
+
+
+def switch_keys(sw_main, sw_modes, sw_det, name):
+    """The kernels line's phase-14 launches of kernel ``name``: per frame
+    under each 14a run, over each 14b GPU run, and per frame of 14c's
+    switch-on detection run."""
+    return {"switch_launches_per_frame": {
+                k: v["per_frame"].get(name, 0) for k, v in sw_main.items()},
+            "switch_gpu_cpu_launches": {
+                k: v["launches"][name] for k, v in sw_modes.items()},
+            "switch_detection_launches_per_frame":
+                sw_det["per_frame"].get(name, 0)}
+
+
 def native_keys(native_cli, capability, name):
     """The kernels line's phase-13 launches of kernel ``name``."""
     return {"native_cli_launches": native_cli["launches"][name],
@@ -2424,6 +2778,9 @@ def main() -> int:
         nio = phase_native_io(tmp)
         native_cli = phase_native_cli(tmp, cli["speed-mode"]["fps"], step_ms)
     capability = phase_capability()
+    sw_main = phase_switches()
+    sw_modes = phase_switches_modes()
+    sw_det = phase_switches_detection()
 
     def phase11_keys(name):
         return {"train_launches": train_launches[name],
@@ -2452,6 +2809,7 @@ def main() -> int:
          **phase11_keys("halo_strips"),
          **parallel_keys(par, "halo_strips"),
          **native_keys(native_cli, capability, "halo_strips"),
+         **switch_keys(sw_main, sw_modes, sw_det, "halo_strips"),
          "max_abs_err": halo["err"], "ms": halo["strips"],
          "plain_ms": halo["strips_plain"], "bound_ms": halo["bound"],
          "bound_by": "bytes", **common},
@@ -2466,6 +2824,7 @@ def main() -> int:
          "detection_ladder_launches": dl_launches["halo_pieces"],
          **parallel_keys(par, "halo_pieces"),
          **native_keys(native_cli, capability, "halo_pieces"),
+         **switch_keys(sw_main, sw_modes, sw_det, "halo_pieces"),
          "block256_ms": pieces["block256"]["kernel"],
          "block256_plain_ms": pieces["block256"]["plain"],
          "block256_bound_ms": pieces["block256"]["bound"],
@@ -2500,6 +2859,7 @@ def main() -> int:
          **phase11_keys("bottleneck_tail"),
          **parallel_keys(par, "bottleneck_tail"),
          **native_keys(native_cli, capability, "bottleneck_tail"),
+         **switch_keys(sw_main, sw_modes, sw_det, "bottleneck_tail"),
          "max_abs_err": tail["bf16"]["err"], "ms": tail["bf16"]["kernel"],
          "plain_ms": tail["bf16"]["plain"], "bound_ms": tail["bf16"]["bound"],
          "bound_by": tail["bf16"]["by"], **common},
@@ -2536,6 +2896,7 @@ def main() -> int:
          "detection_ladder_max_abs_err": dl_kern["tail_err"]["f32"],
          **parallel_keys(par, "bottleneck_tail_f32"),
          **native_keys(native_cli, capability, "bottleneck_tail_f32"),
+         **switch_keys(sw_main, sw_modes, sw_det, "bottleneck_tail_f32"),
          "max_abs_err": tail["f32"]["err"], "ms": tail["f32"]["kernel"],
          "plain_ms": tail["f32"]["plain"], "bound_ms": tail["f32"]["bound"],
          "bound_by": tail["f32"]["by"], **common},
@@ -2592,6 +2953,13 @@ def main() -> int:
         f"ms a frame; validate_capability (reduced) exec rate "
         + ", ".join(f"{k} {v['result']['exec_rate_final_mean']:.3f}"
                     for k, v in capability.items())
+        + "; off-by-default lowerings (14a) ms/frame "
+        + ", ".join(f"{k} {v['ms']:.2f}" for k, v in sw_main.items())
+        + ", GPU vs CPU (14b) "
+        + ", ".join(f"{k} {v['max_rel_err']:.3g}"
+                    for k, v in sw_modes.items())
+        + f", detection (14c) {sw_det['ms']:.2f} ms/frame against "
+        f"{sw_det['off_ms']:.2f} off"
         + f"; total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kern}))

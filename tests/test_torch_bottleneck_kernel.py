@@ -3,6 +3,8 @@
 JAX unfused path over 3-frame partial-grid clips.  The CUDA kernel is held
 against the plain version in ``test_torch_kernels_gpu.py``."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -172,21 +174,35 @@ def test_prepared_cache_follows_in_place_updates(monkeypatch):
     assert len(calls) == 4
 
 
-def _run(pkg, fused, frames, grids, params, n=1, gh=2, gw=4):
-    """One bottleneck over a clip: outputs and strip canvases per frame."""
+def _frame(pkg, params, frame, grid, canvases, cap, building, n, gh, gw):
+    """One frame of the bottleneck: its output and the canvases."""
     S, G, Ctx, split, to = pkg
+    idx = G.exec_indices(to(grid), cap)
+    ctx = Ctx.blocked(idx, n, gh, gw, canvases, building=building)
+    out = S._bottleneck_block(ctx, "bn", split(to(frame), idx, n, gh, gw),
+                              params, stride=1)
+    return out.data, ctx.canvases
+
+
+def _run(pkg, fused, frames, grids, params, n=1, gh=2, gw=4):
+    """One bottleneck over a clip: outputs and strip canvases per frame.
+    JAX's frame is jitted, traced with the switch set (eager JAX compiles
+    every op)."""
+    S = pkg[0]
+    step = functools.partial(_frame, pkg)
+    if S is JS:
+        step = jax.jit(step, static_argnames=("cap", "building", "n", "gh",
+                                              "gw"))
     old = S.FUSED_BOTTLENECK
     S.FUSED_BOTTLENECK = fused
     try:
         outs, canv = [], []
         canvases = {}
         for t, (frame, grid) in enumerate(zip(frames, grids)):
-            idx = G.exec_indices(to(grid), int(grid.sum()))
-            ctx = Ctx.blocked(idx, n, gh, gw, canvases, building=t == 0)
-            out = S._bottleneck_block(ctx, "bn", split(to(frame), idx, n, gh,
-                                                        gw), params, stride=1)
-            outs.append(out.data)
-            canvases = ctx.canvases
+            out, canvases = step(params, frame, grid, canvases,
+                                 cap=int(grid.sum()), building=t == 0, n=n,
+                                 gh=gh, gw=gw)
+            outs.append(out)
             canv.append({k: np.array(v) if not isinstance(v, torch.Tensor)
                          else v.clone() for k, v in canvases["bn.conv2"]
                          .items()})

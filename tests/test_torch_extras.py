@@ -121,7 +121,7 @@ def test_deform_conv2d_grad():
     def jloss(x_, o_, w_, m_):
         return jnp.sum(JE.deform_conv2d(x_, o_, w_, jnp.asarray(b),
                                         deformable_groups=2, mask=m_) * cot)
-    refs = jax.grad(jloss, argnums=(0, 1, 2, 3))(
+    refs = jax.jit(jax.grad(jloss, argnums=(0, 1, 2, 3)))(
         *map(jnp.asarray, (x, off, wt, mask)))
     ts = [tt(a).requires_grad_(True) for a in (x, off, wt, mask)]
     out = TE.deform_conv2d(ts[0], ts[1], ts[2].permute(3, 2, 0, 1), tt(b),

@@ -2,6 +2,9 @@
 package: index maths, split/scatter, strips, halo gathers and the exchange
 over 3-frame partial-grid clips (canvases compared every frame)."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,14 +31,17 @@ def test_grid_functions(n):
     assert TG.num_blocks(n, gh, gw) == JG.num_blocks(n, gh, gw) == total
     with pytest.raises(ValueError):
         TG.grid_shape(100, 160, 32)
+    # JAX's side jitted per capacity (eager JAX compiles every op)
+    jexec = jax.jit(JG.exec_indices, static_argnums=1)
+    jneigh = jax.jit(JG.neighbor_indices, static_argnums=(1, 2, 3))
     for grid in _grids(rs, n, gh, gw, 7):
         count = int(grid.sum())
         for cap in {max(count, 1), count + 3, total, total + 2}:
-            ref = JG.exec_indices(jnp.asarray(grid), cap)
+            ref = jexec(jnp.asarray(grid), cap)
             got = TG.exec_indices(torch.from_numpy(grid), cap)
             assert got.dtype == torch.int64
             assert_same(ref, got, f"cap {cap}")
-            assert_same(JG.neighbor_indices(ref, n, gh, gw),
+            assert_same(jneigh(ref, n, gh, gw),
                         TG.neighbor_indices(got, n, gh, gw))
 
 
@@ -80,21 +86,30 @@ def _snap(tree):
     return np.array(npf(tree))
 
 
+def _clip_frame(B, G, to, pad, n, gh, gw, pieces, frame, grid, canvases,
+                cap, building):
+    idx = G.exec_indices(to(grid), cap)
+    ctx = B.ExecCtx.blocked(idx, n, gh, gw, canvases, building=building)
+    pack = B.split_dense(to(frame), idx, n, gh, gw)
+    exchange = ctx.exchange_pieces if pieces else ctx.exchange
+    return exchange("c", pack, pad), ctx.canvases
+
+
 def _run_clip(B, G, to, impl, frames, grids, pad, n, gh, gw, pieces):
-    """Exchange (or exchange_pieces) over a clip through one package."""
+    """Exchange (or exchange_pieces) over a clip through one package; JAX's
+    frame jitted, traced with the mode set (eager JAX compiles every op)."""
+    step = functools.partial(_clip_frame, B, G, to, pad, n, gh, gw, pieces)
+    if B is JB:
+        step = jax.jit(step, static_argnames=("cap", "building"))
     old = B.HALO_IMPL
     B.HALO_IMPL = impl
     try:
         outs, states = [], []
         canvases = {}
         for t, (frame, grid) in enumerate(zip(frames, grids)):
-            idx = G.exec_indices(to(grid), int(grid.sum()) + 1)
-            ctx = B.ExecCtx.blocked(idx, n, gh, gw, canvases,
-                                    building=t == 0)
-            pack = B.split_dense(to(frame), idx, n, gh, gw)
-            exchange = ctx.exchange_pieces if pieces else ctx.exchange
-            outs.append(exchange("c", pack, pad))
-            canvases = ctx.canvases
+            out, canvases = step(frame, grid, canvases,
+                                 cap=int(grid.sum()) + 1, building=t == 0)
+            outs.append(out)
             states.append(_snap(canvases))
         return outs, states
     finally:

@@ -3,6 +3,9 @@
 (interpret mode).  The CUDA kernel is held against the plain versions in
 ``test_torch_kernels_gpu.py``."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,9 +21,16 @@ from torch_port_util import two_torch_threads  # noqa: F401
 
 def _case(pad, partial, dtype, n=1, gh=3, gw=4, bs=8, c=16, seed=0):
     rs = np.random.RandomState(seed)
-    total = n * gh * gw
     prev = jnp.asarray(rs.randn(n, gh * bs, gw * bs, c).astype(dtype))
     cur = jnp.asarray(rs.randn(n, gh * bs, gw * bs, c).astype(dtype))
+    return _jax_case(prev, cur, pad, partial, n, gh, gw) + ((n, gh, gw),)
+
+
+# JAX jitted (eager JAX compiles every op)
+@functools.partial(jax.jit, static_argnums=(2, 3, 4, 5, 6))
+def _jax_case(prev, cur, pad, partial, n, gh, gw):
+    bs, c = prev.shape[1] // gh, prev.shape[-1]
+    total = n * gh * gw
     idx_all = JG.exec_indices(jnp.ones((n, gh, gw), bool), total)
     canvas = JB.scatter_pack(JB.alloc_canvas(n, gh, gw, bs, c, prev.dtype),
                              JB.split_dense(prev, idx_all, n, gh, gw))
@@ -35,7 +45,7 @@ def _case(pad, partial, dtype, n=1, gh=3, gw=4, bs=8, c=16, seed=0):
     pack = JB.split_dense(cur, idx, n, gh, gw)
     canvas = JB.scatter_pack(canvas, pack)
     strips = JB.scatter_strips(strips, pack, pad)
-    return canvas, strips, idx, pack.data, (n, gh, gw)
+    return canvas, strips, idx, pack.data
 
 
 @pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
@@ -43,9 +53,13 @@ def _case(pad, partial, dtype, n=1, gh=3, gw=4, bs=8, c=16, seed=0):
 @pytest.mark.parametrize("pad", [1, 3])
 def test_plain_versions_match_jax(pad, partial, dtype):
     canvas, strips, idx, center, geo = _case(pad, partial, dtype)
-    ref = JB.halo_gather(canvas, idx, pad, *geo, center=center)
-    assert_same(ref, JB.halo_gather_strips(strips, idx, pad, *geo, center))
-    assert_same(ref, halo_gather_pallas(canvas, idx, pad, *geo, center))
+    static = (2, 3, 4, 5)
+    ref = jax.jit(JB.halo_gather, static_argnums=static)(
+        canvas, idx, pad, *geo, center=center)
+    assert_same(ref, jax.jit(JB.halo_gather_strips, static_argnums=static)(
+        strips, idx, pad, *geo, center))
+    assert_same(ref, jax.jit(halo_gather_pallas, static_argnums=static)(
+        canvas, idx, pad, *geo, center))
     tidx = tt(idx).long()
     tstrips = {k: tt(v) for k, v in strips.items()}
     before = dict(kernels.launches)

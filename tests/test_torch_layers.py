@@ -2,6 +2,9 @@
 package: convs dense and blocked, pools, resizes, and the s2d plane stem
 over a 3-frame clip."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -146,22 +149,30 @@ def test_stem_pool_s2d_clip(dtype):
     b = (0.1 * rs.randn(cout)).astype(np.float32).astype(dtype)
     grids = [np.ones((n, gh, gw), bool), rs.rand(n, gh, gw) < 0.5,
              rs.rand(n, gh, gw) < 0.5]
+
+    # JAX's frame jitted (eager JAX compiles every op)
+    @functools.partial(jax.jit, static_argnames=("cap", "building"))
+    def jframe(x, grid, canvases, cap, building):
+        jidx = JG.exec_indices(grid, cap)
+        jctx = JCtx.blocked(jidx, n, gh, gw, canvases, building=building)
+        ref = JL.stem_pool_s2d(jctx, "conv1", "pool",
+                               jsplit(x, jidx, n, gh, gw), jnp.asarray(w),
+                               jnp.asarray(s), jnp.asarray(b))
+        return ref.data, jctx.canvases
+
     jcv, tcv = {}, {}
     for t, grid in enumerate(grids):
         x = rs.randn(n, gh * bs, gw * bs, 3).astype(dtype)
-        jidx = JG.exec_indices(jnp.asarray(grid), int(grid.sum()) + 1)
+        ref, jcv = jframe(jnp.asarray(x), jnp.asarray(grid), jcv,
+                          cap=int(grid.sum()) + 1, building=t == 0)
         tidx = TG.exec_indices(torch.from_numpy(grid), int(grid.sum()) + 1)
-        jctx = JCtx.blocked(jidx, n, gh, gw, jcv, building=t == 0)
         tctx = TCtx.blocked(tidx, n, gh, gw, tcv, building=t == 0)
-        ref = JL.stem_pool_s2d(jctx, "conv1", "pool",
-                               jsplit(jnp.asarray(x), jidx, n, gh, gw),
-                               jnp.asarray(w), jnp.asarray(s), jnp.asarray(b))
         got = TL.stem_pool_s2d(tctx, "conv1", "pool",
                                tsplit(tt(x), tidx, n, gh, gw), oihw(w),
                                tt(s), tt(b))
-        jcv, tcv = jctx.canvases, tctx.canvases
+        tcv = tctx.canvases
         assert got.data.shape == (grid.sum() + 1, bs // 4, bs // 4, cout)
-        assert_close(ref.data, got.data, tol(dtype), msg=f"frame {t}")
+        assert_close(ref, got.data, tol(dtype), msg=f"frame {t}")
         assert_tree(_snap(jcv["conv1.s2d"]), _snap(tcv["conv1.s2d"]),
                     assert_same)
         assert_tree(_snap(jcv["pool.planes"]), _snap(tcv["pool.planes"]),

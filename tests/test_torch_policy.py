@@ -55,9 +55,12 @@ def test_forward_and_bn_state(arch, compute, monkeypatch):
     params, bn_state, x = _setup(arch)
     tp = params_from_jax(jtree(params), device="cpu")
     ts = params_from_jax(jtree(bn_state), device="cpu")
+    # JAX jitted (eager JAX compiles every op); traced after the patch
+    japply = jax.jit(JN.policy_net_apply,
+                     static_argnames=("update_stats", "arch"))
     for update in (True, False):
-        ref, ref_s = JN.policy_net_apply(params, bn_state, jnp.asarray(x),
-                                         update_stats=update, arch=arch)
+        ref, ref_s = japply(params, bn_state, jnp.asarray(x),
+                            update_stats=update, arch=arch)
         got, got_s = TN.policy_net_apply(tp, ts, tt(x), update_stats=update,
                                          arch=arch)
         assert got.shape == (2, 2, 4, 1) and got.dtype == torch.float32
@@ -87,7 +90,7 @@ def test_reinforce_grads_and_rmsprop(arch, monkeypatch):
             jax.nn.log_sigmoid(-l)
         return jnp.mean(-logp * signed)
 
-    jgrads = jax.grad(jloss)(params)
+    jgrads = jax.jit(jax.grad(jloss))(params)
     tp = params_from_jax(jtree(params), device="cpu")
     leaves = TO.tree_map(lambda a: a.clone().requires_grad_(True), tp)
     ts = params_from_jax(jtree(bn_state), device="cpu")
@@ -113,8 +116,10 @@ def test_reinforce_grads_and_rmsprop(arch, monkeypatch):
     # one RMSprop step, then a second from the carried state, on JAX's grads
     jopt, topt = JO.init(params), TO.init(tp)
     jp, tq = params, tp
+    jupdate = jax.jit(lambda g, o, q: JO.update(g, o, q, lr=1e-2,
+                                                momentum=0.9))
     for _ in range(2):
-        jp, jopt = JO.update(jgrads, jopt, jp, lr=1e-2, momentum=0.9)
+        jp, jopt = jupdate(jgrads, jopt, jp)
         tg = params_from_jax(jtree(jgrads), device="cpu")
         tq, topt = TO.update(tg, topt, tq, lr=1e-2, momentum=0.9)
     assert_tree(jtree(jp), params_to_numpy(tq), _close(1e-6))
@@ -141,10 +146,10 @@ def test_assemble_policy_input():
     fs = rs.randn(1, 64, 128, 3).astype(np.float32)
     out = rs.randn(1, 64, 128, 19).astype(np.float32)
     grid = (rs.rand(1, 2, 4) < 0.5).astype(np.float32)
+    jassemble = jax.jit(JN.assemble_policy_input, static_argnums=(4, 5))
     for jd, td in ((jnp.float32, torch.float32),
                    (jnp.bfloat16, torch.bfloat16)):
-        ref = JN.assemble_policy_input(*map(jnp.asarray, (frame, fs, out,
-                                                          grid)), 128, jd)
+        ref = jassemble(*map(jnp.asarray, (frame, fs, out, grid)), 128, jd)
         got = TN.assemble_policy_input(*map(tt, (frame, fs, out, grid)), 128,
                                        td)
         assert got.dtype == td

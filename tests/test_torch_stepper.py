@@ -93,14 +93,16 @@ def test_clip_matches_jax(monkeypatch):
                     "generator": ts["policy"]["generator"]}
 
     frames = moving_square_frames(SHAPE, 4)
-    js = jst.first_step(jparams, js, jnp.asarray(frames[0]))
+    # JAX's steps jitted (eager JAX compiles every op); the port runs eager
+    jfirst, jstep = jax.jit(jst.first_step), jax.jit(jst.step)
+    js = jfirst(jparams, js, jnp.asarray(frames[0]))
     ts = tst.first_step(tparams, ts, tt(frames[0]))
     _compare_states(js, ts, 1)
     heads = [npf(ts["policy"]["params"]["head1"]["w"])]
     n, gh, gw = jst.geom
     for t, frame in enumerate(frames[1:], start=2):
         u, u_rank = stepper_draws(js["policy"], (n, gh, gw), n * gh * gw)
-        js = jst.step(jparams, js, jnp.asarray(frame))
+        js = jstep(jparams, js, jnp.asarray(frame))
         ts = tst.step(tparams, ts, tt(frame), draws=(tt(u), tt(u_rank)))
         _compare_states(js, ts, t)
         assert float(ts["prev_grid"].sum()) == CAPACITY
