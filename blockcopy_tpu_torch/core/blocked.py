@@ -44,7 +44,7 @@ halo_gather_strips = halo_gather_strips_plain
 gather_halo_strips = gather_halo_strips_plain
 
 __all__ = [
-    "BlockPack", "ExecCtx", "alloc_canvas", "split_dense",
+    "BlockPack", "StripHalo", "ExecCtx", "alloc_canvas", "split_dense",
     "split_block_layout", "dense_to_block_layout", "block_layout_to_dense",
     "scatter_pack", "halo_gather", "alloc_strip_canvas", "scatter_strips",
     "gather_halo_strips", "halo_gather_strips", "is_block", "combine",
@@ -84,6 +84,34 @@ class BlockPack:
 
     def with_data(self, data: torch.Tensor) -> "BlockPack":
         return dataclasses.replace(self, data=data)
+
+
+@dataclasses.dataclass(frozen=True)
+class StripHalo:
+    """The pad-``pad`` halo of the executed blocks ``idx`` (K,) of an
+    ``(n, gh, gw)`` grid where it lies: in a halo site's strip storage,
+    ``rows`` (T+1, 2p, bs, C) and ``cols`` (T+1, bs, 2p, C) with T = n gh gw,
+    just scattered (``ExecCtx.exchange_strips``).  The fused bottleneck
+    tail reads it in place; ``pieces`` gathers its 8 pieces."""
+
+    rows: torch.Tensor
+    cols: torch.Tensor
+    idx: torch.Tensor
+    n: int
+    gh: int
+    gw: int
+    pad: int
+
+    @property
+    def strips(self) -> Dict[str, torch.Tensor]:
+        return {"rows": self.rows, "cols": self.cols}
+
+    def pieces(self) -> Dict[str, torch.Tensor]:
+        """The 8 halo pieces (``gather_halo_strips``, ``blocked.py:234``):
+        the halo kernel's ``halo_pieces`` entry, one launch, on the card;
+        its plain version on the CPU."""
+        return halo_pieces(self.strips, self.idx, self.pad, self.n, self.gh,
+                           self.gw)
 
 
 def is_block(x) -> bool:
@@ -291,16 +319,28 @@ class ExecCtx:
         return halo_gather(store, x.idx, pad, self.n, self.gh, self.gw,
                            center=center)
 
-    def exchange_pieces(self, name: str, x: BlockPack,
-                        pad: int) -> Optional[Dict[str, torch.Tensor]]:
-        """Like ``exchange`` but returns the 8 halo pieces unassembled
-        (the halo kernel's ``halo_pieces`` entry, one launch); ``None``
-        under the full-canvas modes."""
+    def exchange_strips(self, name: str, x: BlockPack,
+                        pad: int) -> Optional[StripHalo]:
+        """Scatter the current blocks' edge strips into the named strip
+        canvas, as ``exchange`` does, and return where the halo lies (a
+        ``StripHalo``), gathering nothing; ``None`` under the full-canvas
+        modes."""
         if HALO_IMPL != "strips":
             return None
         strips = self.strip_canvas_for(name, x, pad)
         scatter_strips(strips, x, pad)
-        return halo_pieces(strips, x.idx, pad, self.n, self.gh, self.gw)
+        return StripHalo(rows=strips["rows"], cols=strips["cols"],
+                         idx=x.idx, n=self.n, gh=self.gh, gw=self.gw,
+                         pad=pad)
+
+    def exchange_pieces(self, name: str, x: BlockPack,
+                        pad: int) -> Optional[Dict[str, torch.Tensor]]:
+        """Like ``exchange`` but returns the 8 halo pieces unassembled
+        (``exchange_strips`` then ``StripHalo.pieces``: the halo kernel's
+        ``halo_pieces`` entry, one launch); ``None`` under the full-canvas
+        modes."""
+        halo = self.exchange_strips(name, x, pad)
+        return None if halo is None else halo.pieces()
 
     def store_blocks(self, name: str, x: BlockPack) -> torch.Tensor:
         """Scatter blocks into the named canvas; return it in block layout."""

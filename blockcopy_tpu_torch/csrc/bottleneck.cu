@@ -3,7 +3,12 @@
 //
 // Replaces the Pallas kernel blockcopy_tpu/ops/pallas/bottleneck.py
 // (bottleneck_tail :92, _kernel :50).  The padded tile is built from h1 and
-// the 8 halo pieces of the strip exchange; numerics follow :82-89: the 3x3
+// the halo site's edge strips, just written by the strip exchange: each
+// halo pixel is read straight from its neighbour's strip (halo.cuh), so the
+// 8 pieces the JAX package gathers first (blocked.py:401-416) never reach
+// device memory and take no launch of their own.  A CTA computes its
+// block's 8 neighbour indices once, into shared memory, before it stages.
+// Numerics follow :82-89: the 3x3
 // conv accumulates in fp32, is cast to the activation dtype, then the BN2
 // multiply and add each round to that dtype, ReLU; the 1x1 accumulates in
 // fp32, is cast, BN3 multiply, add, + x, ReLU, each rounding likewise.
@@ -59,6 +64,7 @@
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 
+#include "halo.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -68,32 +74,38 @@ using bf16 = __nv_bfloat16;
 
 template <typename T>
 struct Args {
-  const T *h1, *x, *top, *bottom, *left, *right, *tl, *tr, *bl, *br;
+  const T *h1, *x;
+  const T *rows;  // (T+1, 2, bs, Cm): every block's top and bottom rows
+  const T *cols;  // (T+1, bs, 2, Cm): its left and right columns
+  const long long* idx;  // (K,) flat block indices; T: a padding slot
   const T *w2;  // (3, 3, Cm, Cm): [dy][dx][co][ci]
   const T *w3;  // (Co, Cm)
   const T *s2, *b2, *s3, *b3;
   T* y;
   int bs, cm, co;
+  int n, gh, gw;  // the grid; T = n gh gw
 };
 
-// Pixel (py, px) of block k's padded (bs+2)x(bs+2) tile: one channel row.
+// Block k's 8 neighbour indices into nb, by threads 0-7 of the CTA; the
+// caller synchronises before any padded_pixel reads them.
+template <typename T>
+__device__ __forceinline__ void block_neighbours(const Args<T>& a, int k,
+                                                 long long* nb) {
+  if (threadIdx.x < 8)
+    nb[threadIdx.x] = halo::neighbour(a.idx[k], threadIdx.x, a.n, a.gh, a.gw);
+}
+
+// Pixel (py, px) of block k's padded (bs+2)x(bs+2) tile: one channel row,
+// of h1 inside, of a neighbour's strip on the halo (nb: block k's 8
+// neighbour indices).
 template <typename T>
 __device__ __forceinline__ const T* padded_pixel(const Args<T>& a, int k,
-                                                 int py, int px) {
-  const int bs = a.bs, cm = a.cm, last = bs + 1;
-  if (py == 0) {
-    if (px == 0) return a.tl + (size_t)k * cm;
-    if (px == last) return a.tr + (size_t)k * cm;
-    return a.top + ((size_t)k * bs + px - 1) * cm;
-  }
-  if (py == last) {
-    if (px == 0) return a.bl + (size_t)k * cm;
-    if (px == last) return a.br + (size_t)k * cm;
-    return a.bottom + ((size_t)k * bs + px - 1) * cm;
-  }
-  if (px == 0) return a.left + ((size_t)k * bs + py - 1) * cm;
-  if (px == last) return a.right + ((size_t)k * bs + py - 1) * cm;
-  return a.h1 + (((size_t)k * bs + py - 1) * bs + px - 1) * cm;
+                                                 const long long* nb, int py,
+                                                 int px) {
+  const int bs = a.bs;
+  if (py >= 1 && py <= bs && px >= 1 && px <= bs)
+    return a.h1 + (((size_t)k * bs + py - 1) * bs + px - 1) * a.cm;
+  return halo::strip_pixel(a.rows, a.cols, nb, bs, 1, py, px, a.cm);
 }
 
 // ---------------------------------------------------------------- bf16 ----
@@ -189,6 +201,7 @@ tail_bf16(Args<bf16> a, const __grid_constant__ CUtensorMap map_w2,
   // per x / y buffer: x of its tile landed, y of its tile written; and the
   // padded tile read (the consumers are past the 3x3 products)
   __shared__ __align__(8) uint64_t xbar[2], ydone[2], tile_free;
+  __shared__ long long nb[8];  // the block's neighbours, for the staging
   char* smem = reinterpret_cast<char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   bf16* pad = reinterpret_cast<bf16*>(smem);  // padded tile, then x / y
@@ -213,7 +226,9 @@ tail_bf16(Args<bf16> a, const __grid_constant__ CUtensorMap map_w2,
     mbar_init(&tile_free, kConsumers);
     fence_barrier_init();
   }
-  // barriers ready, and the peer has started: its h2 takes our stores
+  block_neighbours(a, blk, nb);
+  // barriers and neighbours ready, and the peer has started: its h2 takes
+  // our stores
   cluster_sync();
 
   const int row0 = blk * L::kM;  // this block's first row of x, y (K bs^2, Co)
@@ -290,7 +305,7 @@ tail_bf16(Args<bf16> a, const __grid_constant__ CUtensorMap map_w2,
     const int px = e / kVec, v = e % kVec;
     __pipeline_memcpy_async(
         pad + px * L::kLda + v * 8,
-        padded_pixel(a, blk, px / L::kWp, px % L::kWp) + v * 8, 16);
+        padded_pixel(a, blk, nb, px / L::kWp, px % L::kWp) + v * 8, 16);
   }
   __pipeline_commit();
   __pipeline_wait_prior(0);
@@ -499,14 +514,15 @@ bool bf16_block(int bs, int cm) {
 // fp32.  Bound: operations, 3 x 2 K bs^2 Cm (9 Cm + Co) over 495 TFLOP/s
 // of TF32 (this route: 3 TF32 products per fp32 product; 0.042 ms at K = 64
 // for either RN50 shape, where fp32 outside the tensor cores, 67 TFLOP/s,
-// would take 0.104 ms); the bytes (h1, x, y, the pieces, the weights, each
+// would take 0.104 ms); the bytes (h1, x, y, the halo, the weights, each
 // once) take 0.013-0.024 ms at 3.35 TB/s.
 // Design: the tail as two GEMMs over rows m = (block, pixel) flattened
 // across blocks, so every launch spreads over all SMs whatever K is:
 // - stage A: h2 (K bs^2 x Cm) = relu(bn2(A w2)), depth 9 Cm as (tap, ci),
 //   the A row of pixel (k, oy, ox) at tap (dy, dx) being padded_pixel(k,
-//   oy + dy, ox + dx): h1 or one of the 8 pieces, so the padded tile is
-//   never built; h2 goes to the wrapper's fp32 scratch (16.8 MB at K = 128,
+//   oy + dy, ox + dx): h1 or a neighbour's strip (the 8 neighbours of each
+//   block a tile's rows reach are computed once a CTA, into shared memory),
+//   so the padded tile is never built; h2 goes to the wrapper's fp32 scratch (16.8 MB at K = 128,
 //   L2-resident for stage B);
 // - stage B: y (K bs^2 x Co) = relu(bn3(h2 w3) + x), depth Cm.
 // A CTA of 4 warps (2 x 2) computes a BM x 64 tile (BM 64, or 32 where
@@ -532,6 +548,13 @@ constexpr int kF32Stages = 3;
 template <int BM>
 constexpr int f32_smem_bytes() {
   return kF32Stages * (BM + kF32BN) * kF32Ld * 4;
+}
+
+// Blocks of bs^2 rows a BM-row tile can reach (stage A keeps their 8
+// neighbours each in shared memory): at most BM + 1, where bs is 1
+template <int BM>
+int f32_tile_blocks(int bs) {
+  return (BM - 1) / (bs * bs) + 2;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -586,6 +609,9 @@ tail_f32(Args<float> a, float* h2, int rows) {
   extern __shared__ __align__(16) float smem_f[];
   float* As = smem_f;                                // [stage][BM][kF32Ld]
   float* Bs = smem_f + kF32Stages * BM * kF32Ld;     // [stage][64][kF32Ld]
+  // stage A: [block of the tile - blk0][8] neighbour indices
+  long long* nbs =
+      reinterpret_cast<long long*>(Bs + kF32Stages * kF32BN * kF32Ld);
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t = lane % 4;
@@ -607,6 +633,13 @@ tail_f32(Args<float> a, float* h2, int rows) {
     oy[i] = p / bs;
     ox[i] = p % bs;
   }
+  const int blk0 = m0 / (bs * bs);
+  if (CONV) {
+    const int span = (min(m0 + BM, rows) - 1) / (bs * bs) - blk0 + 1;
+    for (int e = tid; e < span * 8; e += kF32Threads)
+      nbs[e] = halo::neighbour(a.idx[blk0 + e / 8], e % 8, a.n, a.gh, a.gw);
+    __syncthreads();
+  }
 
   auto load = [&](int it, int s) {
     const int tap = it / chunks, c0 = (it % chunks) * kF32BK + c4;
@@ -615,7 +648,8 @@ tail_f32(Args<float> a, float* h2, int rows) {
 #pragma unroll
     for (int i = 0; i < kAPieces; ++i) {
       const float* src =
-          CONV ? padded_pixel(a, blk[i], oy[i] + tap / 3, ox[i] + tap % 3)
+          CONV ? padded_pixel(a, blk[i], nbs + (blk[i] - blk0) * 8,
+                              oy[i] + tap / 3, ox[i] + tap % 3)
                : h2 + ((size_t)blk[i] * bs * bs + oy[i] * bs + ox[i]) * cm;
       cp_async16(as + (r0 + i * kRowStep) * kF32Ld, src + c0);
     }
@@ -731,15 +765,16 @@ int launch_f32_stage(const Args<float>& a, float* h2, int rows, int n,
                      cudaStream_t stream) {
   constexpr int kSmem = f32_smem_bytes<BM>();
   static bool raised = false;
-  if (!raised) {
+  if (!raised) {  // to what any bs may take
     cudaError_t e = cudaFuncSetAttribute(
         tail_f32<BM, CONV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmem);
+        kSmem + (CONV ? 64 * f32_tile_blocks<BM>(1) : 0));
     if (e != cudaSuccess) return (int)e;
     raised = true;
   }
+  const int smem = kSmem + (CONV ? 64 * f32_tile_blocks<BM>(a.bs) : 0);
   const dim3 grid((rows + BM - 1) / BM, n / kF32BN);
-  tail_f32<BM, CONV><<<grid, kF32Threads, kSmem, stream>>>(a, h2, rows);
+  tail_f32<BM, CONV><<<grid, kF32Threads, smem, stream>>>(a, h2, rows);
   return (int)cudaGetLastError();
 }
 
@@ -793,8 +828,9 @@ int launch_f32(const Args<float>& a, float* h2, int k, cudaStream_t stream) {
 //   CTA's h2 (st.shared::cluster), and after a cluster barrier computes
 //   y's channels [r Co/CS, (r+1) Co/CS).  (Clusters of 8 at 228 KB a CTA
 //   did not all fit on the card at once: 128 CTAs ran in two waves.)
-// - The band's padded input, (R+2) x (bs+2) pixels from h1 and the 8
-//   pieces, is staged one 64-channel chunk at a time by cp.async into
+// - The band's padded input, (R+2) x (bs+2) pixels from h1 and the
+//   neighbours' strips, is staged one 64-channel chunk at a time by
+//   cp.async into
 //   shared memory (two buffers: the next chunk lands while this one is
 //   read), pixel rows padded to 144 bytes so the 8 rows of an ldmatrix phase fall on
 //   distinct banks.  Each input pixel crosses from L2 (R+2)/R times, not 9
@@ -934,6 +970,7 @@ tail_band(Args<bf16> a, BandPlan pl,
   __shared__ __align__(8) uint64_t full[kBandStages], empty[kBandStages];
   // per x / y buffer: x of its tile landed, y of its tile written
   __shared__ __align__(8) uint64_t xbar[2], ydone[2];
+  __shared__ long long nb[8];  // the block's neighbours, for the staging
   char* ring = reinterpret_cast<char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int bs = a.bs, cm = a.cm, kcs = cm / 64, stages = pl.stages;
@@ -964,7 +1001,9 @@ tail_band(Args<bf16> a, BandPlan pl,
     }
     fence_barrier_init();
   }
-  // barriers ready, and the peers have started: their h2 takes our stores
+  block_neighbours(a, blk, nb);
+  // barriers and neighbours ready, and the peers have started: their h2
+  // takes our stores
   cluster_sync();
 
   if (threadIdx.x >= kConsumers + 32) {
@@ -1058,7 +1097,7 @@ tail_band(Args<bf16> a, BandPlan pl,
     for (int e = tid; e < (rv + 2) * wp * 8; e += kConsumers) {
       const int px = e / 8, v = e % 8;
       cp_async16(dst + px * kBandLd + v * 8,
-                 padded_pixel(a, blk, r0 + px / wp, px % wp) + kc * 64 +
+                 padded_pixel(a, blk, nb, r0 + px / wp, px % wp) + kc * 64 +
                      v * 8);
     }
   };
@@ -1308,35 +1347,42 @@ int launch_rows(const Args<bf16>& a, int k, cudaStream_t stream) {
 }
 
 template <typename T>
-Args<T> make_args(void* const* p, int bs, int cm, int co) {
+Args<T> make_args(void* const* p, int bs, int cm, int co, int n, int gh,
+                  int gw) {
   Args<T> a;
-  const T** in[] = {&a.h1, &a.x, &a.top, &a.bottom, &a.left, &a.right, &a.tl,
-                    &a.tr, &a.bl, &a.br, &a.w2, &a.w3, &a.s2, &a.b2, &a.s3,
-                    &a.b3};
-  for (int i = 0; i < 16; ++i) *in[i] = static_cast<const T*>(p[i]);
-  a.y = static_cast<T*>(p[16]);
+  const T** in[] = {&a.h1, &a.x, &a.rows, &a.cols, &a.w2, &a.w3, &a.s2,
+                    &a.b2, &a.s3, &a.b3};
+  const int at[] = {0, 1, 2, 3, 5, 6, 7, 8, 9, 10};
+  for (int i = 0; i < 10; ++i) *in[i] = static_cast<const T*>(p[at[i]]);
+  a.idx = static_cast<const long long*>(p[4]);
+  a.y = static_cast<T*>(p[11]);
   a.bs = bs;
   a.cm = cm;
   a.co = co;
+  a.n = n;
+  a.gh = gh;
+  a.gw = gw;
   return a;
 }
 
 }  // namespace
 
-// ptrs: h1, x, top, bottom, left, right, top_left, top_right, bottom_left,
-// bottom_right, w2, w3, s2, b2, s3, b3, y (17 device pointers; weights as
+// ptrs: h1, x, rows, cols, idx, w2, w3, s2, b2, s3, b3, y (12 device
+// pointers: the halo site's strips at pad 1, rows (T+1, 2, bs, Cm) and cols
+// (T+1, bs, 2, Cm) with T = n gh gw and a zero row T, and the K blocks'
+// int64 flat indices, T marking a padding slot; weights as
 // prepare_tail_weights lays them out).
 // dtype: 0 = fp32, h2_scratch (K, bs*bs, Cm) fp32 required; 1 = bf16, the
 // wgmma route where bf16_block takes the block and Co is a multiple of 256,
 // else the row route (one launch, no scratch); 2 = bf16 on the row route
 // whatever the block (to time it against the wgmma route).
 extern "C" int bottleneck_tail(void* const* ptrs, void* h2_scratch, int k,
-                               int bs, int cm, int co, int dtype,
-                               void* stream) {
+                               int bs, int cm, int co, int n, int gh, int gw,
+                               int dtype, void* stream) {
   if (k <= 0) return (int)cudaGetLastError();
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 1 || dtype == 2) {
-    const Args<bf16> a = make_args<bf16>(ptrs, bs, cm, co);
+    const Args<bf16> a = make_args<bf16>(ptrs, bs, cm, co, n, gh, gw);
     if (dtype == 1 && bf16_block(bs, cm) && co % (2 * kN1) == 0) {
       if (bs == 16) return launch_bf16<16, 128>(a, k, s);
       if (cm == 256) return launch_bf16<8, 256>(a, k, s);
@@ -1346,7 +1392,7 @@ extern "C" int bottleneck_tail(void* const* ptrs, void* h2_scratch, int k,
     return launch_rows(a, k, s);
   }
   if (cm % kF32BN || co % kF32BN) return (int)cudaErrorInvalidValue;
-  return launch_f32(make_args<float>(ptrs, bs, cm, co),
+  return launch_f32(make_args<float>(ptrs, bs, cm, co, n, gh, gw),
                     static_cast<float*>(h2_scratch), k, s);
 }
 

@@ -200,12 +200,13 @@ def _basic_block(ctx, name, x, p, stride):
 
 def _fused_bottleneck(ctx: ExecCtx, name: str, x: BlockPack, p):
     """Stride-1 identity bottleneck with the tail in the fused kernel; the h1
-    strips go to the same named canvas the unfused path uses."""
+    strips go to the same named canvas the unfused path uses, and the
+    kernel reads its halo from them in place."""
     h1 = L.conv2d(ctx, f"{name}.conv1", x, p["conv1"]["w"], padding=0)
     h1 = L.relu(L.batch_norm(h1, p["bn1"]["scale"], p["bn1"]["bias"]))
-    pieces = ctx.exchange_pieces(f"{name}.conv2", h1, 1)
+    halo = ctx.exchange_strips(f"{name}.conv2", h1, 1)
     y = bottleneck_tail(
-        h1.data, x.data, pieces,
+        h1.data, x.data, halo,
         p["conv2"]["w"], p["bn2"]["scale"], p["bn2"]["bias"],
         p["conv3"]["w"], p["bn3"]["scale"], p["bn3"]["bias"])
     c_mid = p["conv2"]["w"].shape[1]

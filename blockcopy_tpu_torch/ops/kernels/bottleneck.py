@@ -6,9 +6,12 @@ Replaces the Pallas kernel ``blockcopy_tpu/ops/pallas/bottleneck.py``
 
     y = relu(bn3(conv1x1(relu(bn2(conv3x3(pad(h1)))))) + x)
 
-with the padded 3x3 input built from ``h1`` and the 8 halo pieces of
-``ExecCtx.exchange_pieces`` at pad 1.  A CPU tensor takes the plain version;
-a CUDA tensor launches the kernel or raises.
+with the padded 3x3 input built from ``h1`` and the halo site's edge strips
+at pad 1, as ``ExecCtx.exchange_strips`` leaves them (a ``StripHalo``): the
+kernel reads each halo pixel from its neighbour's strip, so the 8 pieces the
+JAX package gathers first never exist on the card.  A CPU tensor takes the
+plain version (the pieces by ``gather_halo_strips_plain``, then
+``bottleneck_tail_plain``); a CUDA tensor launches the kernel or raises.
 
 The kernel has three routes, each counted under its own key of
 ``kernels.launches``: bf16 blocks of ``BF16_BLOCKS`` with Co a multiple of
@@ -35,7 +38,9 @@ import torch.nn.functional as F
 
 from blockcopy_tpu_torch.ops import kernels
 from blockcopy_tpu_torch.ops.kernels import build
-from blockcopy_tpu_torch.ops.kernels.halo import PIECES
+from blockcopy_tpu_torch.ops.kernels.halo import (PIECES,
+                                                  gather_halo_strips_plain)
+
 # (bs, Cm) of the blocks the bf16 wgmma route holds in shared memory, at
 # Co a multiple of 256; the row route takes the other bf16 blocks
 BF16_BLOCKS = ((16, 128), (8, 256), (8, 128))
@@ -160,6 +165,15 @@ def bottleneck_tail_plain(h1, x, pieces, w2, s2, b2, w3, s3, b3):
     return torch.clamp_min(y, 0)
 
 
+def bottleneck_tail_strips_plain(h1, x, halo, w2, s2, b2, w3, s3, b3):
+    """Plain version of ``bottleneck_tail``: the 8 pieces of ``halo`` (a
+    ``StripHalo``) by ``gather_halo_strips_plain``, then
+    ``bottleneck_tail_plain``."""
+    pieces = gather_halo_strips_plain(halo.strips, halo.idx, halo.pad,
+                                      halo.n, halo.gh, halo.gw)
+    return bottleneck_tail_plain(h1, x, pieces, w2, s2, b2, w3, s3, b3)
+
+
 def prepare_tail_weights(w2, s2, b2, w3, s3, b3, dtype=None) -> Tuple:
     """The layouts the kernels read, from the JAX-side ones: ``w2`` (Cm, Cm,
     3, 3) as (3, 3, Cm_out, Cm_in) ([dy][dx][co][ci]: each tap's rows are
@@ -199,7 +213,7 @@ def _lib():
     lib = build.library("bottleneck")
     if not getattr(lib, "_typed", False):
         lib.bottleneck_tail.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         lib.bottleneck_tail.restype = ctypes.c_int
         lib.bottleneck_rows_plan.argtypes = [ctypes.c_int] * 5 + [
@@ -220,26 +234,29 @@ def _expect(name, t, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def bottleneck_tail(h1, x, pieces, w2, s2, b2, w3, s3, b3):
+def bottleneck_tail(h1, x, halo, w2, s2, b2, w3, s3, b3):
     """Fused tail.  ``h1`` (K, bs, bs, Cm) post-conv1 activations, ``x``
-    (K, bs, bs, Co) identity, ``pieces`` the 8 halo pieces at pad 1,
-    ``w2`` (Cm, Cm, 3, 3), ``w3`` (Co, Cm, 1, 1), BN folded (C,).  Output
-    (K, bs, bs, Co) in ``h1.dtype``."""
+    (K, bs, bs, Co) identity, ``halo`` the ``StripHalo`` of ``h1``'s strip
+    exchange at pad 1 (strips ``rows`` (T+1, 2, bs, Cm) and ``cols`` (T+1,
+    bs, 2, Cm), the K blocks' indices ``idx``), ``w2`` (Cm, Cm, 3, 3),
+    ``w3`` (Co, Cm, 1, 1), BN folded (C,).  Output (K, bs, bs, Co) in
+    ``h1.dtype``."""
     if h1.device.type == "cpu":
-        return bottleneck_tail_plain(h1, x, pieces, w2, s2, b2, w3, s3, b3)
-    return _launch(h1, x, pieces, (w2, s2, b2, w3, s3, b3), rows=False)
+        return bottleneck_tail_strips_plain(h1, x, halo, w2, s2, b2, w3, s3,
+                                            b3)
+    return _launch(h1, x, halo, (w2, s2, b2, w3, s3, b3), rows=False)
 
 
-def _bottleneck_tail_rows(h1, x, pieces, w2, s2, b2, w3, s3, b3):
+def _bottleneck_tail_rows(h1, x, halo, w2, s2, b2, w3, s3, b3):
     """``bottleneck_tail`` in bf16 on the row route whatever the block, so
     that ``chip_smoke.py`` can time it at the wgmma route's blocks too.  No
     path of the port calls it."""
     if h1.dtype != torch.bfloat16:
         raise ValueError(f"the row route is bf16, got {h1.dtype}")
-    return _launch(h1, x, pieces, (w2, s2, b2, w3, s3, b3), rows=True)
+    return _launch(h1, x, halo, (w2, s2, b2, w3, s3, b3), rows=True)
 
 
-def _launch(h1, x, pieces, weights, rows):
+def _launch(h1, x, halo, weights, rows):
     dev, dt = h1.device, h1.dtype
     if dev.type != "cuda":
         raise ValueError(f"bottleneck kernel needs CUDA tensors, got {dev}")
@@ -254,16 +271,19 @@ def _launch(h1, x, pieces, weights, rows):
     if key == "bottleneck_tail_rows" and row_plan(k, bs, cm, co, 1) is None:
         raise ValueError(f"the row route has no plan for (bs {bs}, Cm {cm}) "
                          f"-> Co {co}: bs above 128 or Cm above 1024")
+    if halo.pad != 1:
+        raise ValueError(f"the tail's halo is at pad 1, got {halo.pad}")
     x = x.to(dt).contiguous()
-    piece = {name: pieces[name].to(dt).contiguous() for name in PIECES}
+    strips = {name: t.to(dt).contiguous()
+              for name, t in halo.strips.items()}
     w2p, s2p, b2p, w3p, s3p, b3p = prepared_tail_weights(*weights, dt)
     bn = [s2p, b2p, s3p, b3p]
-    shapes = {"top": (k, 1, bs, cm), "bottom": (k, 1, bs, cm),
-              "left": (k, bs, 1, cm), "right": (k, bs, 1, cm)}
+    total = halo.n * halo.gh * halo.gw
     _expect("h1", h1, (k, bs, bs, cm), dt, dev)
     _expect("x", x, (k, bs, bs, co), dt, dev)
-    for name in PIECES:
-        _expect(name, piece[name], shapes.get(name, (k, 1, 1, cm)), dt, dev)
+    _expect("rows", strips["rows"], (total + 1, 2, bs, cm), dt, dev)
+    _expect("cols", strips["cols"], (total + 1, bs, 2, cm), dt, dev)
+    _expect("idx", halo.idx, (k,), torch.int64, dev)
     _expect("w2", w2p, (3, 3, cm, cm), dt, dev)
     _expect("w3", w3p, (co, cm), dt, dev)
     for name, v, c in zip(("s2", "b2", "s3", "b3"), bn, (cm, cm, co, co)):
@@ -272,14 +292,15 @@ def _launch(h1, x, pieces, weights, rows):
     # h2 between the two launches of the fp32 route
     scratch = None if key != "bottleneck_tail_f32" else torch.empty(
         (k, bs * bs, cm), dtype=dt, device=dev)
-    tensors = [h1, x, *(piece[name] for name in PIECES), w2p, w3p, *bn, y]
+    tensors = [h1, x, strips["rows"], strips["cols"], halo.idx, w2p, w3p,
+               *bn, y]
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
     # the C entry's dtype: 0 fp32; 1 bf16, whose route it picks by the rule
     # of ``route``; 2 bf16 on the row route whatever the block
     code = 0 if dt == torch.float32 else 2 if rows else 1
     err = _lib().bottleneck_tail(
         ptrs, ctypes.c_void_p(0 if scratch is None else scratch.data_ptr()),
-        k, bs, cm, co, code,
+        k, bs, cm, co, halo.n, halo.gh, halo.gw, code,
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     build.check(err, "bottleneck_tail")
     kernels.launches[key] += 1

@@ -1,9 +1,10 @@
-"""What ``chip_smoke.py`` and the tools share: the synthetic clip, the
-SwiftNet and CSP steppers they drive, a small detection clip and a small
-train step for GPU-CPU comparisons, device timing by CUDA graph replay, and
-the body of one clip-parallel rank with the group that records its gradient
-averages, PNG files and Cityscapes-layout clips written without PIL, and
-the port's lowering switches set for a block of code."""
+"""What ``chip_smoke.py`` and the tools share: the synthetic clip, a random
+halo in strip form, the SwiftNet and CSP steppers they drive, a small
+detection clip and a small train step for GPU-CPU comparisons, device
+timing by CUDA graph replay, and the body of one clip-parallel rank with the
+group that records its gradient averages, PNG files and Cityscapes-layout
+clips written without PIL, and the port's lowering switches set for a block
+of code."""
 
 from __future__ import annotations
 
@@ -70,6 +71,34 @@ def synthetic_frames(shape, count, dtype, seed=0, device="cuda"):
         f[:, s:s + 160, s:s + 160] += 2.0
         out.append(f.to(dtype))
     return out
+
+
+def strip_halo(gen, k, bs, c, dtype, n_set=None, grid=(1, 8, 16), pad=1,
+               relu=False):
+    """A ``StripHalo`` on ``gen``'s device: random strip storage of a
+    ``grid`` of blocks (the 1024x2048 frame's at block 128 by default) with
+    zero sentinels, non-negative where ``relu`` (a halo of post-ReLU
+    activations), and ``k`` block indices, ``n_set`` of them (all by
+    default) executed blocks drawn at random, the rest padding slots."""
+    from blockcopy_tpu_torch.core import grid as G
+    from blockcopy_tpu_torch.core.blocked import StripHalo
+    n, gh, gw = grid
+    total, dev = n * gh * gw, gen.device
+
+    def strip(*shape):
+        t = torch.randn(shape, generator=gen, device=dev)
+        t = (t.clamp_min(0) if relu else t).to(dtype)
+        t[-1] = 0
+        return t
+
+    rows = strip(total + 1, 2 * pad, bs, c)
+    cols = strip(total + 1, bs, 2 * pad, c)
+    chosen = torch.zeros(total, dtype=torch.bool, device=dev)
+    order = torch.randperm(total, generator=gen, device=dev)
+    chosen[order[:k if n_set is None else n_set]] = True
+    idx = G.exec_indices(chosen.view(n, gh, gw), k)
+    return StripHalo(rows=rows, cols=cols, idx=idx, n=n, gh=gh, gw=gw,
+                     pad=pad)
 
 
 def swiftnet_stepper(backbone, frame_shape, capacity, dtype, device,

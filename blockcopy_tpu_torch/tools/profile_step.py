@@ -33,7 +33,8 @@ line holds:
 * ``k2_launches_per_step``: the bottleneck-tail wrapper's launches per
   step, by route (``ops/kernels`` ``launches``);
 * ``halo_pieces_launches_per_step``: the halo kernel's ``halo_pieces``
-  launches per step (one per fused tail and one for the stem's plane pool);
+  launches per step (one, the stem's plane pool: the fused tails read
+  their halo from the strips inside K2);
 * ``top``: the kernels with the most device time per step, by name.
 
 Without a GPU it exits non-zero; if the trace holds no device events it

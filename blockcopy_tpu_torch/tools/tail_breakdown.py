@@ -46,7 +46,7 @@ import torch
 
 from blockcopy_tpu_torch.ops.kernels import bottleneck as BT
 from blockcopy_tpu_torch.ops.kernels import build
-from blockcopy_tpu_torch.tools.measure import device_ms
+from blockcopy_tpu_torch.tools.measure import device_ms, strip_halo
 
 VARIANTS = {"full": [], "no_1x1_stage": ["-DTAIL_NO_1X1_STAGE"],
             "no_3x3_products": ["-DTAIL_NO_3X3_PRODUCTS"],
@@ -78,30 +78,31 @@ def build_variants(names=tuple(VARIANTS)):
             raise RuntimeError(f"nvcc failed for variant {name}")
         libs[name] = ctypes.CDLL(str(lib))
         libs[name].bottleneck_tail.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
     return libs
 
 
 def _inputs(bs, cm, co, gen, k=K, dtype=torch.bfloat16):
+    """The C entry's tensors and pointers at K blocks of the 1024x2048
+    block-128 grid, its halo in strip storage (``measure.strip_halo``)."""
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    shapes = {"top": (k, 1, bs, cm), "bottom": (k, 1, bs, cm),
-              "left": (k, bs, 1, cm), "right": (k, bs, 1, cm)}
-    pieces = [rnd(*shapes.get(n, (k, 1, 1, cm))) for n in BT.PIECES]
-    tensors = [rnd(k, bs, bs, cm), rnd(k, bs, bs, co), *pieces,
-               rnd(3, 3, cm, cm), rnd(co, cm), rnd(cm), rnd(cm), rnd(co),
-               rnd(co), torch.empty((k, bs, bs, co), dtype=dtype,
-                                    device="cuda")]
+    halo = strip_halo(gen, k, bs, cm, dtype)
+    tensors = [rnd(k, bs, bs, cm), rnd(k, bs, bs, co), halo.rows, halo.cols,
+               halo.idx, rnd(3, 3, cm, cm), rnd(co, cm), rnd(cm), rnd(cm),
+               rnd(co), rnd(co), torch.empty((k, bs, bs, co), dtype=dtype,
+                                             device="cuda")]
     return tensors, (ctypes.c_void_p * len(tensors))(
         *[t.data_ptr() for t in tensors])
 
 
 def _launch(lib, ptrs, scratch, k, bs, cm, co, dtype_code):
-    """One launch of ``lib``'s C entry on the current stream."""
+    """One launch of ``lib``'s C entry on the current stream (the grid of
+    ``_inputs``)."""
     return lib.bottleneck_tail(
-        ptrs, scratch, k, bs, cm, co, dtype_code,
+        ptrs, scratch, k, bs, cm, co, 1, 8, 16, dtype_code,
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
 
 

@@ -10,18 +10,25 @@ Phases (any failure raises and exits non-zero):
 2. halo kernel (both entry points) against its plain versions, bitwise, at
    every main-path shape, bf16 and fp32, pad 1 and 3, on a partial grid with
    padding slots; times at the main-path shapes; then its ``halo_pieces``
-   entry (the 8 pieces of every fused tail and of the stem's plane pool in
-   one launch) likewise at every (bs, C) of the block-128 and block-256
-   paths, timed at each path's shapes and capacity beside its bytes bound;
-3. bottleneck-tail kernel (bf16 3e-2, fp32 1e-4 with TF32 off) against its
-   plain version at the RN50 layer2 and layer3 shapes at K = 8, 64 and 128
-   (ladder mode's smallest capacity, the main path's, ladder mode's
-   largest): time per launch (the weights are prepared by the warm-up
-   calls, as on the main path) beside its bound and the plain version's,
-   each fp32 stage's device time, and the per-frame sums at K = 64; then
+   entry (the 8 pieces of the stem's plane pool in one launch: the fused
+   tails read their halo inside K2) likewise at every (bs, C) of the
+   block-128 and block-256 paths' plane pools and fused tails, timed at
+   each path's plane pool and capacity beside its bytes bound;
+3. bottleneck-tail kernel, its halo read in place from the strips of a
+   partial grid with padding slots (the full grid at K = 128; a
+   ``StripHalo``), (bf16 3e-2, fp32 1e-4 with TF32 off) against its plain
+   version (the plain gather's 8 pieces, then the plain tail) at the RN50
+   layer2 and layer3 shapes at K = 8, 64 and 128 (ladder mode's smallest
+   capacity, the main path's, ladder mode's largest): time per launch (the
+   weights are prepared by the warm-up calls, as on the main path) beside
+   its bound and the plain version's, each fp32 stage's device time, the
+   ``halo_pieces`` entry timed on the same strips (the gather's launch the
+   tail had before it read the strips), and the per-frame sums at K = 64;
+   then
    its bf16 row route (3e-2) at RN50's block-256 shapes at K = 2, 16 and 32,
    at ``wide_resnet50_2``'s block-128 shapes at K = 8, 64 and 128 and at Co
-   640, each with its launch plan (bands, cluster, pass width; one fused
+   640 (the halo likewise in strips, with ``halo_pieces`` timed beside),
+   each with its launch plan (bands, cluster, pass width; one fused
    launch) timed beside its bound and plain version, its parts (3x3
    products, 1x1 stage, staging and the rest: ``tools/tail_breakdown.py``)
    at the block-256 shapes at K = 2 and 16, and forced at the wgmma route's
@@ -31,11 +38,12 @@ Phases (any failure raises and exits non-zero):
    REINFORCE every 4th frame; ``init_state``, ``first_step`` and 12 steps,
    each step under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync
    fails the run); launch counts (zeroed just before ``init_state``: 12 K1
-   ``halo_strips``, 9 K1 ``halo_pieces`` and 8 K2 a frame), blocks per
-   step, policy updates, ms/frame and peak memory; (4b) the same at block
-   256, capacity 16 of 32: 10 K1 launches a frame (``HALO_SHAPES_256``), 11
-   ``halo_pieces`` (``PIECE_SHAPES_256``) and 10 K2 launches on its bf16
-   row route (``TAIL_SHAPES_256``), none on its other routes;
+   ``halo_strips``, 1 K1 ``halo_pieces`` (the stem's plane pool) and 8 K2
+   a frame), blocks per step, policy updates, ms/frame and peak memory;
+   (4b) the same at block 256, capacity 16 of 32: 10 K1 launches a frame
+   (``HALO_SHAPES_256``), 1 ``halo_pieces`` (``PIECE_SHAPES_256``) and 10
+   K2 launches on its bf16 row route (``TAIL_SHAPES_256``), none on its
+   other routes;
 5. modes: the step on the GPU against the same step on the CPU (plain
    versions) on a small RN50 clip, and the ``pallas`` halo mode (canvas
    entry point) against the ``strips`` mode, bitwise, on a small RN18 clip;
@@ -56,7 +64,7 @@ Phases (any failure raises and exits non-zero):
    ``ref`` policy) on SwiftNet-RN50 1024x2048 bf16, 2 clips of 8 frames:
    frame 1 of a clip executes all 128 blocks, every count is on the
    capacity ladder, exactly one host sync per frame (torch's sync debug
-   mode), 12 halo, 9 halo_pieces and 8 tail launches per executed frame
+   mode), 12 halo, 1 halo_pieces and 8 tail launches per executed frame
    (launch counts zeroed just before the first clip), policy updates on
    frames 4 and 8 only; capacities, ms/frame and peak memory; (b) the
    semseg CLI in-process at the same width, on the ladder engine and with
@@ -67,8 +75,8 @@ Phases (any failure raises and exits non-zero):
    ladder frames at block 256 in bf16 and fp32 and at block 128 in fp32,
    and ``wide_resnet50_2`` at block 128 in bf16, with K2's launches per
    executed frame asserted by route (10 on the row route, 10 and 8 on the
-   fp32 route, 10 on the row route), and one ``halo_pieces`` launch more
-   than K2's;
+   fp32 route, 10 on the row route), and one ``halo_pieces`` launch (the
+   plane pool);
 9. detection, before the JSON lines: (a) ``DetectionStepper`` on CSP-R50 at
    full width and depth (``CSPConfig()``), 1024x2048 bf16, fast policy,
    block 128, target 0.3 (38 of 128 blocks), REINFORCE every 4th frame,
@@ -78,7 +86,7 @@ Phases (any failure raises and exits non-zero):
    ``first_step`` and 12 steps, each under ``set_sync_debug_mode("error")``;
    38 blocks a step, finite (100, 5) dets, at least 8 valid dets a frame,
    each inside the 1024x2048 image with its score at least ``score_thr``,
-   policy updates at frames 4, 8 and 12 only, and 13 K1 ``halo_strips``, 9
+   policy updates at frames 4, 8 and 12 only, and 13 K1 ``halo_strips``, 1
    K1 ``halo_pieces`` and 8 K2 launches a frame (``DET_HALO_SHAPES``,
    ``PIECE_SHAPES``, ``DET_TAIL_SHAPES``; counts zeroed just
    before ``init_state``); ms/frame, peak memory, valid dets a frame; (b) the
@@ -97,7 +105,7 @@ Phases (any failure raises and exits non-zero):
    bf16, the ``csp_cls`` bias 0, 2 clips of 8 frames: frame 1 of a clip
    executes all 128 blocks, every count is on the ladder, the host syncs of
    each frame are those ``_det_frame_syncs`` names (torch's sync debug
-   mode), 13 K1 ``halo_strips``, 9 ``halo_pieces`` and 8 K2 launches per
+   mode), 13 K1 ``halo_strips``, 1 ``halo_pieces`` and 8 K2 launches per
    executed frame (counts zeroed just before the first clip), policy
    updates on frames 4 and 8 only, at least 8 boxes a frame inside the
    image with score >= 0.1; capacities, ms/frame, peak memory and the host
@@ -137,7 +145,7 @@ Phases (any failure raises and exits non-zero):
    stepping its own clip through phase 4's path (SwiftNet-RN50 1024x2048
    bf16, capacity 64, REINFORCE every 4th frame), ``first_step`` and 12
    steps, the REINFORCE gradients averaged in one all_reduce a train
-   frame: 12 K1 ``halo_strips``, 9 ``halo_pieces`` and 8 K2 launches a
+   frame: 12 K1 ``halo_strips``, 1 ``halo_pieces`` and 8 K2 launches a
    frame on each rank (counts zeroed just before each rank's
    ``init_state``), updates at frames 4, 8, 12, the
    policy parameters bitwise equal across the ranks after every one, no
@@ -149,10 +157,10 @@ Phases (any failure raises and exits non-zero):
    too) with no host sync; (c) the averaged gradient of (a)'s first train
    frame against the mean of the two ranks' own gradients, taken in this
    process; (d) the semseg CLI at full width with ``--speed-mode
-   --num-devices 1`` under ``WORLD_SIZE=1`` (12 + 9 K1 and 8 K2 launches a
+   --num-devices 1`` under ``WORLD_SIZE=1`` (12 + 1 K1 and 8 K2 launches a
    frame), which takes the CLI's single-process path (a world of one joins
    no process group), and the detection stepper (phase 9's workload) on two gloo
-   ranks on ``cuda:0``: ``first_step`` and 8 steps, 13 + 9 K1 and 8 K2 a frame
+   ranks on ``cuda:0``: ``first_step`` and 8 steps, 13 + 1 K1 and 8 K2 a frame
    on each rank, the parameters bitwise equal after every update;
 13. native clip IO and the semseg validation tool, before the JSON lines:
    (a) the clip IO library (``blockcopy_tpu_torch/native/io.cpp``) built by
@@ -164,7 +172,7 @@ Phases (any failure raises and exits non-zero):
    ``soft_nms`` against ``ops/nms.py``; (b) the semseg CLI on that
    directory with ``--native-io --fast --speed-mode --half
    --model-backbone resnet50 --clip-length 4`` and PIL unimportable: 12 K1
-   ``halo_strips``, 9 ``halo_pieces`` and 8 K2 (``wgmma``) launches in
+   ``halo_strips``, 1 ``halo_pieces`` and 8 K2 (``wgmma``) launches in
    every frame, FPS beside 8b's, decode ms a frame beside phase 4's step;
    (c) ``tools/validate_capability.py`` at ``--warmup-clips 2 --eval-clips
    1 --clip-length 4``, 512x1024 fp32: RN18 ``ref`` (K1 only) and RN50
@@ -186,7 +194,7 @@ Phases (any failure raises and exits non-zero):
    against the CPU under the switches (``SMALL_SWITCH_RUNS``), as phase 5,
    within 1e-3; (c) phase 9's detection step under ``TOPK='approx'``,
    ``DECODE_LEAN_POINTS=0`` and ``BORDER_CONV`` against the switch-off step
-   on injected draws that fix the grids: 1 + 21 K1 and 8 K2 launches a
+   on injected draws that fix the grids: 1 + 13 K1 and 8 K2 launches a
    frame, the kept boxes equal as sets (IoU >= 0.9 pairs, scores within
    3e-2; unpaired boxes only within 3e-2 of ``score_thr`` or of a full
    set's lowest kept score: the ``max_per_img`` cut).
@@ -222,9 +230,11 @@ HALO_SHAPES = ([(32, 48)] + [(32, 64)] * 3 + [(32, 128), (16, 256),
 # main-path bottleneck-tail launches per step (bs, Cm, Co)
 TAIL_SHAPES = [(16, 128, 512)] * 3 + [(8, 256, 1024)] * 5
 # main-path halo_pieces launches per step (bs, C), pad 1: the stem's plane
-# pool (its s2d planes, 4 x 64 channels at bs / 4) and each fused tail's h1;
-# the detection path makes the same
-PIECE_SHAPES = [(32, 256)] + [(bs, cm) for bs, cm, _ in TAIL_SHAPES]
+# pool (its s2d planes, 4 x 64 channels at bs / 4); the fused tails read
+# their h1 halo from the strips inside K2; the detection path makes the same
+PIECE_SHAPES = [(32, 256)]
+# the fused tails' halos (bs, Cm), where phase 3 times halo_pieces beside K2
+TAIL_PIECE_SHAPES = [(bs, cm) for bs, cm, _ in TAIL_SHAPES]
 N, GH, GW, K = 1, 8, 16, 64
 # the block-256 path (phase 4b): K1 launches per step (bs, C): the stem's
 # s2d planes, layer1's three 3x3s, the strided first blocks of layers 2-4
@@ -234,7 +244,8 @@ HALO_SHAPES_256 = ([(64, 48)] + [(64, 64)] * 3 + [(64, 128), (32, 256),
                    (16, 512), (16, 128), (32, 128), (64, 128)])
 TAIL_SHAPES_256 = [(32, 128, 512)] * 3 + [(16, 256, 1024)] * 5 \
     + [(8, 512, 2048)] * 2
-PIECE_SHAPES_256 = [(64, 256)] + [(bs, cm) for bs, cm, _ in TAIL_SHAPES_256]
+PIECE_SHAPES_256 = [(64, 256)]
+TAIL_PIECE_SHAPES_256 = [(bs, cm) for bs, cm, _ in TAIL_SHAPES_256]
 # block 256's capacities: ladder mode's smallest (quantum 1/16 of 32
 # blocks), the stepper's (target 0.5), every block
 K_256, TAIL_KS_256 = 16, (2, 16, 32)
@@ -242,7 +253,6 @@ K_256, TAIL_KS_256 = 16, (2, 16, 32)
 # blocks 1-3, layer3 blocks 1-5 (row route; timed at TAIL_KS)
 WIDE_TAIL_SHAPES = [(32, 128, 256)] * 2 + [(16, 256, 512)] * 3 \
     + [(8, 512, 1024)] * 5
-PIECE_SHAPES_WIDE = [(32, 256)] + [(bs, cm) for bs, cm, _ in WIDE_TAIL_SHAPES]
 # the wgmma route's blocks, where phase 3 also times the row route
 WGMMA_SHAPES = [(16, 128, 512), (8, 256, 1024), (8, 128, 512)]
 # detection path (phase 9) K1 launches per step (bs, C, pad) at K = 38, bf16;
@@ -342,13 +352,15 @@ def _pieces_case(gen, bs, c, p, dtype, n_set, k):
 
 def phase_pieces(gen):
     """K1's ``halo_pieces`` entry bitwise against its plain version at
-    every shape of the block-128 and block-256 paths, bf16 and fp32, pad 1
-    and 3, on a partial grid with padding slots; then timed at each path's
-    shapes and capacity beside its bytes bound.  Returns the per-step sums
-    of the block-128 and the block-256 path."""
+    every plane-pool and fused-tail shape of the block-128 and block-256
+    paths, bf16 and fp32, pad 1 and 3, on a partial grid with padding
+    slots; then timed at each path's ``halo_pieces`` shapes (its plane pool)
+    and capacity beside its bytes bound.  Returns the per-step sums of the
+    block-128 and the block-256 path."""
     from blockcopy_tpu_torch.ops.kernels import halo as H
     from blockcopy_tpu_torch.tools.measure import device_ms
-    shapes = sorted(set(PIECE_SHAPES + PIECE_SHAPES_256))
+    shapes = sorted(set(PIECE_SHAPES + PIECE_SHAPES_256 + TAIL_PIECE_SHAPES
+                        + TAIL_PIECE_SHAPES_256))
     err = 0.0
     for bs, c in shapes:
         for dtype in (torch.bfloat16, torch.float32):
@@ -449,19 +461,23 @@ def phase_halo(gen):
     return per_step
 
 
-def _tail_case(gen, bs, cm, co, dtype, k=K):
-    from blockcopy_tpu_torch.ops.kernels.bottleneck import PIECES
+def _tail_case(gen, bs, cm, co, dtype, k=K, n_set=None):
+    """K2's inputs at K blocks: h1, x, the halo in strip form (a
+    ``StripHalo`` of post-ReLU strips of the 1024x2048 block-128 grid:
+    ``n_set`` blocks drawn at random and padding slots after them; by
+    default 2 padding slots, none at K = 128, the full grid) and the
+    weights."""
+    from blockcopy_tpu_torch.tools.measure import strip_halo
     dev = "cuda"
 
     def rnd(*shape, scale=1.0, relu=False):
         t = torch.randn(shape, generator=gen, device=dev) * scale
         return (t.clamp_min(0) if relu else t).to(dtype)
 
-    shapes = {"top": (k, 1, bs, cm), "bottom": (k, 1, bs, cm),
-              "left": (k, bs, 1, cm), "right": (k, bs, 1, cm)}
-    pieces = {nm: rnd(*shapes.get(nm, (k, 1, 1, cm)), relu=True)
-              for nm in PIECES}
-    return (rnd(k, bs, bs, cm, relu=True), rnd(k, bs, bs, co), pieces,
+    if n_set is None:
+        n_set = k if k >= N * GH * GW else max(1, k - 2)
+    halo = strip_halo(gen, k, bs, cm, dtype, n_set, relu=True)
+    return (rnd(k, bs, bs, cm, relu=True), rnd(k, bs, bs, co), halo,
             rnd(cm, cm, 3, 3, scale=(9 * cm) ** -0.5),
             1 + rnd(cm, scale=0.1), rnd(cm, scale=0.1),
             rnd(co, cm, 1, 1, scale=cm ** -0.5),
@@ -469,19 +485,24 @@ def _tail_case(gen, bs, cm, co, dtype, k=K):
 
 
 def tail_cost(bs, cm, co, itemsize, k=K):
+    """K2's operations and the bytes it must move: h1, x, y, each block's
+    halo (4 bs + 4 pixels of its neighbours' strips), the weights and the
+    block indices, each once."""
     flops = 2 * k * bs * bs * cm * (9 * cm + co)
     elems = (k * bs * bs * (cm + 2 * co) + k * (4 * bs + 4) * cm
              + 9 * cm * cm + cm * co + 2 * cm + 2 * co)
-    return flops, elems * itemsize
+    return flops, elems * itemsize + 8 * k
 
 
 def phase_tail(gen):
-    """K2 at ``TAIL_KS`` x both RN50 shapes x bf16 (3e-2) and fp32 (1e-4,
-    TF32 off): against the plain version (``torch.allclose``, outputs
-    finite), then the time per launch beside its bound (bf16 against 989
-    TFLOP/s; fp32 against its route, 3 TF32 products per product on 495
-    TFLOP/s), and the fp32 stages' device times; returns the per-frame sums
-    at K = 64."""
+    """K2, its halo read from the strips, at ``TAIL_KS`` x both RN50 shapes
+    x bf16 (3e-2) and fp32 (1e-4, TF32 off): against the plain version
+    (``torch.allclose``, outputs finite), then the time per launch beside
+    its bound (bf16 against 989 TFLOP/s; fp32 against its route, 3 TF32
+    products per product on 495 TFLOP/s) and ``halo_pieces`` timed on the
+    same strips (K2 + ``halo_pieces``: the two launches the tail took when
+    it read gathered pieces), and the fp32 stages' device times; returns
+    the per-frame sums at K = 64."""
     from blockcopy_tpu_torch.ops.kernels import bottleneck as BT
     from blockcopy_tpu_torch.tools.measure import device_ms, tail_stage_ms
     torch.backends.cudnn.allow_tf32 = False
@@ -493,7 +514,7 @@ def phase_tail(gen):
                     ("bf16", torch.bfloat16, 3e-2, 1, BF16_FLOPS),
                     ("f32", torch.float32, 1e-4, 3, TF32_FLOPS)):
                 args = _tail_case(gen, bs, cm, co, dtype, k)
-                ref = BT.bottleneck_tail_plain(*args).float()
+                ref = BT.bottleneck_tail_strips_plain(*args).float()
                 got = BT.bottleneck_tail(*args)
                 diff = (got.float() - ref).abs()
                 err = diff.max().item()
@@ -510,9 +531,11 @@ def phase_tail(gen):
                 t_bytes = nbytes / HBM_BYTES_PER_S
                 t = {"kernel": device_ms(lambda: BT.bottleneck_tail(*args)),
                      "plain": device_ms(
-                         lambda: BT.bottleneck_tail_plain(*args)),
+                         lambda: BT.bottleneck_tail_strips_plain(*args)),
                      "bound": max(t_ops, t_bytes) * 1e3,
-                     "by": "operations" if t_ops > t_bytes else "bytes"}
+                     "by": "operations" if t_ops > t_bytes else "bytes",
+                     "pieces": device_ms(lambda: args[2].pieces())}
+                t["two_launch"] = t["kernel"] + t["pieces"]
                 rows[(k, bs, cm, co, name)] = t
                 if name == "bf16":
                     ctas = f"{2 * k} CTAs in clusters of 2"
@@ -529,19 +552,25 @@ def phase_tail(gen):
                     f"({t['by']}; {flops / 1e9:.2f} GFLOP"
                     f"{' x 3 TF32 products' if products == 3 else ''}, "
                     f"{nbytes / 1e6:.1f} MB), kernel at "
-                    f"{t['bound'] / t['kernel']:.1%} of it; {ctas}")
+                    f"{t['bound'] / t['kernel']:.1%} of it; {ctas}; "
+                    f"halo_pieces on its strips {t['pieces']:.4f} ms, K2 + "
+                    f"halo_pieces {t['two_launch']:.4f} ms")
     out = {}
     for name in ("bf16", "f32"):
         per = [rows[(K, *s, name)] for s in TAIL_SHAPES]
         per_step = {key: sum(r[key] for r in per)
-                    for key in ("kernel", "plain", "bound")}
+                    for key in ("kernel", "plain", "bound", "pieces",
+                                "two_launch")}
         by = [r["by"] for r in per]
         per_step["by"] = max(set(by), key=by.count)
         per_step["err"] = worst[name]
         log(f"[3] tail {name} per main-path frame at K={K} "
             f"({len(TAIL_SHAPES)} launches): kernel "
-            f"{per_step['kernel']:.4f} ms, plain {per_step['plain']:.4f} ms, "
-            f"bound {per_step['bound']:.4f} ms ({per_step['by']})")
+            f"{per_step['kernel']:.4f} ms (the halo gather inside), plain "
+            f"{per_step['plain']:.4f} ms, bound {per_step['bound']:.4f} ms "
+            f"({per_step['by']}); halo_pieces at the {len(TAIL_SHAPES)} tail "
+            f"shapes {per_step['pieces']:.4f} ms, K2 + halo_pieces "
+            f"{per_step['two_launch']:.4f} ms")
         out[name] = per_step
     return out
 
@@ -552,7 +581,7 @@ def _rows_case(gen, k, bs, cm, co, entry):
     ``torch.allclose``, finite); returns the inputs and the max abs err."""
     from blockcopy_tpu_torch.ops.kernels import bottleneck as BT
     args = _tail_case(gen, bs, cm, co, torch.bfloat16, k)
-    ref = BT.bottleneck_tail_plain(*args).float()
+    ref = BT.bottleneck_tail_strips_plain(*args).float()
     got = entry(*args)
     err = (got.float() - ref).abs().max().item()
     if not (bool(torch.isfinite(got).all()) and torch.allclose(
@@ -567,9 +596,11 @@ def phase_tail_rows(gen):
     """K2's bf16 row route against its plain version (3e-2,
     ``torch.allclose``, outputs finite) at RN50's block-256 shapes at
     ``TAIL_KS_256``, ``wide_resnet50_2``'s block-128 shapes at ``TAIL_KS``
-    and a Co that is no multiple of 256 (16, 128, 640): its launch plan,
-    time per launch beside its bound (989 TFLOP/s, 3.35 TB/s) and the
-    plain version's; its parts at the block-256 shapes at K = 2 and 16
+    and a Co that is no multiple of 256 (16, 128, 640), its halo read from
+    the strips: its launch plan, time per launch beside its bound (989
+    TFLOP/s, 3.35 TB/s), the plain version's and ``halo_pieces`` on the same
+    strips (K2 + ``halo_pieces``: the tail's two launches when it read
+    gathered pieces); its parts at the block-256 shapes at K = 2 and 16
     (``tools/tail_breakdown.py``: two more builds with its ablation
     switches); then the row route forced at the wgmma route's blocks, timed
     beside the wgmma route at ``TAIL_KS`` (a reading; no route choice rests
@@ -595,10 +626,12 @@ def phase_tail_rows(gen):
         flops, nbytes = tail_cost(bs, cm, co, 2, k)
         t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
         t = {"kernel": device_ms(lambda: BT.bottleneck_tail(*args)),
-             "plain": device_ms(lambda: BT.bottleneck_tail_plain(*args),
-                                samples=20),
+             "plain": device_ms(
+                 lambda: BT.bottleneck_tail_strips_plain(*args), samples=20),
              "bound": max(t_ops, t_bytes) * 1e3,
-             "by": "operations" if t_ops > t_bytes else "bytes"}
+             "by": "operations" if t_ops > t_bytes else "bytes",
+             "pieces": device_ms(lambda: args[2].pieces())}
+        t["two_launch"] = t["kernel"] + t["pieces"]
         rows[(k, bs, cm, co)] = t
         plan = BT.row_plan(k, bs, cm, co, sms)
         log(f"[3] tail rows K={k:3d} bs={bs} Cm={cm} Co={co} bf16: max abs "
@@ -612,20 +645,24 @@ def phase_tail_rows(gen):
             f"{64 * plan['mt']} product rows), clusters of {plan['cs']}, "
             f"{plan['np']}-channel 3x3 passes, {plan['nt']}-channel 1x1 "
             f"tiles, {plan['stages']} ring "
-            f"stages, {plan['xbuf']} x/y buffers, {plan['smem']} B shared")
+            f"stages, {plan['xbuf']} x/y buffers, {plan['smem']} B shared; "
+            f"halo_pieces on its strips {t['pieces']:.4f} ms")
         del args
     out = {}
     for name, shapes, k in (("block256", TAIL_SHAPES_256, K_256),
                             ("wide", WIDE_TAIL_SHAPES, K)):
         per = [rows[(k, *sh)] for sh in shapes]
         out[name] = {key: sum(r[key] for r in per)
-                     for key in ("kernel", "plain", "bound")}
+                     for key in ("kernel", "plain", "bound", "pieces",
+                                 "two_launch")}
         by = [r["by"] for r in per]
         out[name]["by"] = max(set(by), key=by.count)
         log(f"[3] tail rows per {name} frame at K={k} ({len(shapes)} "
-            f"launches): kernel {out[name]['kernel']:.4f} ms, plain "
-            f"{out[name]['plain']:.4f} ms, bound {out[name]['bound']:.4f} ms "
-            f"({out[name]['by']})")
+            f"launches): kernel {out[name]['kernel']:.4f} ms (the halo "
+            f"gather inside), plain {out[name]['plain']:.4f} ms, bound "
+            f"{out[name]['bound']:.4f} ms ({out[name]['by']}); halo_pieces "
+            f"at the {len(shapes)} tail shapes {out[name]['pieces']:.4f} ms, "
+            f"K2 + halo_pieces {out[name]['two_launch']:.4f} ms")
     libs = TBD.build_variants(TBD.PARTS)
     for part in TBD.row_parts(libs, [(k, *sh) for k in (2, K_256)
                                      for sh in sorted(set(TAIL_SHAPES_256))],
@@ -1032,7 +1069,7 @@ def phase_block_sizes():
 
     torch.backends.cudnn.allow_tf32 = True
     shape = (1, 1024, 2048, 3)
-    # and the halo_pieces launches: one per fused tail and the stem's
+    # and the halo_pieces launches: one, the stem's plane pool
     k2 = ("halo_pieces", "bottleneck_tail", "bottleneck_tail_rows",
           "bottleneck_tail_f32")
     out = {}
@@ -1069,13 +1106,13 @@ def phase_block_sizes():
             raise AssertionError(f"{backbone} block {block} {dtype}: outputs "
                                  f"{tuple(y.shape)} not finite")
         want = [{k: 0 if not c else per_frame if k == key
-                 else per_frame + 1 if k == "halo_pieces" else 0 for k in k2}
+                 else 1 if k == "halo_pieces" else 0 for k in k2}
                 for c in counts]
         if tails != want or not counts[0]:
             raise AssertionError(f"{backbone} block {block} {dtype}: K2 "
                                  f"launches {tails}, expected {per_frame} "
-                                 f"{key} and {per_frame + 1} halo_pieces "
-                                 f"per executed frame")
+                                 f"{key} and 1 halo_pieces per executed "
+                                 f"frame")
         out[(backbone, block, str(dtype))] = launches
         del model, params
     return out
@@ -1247,8 +1284,8 @@ def phase_detection_kernels(gen):
     for bs, cm, co in sorted(set(DET_TAIL_SHAPES)):
         for name, dtype, tol in (("bf16", torch.bfloat16, 3e-2),
                                  ("f32", torch.float32, 1e-4)):
-            args = _tail_case(gen, bs, cm, co, dtype, DET_K)
-            ref = BT.bottleneck_tail_plain(*args).float()
+            args = _tail_case(gen, bs, cm, co, dtype, DET_K, DET_K - 3)
+            ref = BT.bottleneck_tail_strips_plain(*args).float()
             got = BT.bottleneck_tail(*args)
             err = (got.float() - ref).abs().max().item()
             ok = bool(torch.isfinite(got).all()) and torch.allclose(
@@ -1281,7 +1318,8 @@ def phase_detection_kernels(gen):
         t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
         tail[(bs, cm, co)] = {
             "ms": device_ms(lambda: BT.bottleneck_tail(*args)),
-            "plain_ms": device_ms(lambda: BT.bottleneck_tail_plain(*args)),
+            "plain_ms": device_ms(
+                lambda: BT.bottleneck_tail_strips_plain(*args)),
             "bound_ms": max(t_ops, t_bytes) * 1e3}
         t = tail[(bs, cm, co)]
         log(f"[9c] tail bs={bs} Cm={cm} Co={co} bf16 K={DET_K}: "
@@ -1668,8 +1706,8 @@ def phase_detection_ladder_kernels(gen):
         for bs, cm, co in sorted(set(DET_TAIL_SHAPES)):
             for name, dtype, tol in (("bf16", torch.bfloat16, 3e-2),
                                      ("f32", torch.float32, 1e-4)):
-                args = _tail_case(gen, bs, cm, co, dtype, k)
-                ref = BT.bottleneck_tail_plain(*args).float()
+                args = _tail_case(gen, bs, cm, co, dtype, k, n_set)
+                ref = BT.bottleneck_tail_strips_plain(*args).float()
                 got = BT.bottleneck_tail(*args)
                 err = (got.float() - ref).abs().max().item()
                 if not (bool(torch.isfinite(got).all()) and torch.allclose(
@@ -1703,7 +1741,8 @@ def phase_detection_ladder_kernels(gen):
             t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
             tail[(bs, cm, co)] = {
                 "ms": device_ms(lambda: BT.bottleneck_tail(*args)),
-                "plain_ms": device_ms(lambda: BT.bottleneck_tail_plain(*args)),
+                "plain_ms": device_ms(
+                    lambda: BT.bottleneck_tail_strips_plain(*args)),
                 "bound_ms": max(t_ops, t_bytes) * 1e3}
             t = tail[(bs, cm, co)]
             log(f"[10d] tail bs={bs} Cm={cm} Co={co} bf16 K={k}: "
@@ -2201,7 +2240,7 @@ def phase_native_cli(root, synthetic_fps, step_ms):
     """(13b) the semseg CLI in-process on the 13a directory with
     ``--native-io --fast --speed-mode --half --model-backbone resnet50
     --clip-length 4`` and PIL unimportable: 2 + 2 clips of 4 frames, 12 K1
-    ``halo_strips``, 9 ``halo_pieces`` and 8 K2 (``wgmma`` route) launches
+    ``halo_strips``, 1 ``halo_pieces`` and 8 K2 (``wgmma`` route) launches
     a frame (counts zeroed just before); FPS beside phase 8b's synthetic
     CLI, and the decode's ms a frame (the dataset's ``decode_clip`` calls,
     on the loader's threads) beside phase 4's step."""
@@ -2815,8 +2854,8 @@ def main() -> int:
          "bound_by": "bytes", **common},
         {"name": "halo_pieces", "source": source + "halo.cu",
          "replaces": "blockcopy_tpu/ops/pallas/halo.py:69",
-         "path": "every fused tail and the stem's plane pool (main, "
-                 "block 256, ladder, detection)",
+         "path": "the stem's plane pool (main, block 256, ladder, "
+                 "detection); BORDER_CONV's convs and pool (14)",
          "launches": launches["halo_pieces"],
          "block256_launches": launches_256["halo_pieces"],
          "ladder_launches": ladder_launches["halo_pieces"],
@@ -2860,6 +2899,8 @@ def main() -> int:
          **parallel_keys(par, "bottleneck_tail"),
          **native_keys(native_cli, capability, "bottleneck_tail"),
          **switch_keys(sw_main, sw_modes, sw_det, "bottleneck_tail"),
+         "tail_pieces_ms": tail["bf16"]["pieces"],
+         "two_launch_ms": tail["bf16"]["two_launch"],
          "max_abs_err": tail["bf16"]["err"], "ms": tail["bf16"]["kernel"],
          "plain_ms": tail["bf16"]["plain"], "bound_ms": tail["bf16"]["bound"],
          "bound_by": tail["bf16"]["by"], **common},
@@ -2877,6 +2918,9 @@ def main() -> int:
          "wide_ms": rows["wide"]["kernel"],
          "wide_plain_ms": rows["wide"]["plain"],
          "wide_bound_ms": rows["wide"]["bound"],
+         "wide_two_launch_ms": rows["wide"]["two_launch"],
+         "tail_pieces_ms": rows["block256"]["pieces"],
+         "two_launch_ms": rows["block256"]["two_launch"],
          "max_abs_err": rows["err"], "ms": rows["block256"]["kernel"],
          "plain_ms": rows["block256"]["plain"],
          "bound_ms": rows["block256"]["bound"],
@@ -2897,6 +2941,8 @@ def main() -> int:
          **parallel_keys(par, "bottleneck_tail_f32"),
          **native_keys(native_cli, capability, "bottleneck_tail_f32"),
          **switch_keys(sw_main, sw_modes, sw_det, "bottleneck_tail_f32"),
+         "tail_pieces_ms": tail["f32"]["pieces"],
+         "two_launch_ms": tail["f32"]["two_launch"],
          "max_abs_err": tail["f32"]["err"], "ms": tail["f32"]["kernel"],
          "plain_ms": tail["f32"]["plain"], "bound_ms": tail["f32"]["bound"],
          "bound_by": tail["f32"]["by"], **common},
@@ -2911,8 +2957,10 @@ def main() -> int:
     log(f"[7] halo, halo_pieces and tail times are per main-path frame "
         f"(sums over its launch shapes; halo_pieces block256_*: per "
         f"block-256 frame at K = {K_256}), their library_ms null: no single "
-        f"PyTorch call computes any of them; bottleneck_tail_rows times are "
-        f"per "
+        f"PyTorch call computes any of them; K2's tail_pieces_ms is "
+        f"halo_pieces at its tail shapes, two_launch_ms K2 + that (the "
+        f"tail's launches when it read gathered pieces); "
+        f"bottleneck_tail_rows times are per "
         f"block-256 frame at K = {K_256} (wide_*: per wide_resnet50_2 frame "
         f"at K = {K}); mm times are per launch at "
         f"{'x'.join(map(str, MM_SHAPES[0]))}; main path {step_ms:.2f} "

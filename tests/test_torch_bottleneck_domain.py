@@ -155,10 +155,11 @@ def test_route(dtype, bs, cm, co, key):
 
 
 def test_row_entry_is_bf16():
-    """The private entry that forces the row route refuses fp32."""
+    """The private entry that forces the row route refuses fp32 before it
+    looks at the halo."""
     x = torch.zeros((1, 8, 8, 64))
     with pytest.raises(ValueError, match="bf16"):
-        BT._bottleneck_tail_rows(x, x, {}, None, None, None, None, None,
+        BT._bottleneck_tail_rows(x, x, None, None, None, None, None, None,
                                  None)
 
 

@@ -16,9 +16,11 @@ import blockcopy_tpu.models.swiftnet as JS
 import blockcopy_tpu_torch.models.swiftnet as TS
 from blockcopy_tpu.core import grid as JG
 from blockcopy_tpu.core.blocked import ExecCtx as JCtx, split_dense as jsplit
+from blockcopy_tpu.core.blocked import gather_halo_strips as jgather
 from blockcopy_tpu.ops.pallas.bottleneck import bottleneck_tail as jtail
 from blockcopy_tpu_torch.core import grid as TG
 from blockcopy_tpu_torch.core.blocked import ExecCtx as TCtx
+from blockcopy_tpu_torch.core.blocked import StripHalo
 from blockcopy_tpu_torch.core.blocked import split_dense as tsplit
 from blockcopy_tpu_torch.ops import kernels
 from blockcopy_tpu_torch.ops.kernels import bottleneck as BT
@@ -64,25 +66,44 @@ def _tail_inputs(rs, k, bs, cm, co, dtype):
             arr(cm, co) * 0.05, 1 + 0.1 * arr(co), 0.1 * arr(co))
 
 
+def _strip_halo(rs, k, bs, c, dtype, n=1, gh=2, gw=3):
+    """Post-ReLU strips of an (n, gh, gw) grid (zero sentinels) and the
+    indices of ``k - 1`` of its blocks and a padding slot: numpy strips,
+    JAX's indices and the port's ``StripHalo`` of the same values."""
+    total = n * gh * gw
+    strips = {"rows": np.maximum(rs.randn(total + 1, 2, bs, c), 0),
+              "cols": np.maximum(rs.randn(total + 1, bs, 2, c), 0)}
+    strips = {name: a.astype(np.float32).astype(dtype)
+              for name, a in strips.items()}
+    for a in strips.values():
+        a[-1] = 0
+    grid = np.zeros(total, bool)
+    grid[rs.permutation(total)[:k - 1]] = True
+    jidx = JG.exec_indices(jnp.asarray(grid.reshape(n, gh, gw)), k)
+    halo = StripHalo(rows=tt(strips["rows"]), cols=tt(strips["cols"]),
+                     idx=tt(jidx).long(), n=n, gh=gh, gw=gw, pad=1)
+    return strips, jidx, halo
+
+
 @pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
 @pytest.mark.parametrize("bs,cm,co", [
     pytest.param(8, 128, 256, id="8"), pytest.param(16, 128, 256, id="16"),
     pytest.param(32, 128, 256, id="32"),
     pytest.param(8, 256, 1024, id="8-256-1024")])
 def test_plain_matches_pallas(bs, cm, co, dtype):
-    """The plain version against the Pallas kernel (interpret mode) at the
-    bs of blocks 64, 128 and 256 (bs 32: a block the bf16 row route runs)
-    and at a bottleneck's own widths (Co = 4 Cm)."""
+    """The wrapper's plain version, on a ``StripHalo``, against the Pallas
+    kernel (interpret mode) fed JAX's pieces of the same strips, at the bs
+    of blocks 64, 128 and 256 (bs 32: a block the bf16 row route runs) and
+    at a bottleneck's own widths (Co = 4 Cm)."""
     rs = np.random.RandomState(bs + cm)
-    h1, x, pieces, w2, s2, b2, w3, s3, b3 = _tail_inputs(rs, 4, bs, cm, co,
-                                                         dtype)
-    ref = jtail(jnp.asarray(h1), jnp.asarray(x),
-                {k: jnp.asarray(v) for k, v in pieces.items()},
+    h1, x, _, w2, s2, b2, w3, s3, b3 = _tail_inputs(rs, 4, bs, cm, co, dtype)
+    strips, jidx, halo = _strip_halo(rs, 4, bs, cm, dtype)
+    pieces = jgather({k: jnp.asarray(v) for k, v in strips.items()}, jidx, 1,
+                     1, 2, 3)
+    ref = jtail(jnp.asarray(h1), jnp.asarray(x), pieces,
                 *map(jnp.asarray, (w2, s2, b2, w3, s3, b3)))
     oihw = lambda w: tt(w).permute(3, 2, 0, 1)
-    got = BT.bottleneck_tail(tt(h1), tt(x), {k: tt(v) for k, v in
-                                             pieces.items()},
-                             oihw(w2), tt(s2), tt(b2),
+    got = BT.bottleneck_tail(tt(h1), tt(x), halo, oihw(w2), tt(s2), tt(b2),
                              oihw(w3[None, None]), tt(s3), tt(b3))
     assert got.dtype == tt(h1).dtype
     assert_close(ref, got, tol(dtype))

@@ -86,19 +86,25 @@ def _snap(tree):
     return np.array(npf(tree))
 
 
-def _clip_frame(B, G, to, pad, n, gh, gw, pieces, frame, grid, canvases,
+def _clip_frame(B, G, to, pad, n, gh, gw, form, frame, grid, canvases,
                 cap, building):
     idx = G.exec_indices(to(grid), cap)
     ctx = B.ExecCtx.blocked(idx, n, gh, gw, canvases, building=building)
     pack = B.split_dense(to(frame), idx, n, gh, gw)
-    exchange = ctx.exchange_pieces if pieces else ctx.exchange
+    if form == "padded":
+        exchange = ctx.exchange
+    elif form == "pieces" or B is JB:
+        exchange = ctx.exchange_pieces
+    else:       # the port's strip form, gathered: JAX's exchange_pieces
+        exchange = lambda *a: ctx.exchange_strips(*a).pieces()
     return exchange("c", pack, pad), ctx.canvases
 
 
-def _run_clip(B, G, to, impl, frames, grids, pad, n, gh, gw, pieces):
-    """Exchange (or exchange_pieces) over a clip through one package; JAX's
-    frame jitted, traced with the mode set (eager JAX compiles every op)."""
-    step = functools.partial(_clip_frame, B, G, to, pad, n, gh, gw, pieces)
+def _run_clip(B, G, to, impl, frames, grids, pad, n, gh, gw, form):
+    """Exchange (padded, pieces, or the port's ``exchange_strips`` then
+    ``StripHalo.pieces``) over a clip through one package; JAX's frame
+    jitted, traced with the mode set (eager JAX compiles every op)."""
+    step = functools.partial(_clip_frame, B, G, to, pad, n, gh, gw, form)
     if B is JB:
         step = jax.jit(step, static_argnames=("cap", "building"))
     old = B.HALO_IMPL
@@ -118,10 +124,12 @@ def _run_clip(B, G, to, impl, frames, grids, pad, n, gh, gw, pieces):
 
 @pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
 @pytest.mark.parametrize("pad", [1, 3])
-@pytest.mark.parametrize("impl,pieces", [("strips", False),
-                                         ("strips", True), ("full", False),
-                                         ("pallas", False)])
-def test_exchange_clip(impl, pieces, pad, dtype):
+@pytest.mark.parametrize("impl,form", [("strips", "padded"),
+                                       ("strips", "pieces"),
+                                       ("strips", "strip_halo"),
+                                       ("full", "padded"),
+                                       ("pallas", "padded")])
+def test_exchange_clip(impl, form, pad, dtype):
     n, gh, gw, bs, c = 2, 3, 4, 8, 16
     rs = np.random.RandomState(pad)
     frames = [rs.randn(n, gh * bs, gw * bs, c).astype(dtype)
@@ -129,9 +137,9 @@ def test_exchange_clip(impl, pieces, pad, dtype):
     grids = [np.ones((n, gh, gw), bool)]
     grids += [rs.rand(n, gh, gw) < 0.4 for _ in range(2)]
     ref, ref_state = _run_clip(JB, JG, jnp.asarray, impl, frames, grids, pad, n,
-                               gh, gw, pieces)
+                               gh, gw, form)
     got, got_state = _run_clip(TB, TG, tt, impl, frames, grids, pad, n,
-                               gh, gw, pieces)
+                               gh, gw, form)
     for t in range(3):
         assert_tree(ref[t], got[t], assert_same)
         assert_tree(ref_state[t], got_state[t], assert_same)

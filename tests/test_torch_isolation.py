@@ -323,5 +323,5 @@ def test_kernel_wrappers_refuse_non_cpu_non_cuda():
         halo.halo_gather_canvas(canvas, idx, 1, 1, 2, 4, center)
     h1 = torch.empty((2, 8, 8, 128), device=meta)
     with pytest.raises(ValueError):
-        bottleneck.bottleneck_tail(h1, h1, {}, None, None, None, None, None,
-                                   None)
+        bottleneck.bottleneck_tail(h1, h1, None, None, None, None, None,
+                                   None, None)

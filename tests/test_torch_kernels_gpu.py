@@ -8,6 +8,7 @@ only PyTorch is installed:
 Without a GPU every case skips (decided when the test runs).
 """
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from blockcopy_tpu_torch.core import grid as TG
+from blockcopy_tpu_torch.core.blocked import StripHalo
 from blockcopy_tpu_torch.ops import kernels
 from blockcopy_tpu_torch.ops.kernels import bottleneck as BT
 from blockcopy_tpu_torch.ops.kernels import halo as H
@@ -102,36 +104,54 @@ PIECE_SHAPES = sorted({(32, 48), (32, 64), (32, 128), (16, 256), (8, 512),
                        (64, 128), (32, 256), (16, 512), (32, 768)})
 
 
-@pytest.mark.parametrize("bs,c", PIECE_SHAPES)
-def test_halo_pieces_matches_plain(cuda_device, bs, c):
-    """The ``halo_pieces`` entry bitwise against its plain version at pad 1
-    and 3, in fp32 and bf16, on two images' partial 3x4 grids with 3
-    padding slots (border neighbours read the zero sentinel): one launch a
+def _pieces_matches_plain(device, bs, c, pad, dtype, seed, share=0.5):
+    """The ``halo_pieces`` entry bitwise against its plain version on two
+    images' 3x4 grids, ``share`` of the blocks executed and 3 padding slots
+    after them (border neighbours read the zero sentinel): one launch a
     call, every piece a contiguous 16-byte-aligned view of one buffer."""
     n, gh, gw = 2, 3, 4
     total = n * gh * gw
+    gen = torch.Generator().manual_seed(seed)
+    rows = torch.randn((total + 1, 2 * pad, bs, c), generator=gen)
+    cols = torch.randn((total + 1, bs, 2 * pad, c), generator=gen)
+    rows[-1] = 0
+    cols[-1] = 0
+    strips = {"rows": rows.to(dtype), "cols": cols.to(dtype)}
+    grid = torch.rand((n, gh, gw), generator=gen) < share
+    idx = TG.exec_indices(grid, int(grid.sum()) + 3)
+    ref = H.gather_halo_strips_plain(strips, idx, pad, n, gh, gw)
+    before = dict(kernels.launches)
+    got = H.halo_pieces({k: v.to(device) for k, v in strips.items()},
+                        idx.to(device), pad, n, gh, gw)
+    assert kernels.launches == {
+        **before, "halo_pieces": before["halo_pieces"] + 1}
+    for name in H.PIECES:
+        t = got[name]
+        assert t.is_contiguous() and t.data_ptr() % 16 == 0
+        assert t.dtype == dtype
+        assert torch.equal(t.cpu(), ref[name]), (pad, dtype, name)
+
+
+@pytest.mark.parametrize("bs,c", PIECE_SHAPES)
+def test_halo_pieces_matches_plain(cuda_device, bs, c):
+    """The ``halo_pieces`` entry bitwise against its plain version at pad 1
+    and 3, in fp32 and bf16, on partial grids with 3 padding slots."""
     for pad in (1, 3):
         for dtype in (torch.float32, torch.bfloat16):
-            gen = torch.Generator().manual_seed(bs + c + pad)
-            rows = torch.randn((total + 1, 2 * pad, bs, c), generator=gen)
-            cols = torch.randn((total + 1, bs, 2 * pad, c), generator=gen)
-            rows[-1] = 0
-            cols[-1] = 0
-            strips = {"rows": rows.to(dtype), "cols": cols.to(dtype)}
-            grid = torch.rand((n, gh, gw), generator=gen) < 0.5
-            idx = TG.exec_indices(grid, int(grid.sum()) + 3)
-            ref = H.gather_halo_strips_plain(strips, idx, pad, n, gh, gw)
-            before = dict(kernels.launches)
-            got = H.halo_pieces({k: v.to(cuda_device)
-                                 for k, v in strips.items()},
-                                idx.to(cuda_device), pad, n, gh, gw)
-            assert kernels.launches == {
-                **before, "halo_pieces": before["halo_pieces"] + 1}
-            for name in H.PIECES:
-                t = got[name]
-                assert t.is_contiguous() and t.data_ptr() % 16 == 0
-                assert t.dtype == dtype
-                assert torch.equal(t.cpu(), ref[name]), (pad, dtype, name)
+            _pieces_matches_plain(cuda_device, bs, c, pad, dtype,
+                                  seed=bs + c + pad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,c,pad", [(1, 3, 1), (2, 6, 1), (4, 6, 3),
+                                      (4, 16, 1), (8, 3, 2), (8, 64, 3)])
+def test_halo_pieces_equal_shares(cuda_device, bs, c, pad, dtype):
+    """The entry's equal shares of 1024 units at small pieces: 2-, 4- and
+    16-byte units (C of 3, 6, 16 and 64), so that a share spans from part
+    of one block up to tens of blocks and their pieces; every block of the
+    two grids executed, then 3 padding slots; bitwise."""
+    _pieces_matches_plain(cuda_device, bs, c, pad, dtype, seed=bs * c + pad,
+                          share=1.1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -186,24 +206,42 @@ def test_halo_kernel_refuses_bad_inputs(cuda_device):
         H.halo_gather_canvas(canvas[:-1], idx, 1, 1, 2, 4, center)
 
 
+def _halo(seed, k, bs, cm, device="cpu", n_set=None):
+    """K2's halo in strip form (``measure.strip_halo``): post-ReLU strips
+    of the 1024x2048 block-128 grid (8x16 blocks, most of a small K's on
+    the image's edge) and ``k`` indices, by default every slot an executed
+    block at K = 1 and 128 (the full grid) and one padding slot else."""
+    from blockcopy_tpu_torch.tools.measure import strip_halo
+    if n_set is None:
+        n_set = k if k in (1, 128) else k - 1
+    gen = torch.Generator(device).manual_seed(seed)
+    return strip_halo(gen, k, bs, cm, torch.float32, n_set, relu=True)
+
+
 def _tail_inputs(rs, k, bs, cm, co):
     def arr(*shape, relu=False, scale=1.0):
         a = rs.randn(*shape).astype(np.float32) * scale
         return torch.from_numpy(np.maximum(a, 0) if relu else a)
 
-    shapes = {"top": (k, 1, bs, cm), "bottom": (k, 1, bs, cm),
-              "left": (k, bs, 1, cm), "right": (k, bs, 1, cm)}
-    pieces = {name: arr(*shapes.get(name, (k, 1, 1, cm)), relu=True)
-              for name in BT.PIECES}
-    return [arr(k, bs, bs, cm, relu=True), arr(k, bs, bs, co), pieces,
+    return [arr(k, bs, bs, cm, relu=True), arr(k, bs, bs, co),
+            _halo(int(rs.randint(1 << 30)), k, bs, cm),
             arr(cm, cm, 3, 3, scale=0.05), 1 + arr(cm, scale=0.1),
             arr(cm, scale=0.1), arr(co, cm, 1, 1, scale=0.05),
             1 + arr(co, scale=0.1), arr(co, scale=0.1)]
 
 
+def _to(a, device, dtype):
+    """A tensor, or a ``StripHalo``'s strips, in ``dtype`` on ``device``
+    (its indices stay int64)."""
+    if isinstance(a, StripHalo):
+        return dataclasses.replace(a, rows=a.rows.to(device, dtype),
+                                   cols=a.cols.to(device, dtype),
+                                   idx=a.idx.to(device))
+    return a.to(device, dtype)
+
+
 def _gpu(args, device, dtype):
-    return [{k: v.to(device, dtype) for k, v in a.items()}
-            if isinstance(a, dict) else a.to(device, dtype) for a in args]
+    return [_to(a, device, dtype) for a in args]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -214,7 +252,7 @@ def test_bottleneck_kernel_matches_plain(cuda_device, bs, cm, co, dtype):
     sum in another order)."""
     gpu = _gpu(_tail_inputs(np.random.RandomState(bs), 6, bs, cm, co),
                cuda_device, dtype)
-    ref = BT.bottleneck_tail_plain(*gpu)
+    ref = BT.bottleneck_tail_strips_plain(*gpu)
     key = ("bottleneck_tail" if dtype == torch.bfloat16
            else "bottleneck_tail_f32")
     before = dict(kernels.launches)
@@ -239,7 +277,7 @@ def test_bottleneck_kernel_ladder_capacities(cuda_device, k, bs, cm, co,
     got = BT.bottleneck_tail(*gpu)
     t = 3e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(got.float(),
-                               BT.bottleneck_tail_plain(*gpu).float(),
+                               BT.bottleneck_tail_strips_plain(*gpu).float(),
                                rtol=t, atol=t)
 
 
@@ -253,7 +291,7 @@ def test_bottleneck_bf16_block_counts(cuda_device, bs, cm, co, k):
                cuda_device, torch.bfloat16)
     got = BT.bottleneck_tail(*gpu)
     torch.testing.assert_close(got.float(),
-                               BT.bottleneck_tail_plain(*gpu).float(),
+                               BT.bottleneck_tail_strips_plain(*gpu).float(),
                                rtol=3e-2, atol=3e-2)
 
 
@@ -265,9 +303,58 @@ def test_bottleneck_weight_update_in_place(cuda_device):
     first = BT.bottleneck_tail(*gpu)
     gpu[3].mul_(-1.5)
     second = BT.bottleneck_tail(*gpu)
-    ref = BT.bottleneck_tail_plain(*gpu).float()
+    ref = BT.bottleneck_tail_strips_plain(*gpu).float()
     torch.testing.assert_close(second.float(), ref, rtol=3e-2, atol=3e-2)
     assert not torch.allclose(first.float(), ref, rtol=3e-2, atol=3e-2)
+
+
+# one block shape of each route (the wgmma route's two, the row route's at
+# RN50's block 256, fp32) with its key in ``kernels.launches``
+ROUTE_CASES = [(torch.bfloat16, 16, 128, 512, "bottleneck_tail"),
+               (torch.bfloat16, 8, 256, 1024, "bottleneck_tail"),
+               (torch.bfloat16, 32, 128, 512, "bottleneck_tail_rows"),
+               (torch.bfloat16, 16, 256, 1024, "bottleneck_tail_rows"),
+               (torch.float32, 16, 128, 512, "bottleneck_tail_f32"),
+               (torch.float32, 8, 256, 1024, "bottleneck_tail_f32")]
+
+
+@pytest.mark.parametrize("k,n_set", [(128, 128), (64, 61)],
+                         ids=["full", "partial"])
+@pytest.mark.parametrize("dtype,bs,cm,co,key", ROUTE_CASES)
+def test_bottleneck_strips_every_route(cuda_device, dtype, bs, cm, co, key,
+                                       k, n_set):
+    """K2 reading its halo in place from the strips, on every route,
+    against its plain version (the plain gather's pieces, then the plain
+    tail; 3e-2 bf16, 1e-4 fp32): on the 1024x2048 grid at block 128, full
+    (all 128 blocks, interior ones with 8 live neighbours) and partial (61
+    blocks and 3 padding slots, those on the image's edge reading the zero
+    sentinel).  One launch, on the route's key; no ``halo_pieces``."""
+    args = _tail_inputs_cuda(k + bs + cm, k, bs, cm, co, n_set)
+    args = _bf16(args) if dtype == torch.bfloat16 else args
+    before = dict(kernels.launches)
+    got = BT.bottleneck_tail(*args)
+    assert kernels.launches == {**before, key: before[key] + 1}
+    t = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(
+        got.float(), BT.bottleneck_tail_strips_plain(*args).float(), rtol=t,
+        atol=t)
+
+
+def test_bottleneck_refuses_bad_halo(cuda_device):
+    """The wrapper checks the strips as it checks the other inputs: pad,
+    shape, index dtype; nothing launches."""
+    args = _gpu(_tail_inputs(np.random.RandomState(1), 4, 16, 128, 512),
+                cuda_device, torch.bfloat16)
+    halo = args[2]
+    bad = [(dataclasses.replace(halo, pad=2), "pad"),
+           (dataclasses.replace(halo, cols=halo.rows), "cols"),
+           (dataclasses.replace(halo, gw=halo.gw - 1), "rows"),
+           (dataclasses.replace(halo, idx=halo.idx.int()), "idx")]
+    before = dict(kernels.launches)
+    for h, match in bad:
+        with pytest.raises(ValueError, match=match):
+            BT.bottleneck_tail(*args[:2], h, *args[3:])
+    assert kernels.launches == before
 
 
 def test_bottleneck_kernel_refuses_unsupported_width(cuda_device):
@@ -282,7 +369,7 @@ def test_bottleneck_kernel_refuses_unsupported_width(cuda_device):
     assert kernels.launches == before
 
 
-def _tail_inputs_cuda(seed, k, bs, cm, co):
+def _tail_inputs_cuda(seed, k, bs, cm, co, n_set=None):
     """``_tail_inputs``' tensors with weights scaled by their fan-in, drawn
     on the card (the block-256 shapes at K = 128 are hundreds of MB)."""
     gen = torch.Generator("cuda").manual_seed(seed)
@@ -291,11 +378,8 @@ def _tail_inputs_cuda(seed, k, bs, cm, co):
         a = torch.randn(shape, generator=gen, device="cuda") * scale
         return a.clamp_min(0) if relu else a
 
-    shapes = {"top": (k, 1, bs, cm), "bottom": (k, 1, bs, cm),
-              "left": (k, bs, 1, cm), "right": (k, bs, 1, cm)}
-    pieces = {name: arr(*shapes.get(name, (k, 1, 1, cm)), relu=True)
-              for name in BT.PIECES}
-    return [arr(k, bs, bs, cm, relu=True), arr(k, bs, bs, co), pieces,
+    return [arr(k, bs, bs, cm, relu=True), arr(k, bs, bs, co),
+            _halo(seed + 1, k, bs, cm, "cuda", n_set),
             arr(cm, cm, 3, 3, scale=(9 * cm) ** -0.5), 1 + arr(cm, scale=0.1),
             arr(cm, scale=0.1), arr(co, cm, 1, 1, scale=cm ** -0.5),
             1 + arr(co, scale=0.1), arr(co, scale=0.1)]
@@ -318,7 +402,7 @@ def test_bottleneck_f32_matches_plain(cuda_device, k, bs, cm, co):
     assert kernels.launches == {
         **before, "bottleneck_tail_f32": before["bottleneck_tail_f32"] + 1}
     assert got.dtype == torch.float32 and got.shape == (k, bs, bs, co)
-    torch.testing.assert_close(got, BT.bottleneck_tail_plain(*args),
+    torch.testing.assert_close(got, BT.bottleneck_tail_strips_plain(*args),
                                rtol=1e-4, atol=1e-4)
 
 
@@ -331,7 +415,7 @@ def test_bottleneck_f32_ragged_rows(cuda_device, k, bs, cm, co):
     that are multiples of 64 are taken (192 and 320 included)."""
     args = _tail_inputs_cuda(k + bs, k, bs, cm, co)
     torch.testing.assert_close(BT.bottleneck_tail(*args),
-                               BT.bottleneck_tail_plain(*args),
+                               BT.bottleneck_tail_strips_plain(*args),
                                rtol=1e-4, atol=1e-4)
 
 
@@ -343,8 +427,8 @@ K2_KEYS = ("bottleneck_tail", "bottleneck_tail_rows", "bottleneck_tail_f32")
 
 
 def _bf16(args):
-    return [{k: v.bfloat16() for k, v in a.items()} if isinstance(a, dict)
-            else a.bfloat16() for a in args]
+    return [_to(a, a.rows.device if isinstance(a, StripHalo) else a.device,
+                torch.bfloat16) for a in args]
 
 
 @pytest.mark.parametrize("bs,cm,co", ROW_SHAPES)
@@ -356,7 +440,7 @@ def test_bottleneck_rows_matches_plain(cuda_device, k, bs, cm, co):
     neighbours'; one launch of the wrapper, counted under
     ``bottleneck_tail_rows`` alone, outputs finite."""
     args = _bf16(_tail_inputs_cuda(k * 11 + bs + cm, k, bs, cm, co))
-    ref = BT.bottleneck_tail_plain(*args).float()
+    ref = BT.bottleneck_tail_strips_plain(*args).float()
     before = dict(kernels.launches)
     got = BT.bottleneck_tail(*args)
     assert kernels.launches == {
@@ -366,10 +450,12 @@ def test_bottleneck_rows_matches_plain(cuda_device, k, bs, cm, co):
     torch.testing.assert_close(got.float(), ref, rtol=3e-2, atol=3e-2)
 
 
-def _tail_plain_f64(h1, x, pieces, w2, s2, b2, w3, s3, b3):
-    """``bottleneck_tail_plain`` with both products summed in float64 (one
-    rounding of each sum to bf16, then the same bf16 steps)."""
+def _tail_plain_f64(h1, x, halo, w2, s2, b2, w3, s3, b3):
+    """``bottleneck_tail_strips_plain`` with both products summed in float64
+    (one rounding of each sum to bf16, then the same bf16 steps)."""
     dt = h1.dtype
+    pieces = H.gather_halo_strips_plain(halo.strips, halo.idx, halo.pad,
+                                        halo.n, halo.gh, halo.gw)
     full = BT._padded(h1, pieces).permute(0, 3, 1, 2).double()
     acc = torch.nn.functional.conv2d(full, w2.to(dt).double())
     h2 = torch.clamp_min(acc.permute(0, 2, 3, 1).to(dt) * s2.to(dt)
@@ -405,7 +491,7 @@ def test_bottleneck_rows_other_widths(cuda_device, k, bs, cm, co):
     args = _bf16(_tail_inputs_cuda(k + bs + co, k, bs, cm, co))
     assert BT.route(torch.bfloat16, bs, cm, co) == "bottleneck_tail_rows"
     torch.testing.assert_close(BT.bottleneck_tail(*args).float(),
-                               BT.bottleneck_tail_plain(*args).float(),
+                               BT.bottleneck_tail_strips_plain(*args).float(),
                                rtol=3e-2, atol=3e-2)
 
 
@@ -423,7 +509,7 @@ def test_bottleneck_rows_at_wgmma_blocks(cuda_device, k, bs, cm, co):
     assert kernels.launches == {
         **before, "bottleneck_tail": before["bottleneck_tail"] + 1,
         "bottleneck_tail_rows": before["bottleneck_tail_rows"] + 1}
-    ref = BT.bottleneck_tail_plain(*args).float()
+    ref = BT.bottleneck_tail_strips_plain(*args).float()
     for got in (rows, wgmma):
         torch.testing.assert_close(got, ref, rtol=3e-2, atol=3e-2)
 
@@ -451,7 +537,7 @@ def test_bottleneck_rows_weight_update_in_place(cuda_device):
     first = BT.bottleneck_tail(*gpu)
     gpu[6].mul_(-1.5)
     second = BT.bottleneck_tail(*gpu)
-    ref = BT.bottleneck_tail_plain(*gpu).float()
+    ref = BT.bottleneck_tail_strips_plain(*gpu).float()
     torch.testing.assert_close(second.float(), ref, rtol=3e-2, atol=3e-2)
     assert not torch.allclose(first.float(), ref, rtol=3e-2, atol=3e-2)
 
