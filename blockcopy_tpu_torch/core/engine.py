@@ -3,12 +3,14 @@
 
 Each frame: the policy picks the grid, the blocked model runs the executed
 blocks padded to the smallest capacity on the quantization ladder, the
-policy optimizes every ``train_interval`` frames.  The port runs eagerly,
-so a capacity needs no program of its own; its MAC tally is still recorded
-once per capacity.
+policy optimizes every ``train_interval`` frames.  Each capacity's model
+step is a CUDA graph of its own, captured at the capacity's first use (JAX's
+per-capacity compiled, donated ``_get_step``; ``core/graphs.py``), and its
+MAC tally is recorded once per capacity.  The policy runs eagerly.
 
 The engine's only host sync per frame is the executed-block count
-(``Policy._finalize``), which picks the capacity; a task's decode may add
+(``Policy._finalize``), which picks the capacity (a capacity's first frame
+also captures its graph, which synchronizes); a task's decode may add
 its own (``CSPBlockCopy`` reads its boxes back).  A frame with count 0
 runs no model and returns the previous outputs.  Temporal state is a dict
 of per-layer canvases updated in place.
@@ -16,12 +18,14 @@ of per-layer canvases updated in place.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable
 
 import torch
 
 from blockcopy_tpu_torch.core import grid as gridlib
 from blockcopy_tpu_torch.core.blocked import BlockPack, ExecCtx, split_dense
+from blockcopy_tpu_torch.core.graphs import CapturedStep, graph_pool
 from blockcopy_tpu_torch.device import resolve_device
 from blockcopy_tpu_torch.policy.optim import tree_map
 from blockcopy_tpu_torch.policy.policies import build_policy_from_settings
@@ -64,10 +68,12 @@ class BlockCopyModel:
         settings: the BlockCopy settings dict (``core/argparser.py``).
         policy: a policy object; by default ``build_policy_from_settings``.
         device: default CUDA; raises where it is absent.
+        graphs: run each capacity's model step as a CUDA graph (on the CPU,
+            the same body eagerly); ``False`` runs it op by op.
     """
 
     def __init__(self, apply_fn: Callable, params, settings: dict,
-                 policy=None, device=None):
+                 policy=None, device=None, graphs: bool = True):
         self.device = resolve_device(device)
         self.apply_fn = apply_fn
         self.params = params
@@ -82,6 +88,10 @@ class BlockCopyModel:
         self._frame_shape = None
         self.temporal = None
         self.flops = FlopsTracker()
+        self.graphs = graphs
+        self._steps = {}        # capacity -> CapturedStep
+        self._pool = graph_pool(self.device)
+        self._bufs = None       # (outputs, frame_state) the graphs write
         self.reset_temporal()
 
     # -- temporal state -----------------------------------------------------
@@ -108,13 +118,15 @@ class BlockCopyModel:
         pack = split_dense(torch.empty(frame.shape, dtype=frame.dtype,
                                        device=meta), idx, n, gh, gw)
         with torch.no_grad():
-            ctx.store_dense(FRAME_STATE, pack)
+            frame_state = ctx.store_dense(FRAME_STATE, pack)
             out = self.apply_fn(tree_map(lambda t: t.to(meta), self.params),
                                 pack, ctx)
-            self._store_out(ctx, out)
-        self.temporal = {"canvases": tree_map(
-            lambda t: torch.zeros(t.shape, dtype=t.dtype, device=self.device),
-            ctx.canvases)}
+            outputs = self._store_out(ctx, out)
+        zeros = lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                      device=self.device)
+        self.temporal = {"canvases": tree_map(zeros, ctx.canvases)}
+        self._bufs = tree_map(zeros, (outputs, frame_state))
+        self._steps = {}
         if self.policy.is_trainable():
             scale = 0.25 * 128 / self.block_size
             self.flops.policy_macs = policy_net_macs(
@@ -124,18 +136,39 @@ class BlockCopyModel:
 
     def _model_step(self, capacity: int, frame, grid):
         """Run the executed blocks of ``grid`` at ``capacity``; the canvases
-        are updated in place.  Returns ``(outputs, frame_state)``."""
+        are updated in place.  Returns ``(outputs, frame_state)``.  Under
+        ``graphs`` the capacity's graph writes them into the engine's
+        buffers, outside its pool, and they are cloned out: the next replay
+        leaves this frame's results, ``outputs_prev`` among them, as they
+        were."""
+        if not self.graphs:
+            return self._run_blocks(capacity, self.params, self.temporal,
+                                    frame, grid)
+        step = self._steps.get(capacity)
+        if step is None:
+            step = self._steps[capacity] = CapturedStep(
+                partial(self._graph_body, capacity), self.device, self._pool)
+        step(self.params, self.temporal, frame, grid)
+        return tree_map(torch.clone, self._bufs)
+
+    def _run_blocks(self, capacity: int, params, temporal, frame, grid):
         n, gh, gw = self._geom
         with torch.no_grad():
             idx = gridlib.exec_indices(grid, capacity)
             pack = split_dense(frame, idx, n, gh, gw)
-            ctx = ExecCtx.blocked(idx, n, gh, gw, self.temporal["canvases"])
+            ctx = ExecCtx.blocked(idx, n, gh, gw, temporal["canvases"])
             frame_state = ctx.store_dense(FRAME_STATE, pack)
-            out = self.apply_fn(self.params, pack, ctx)
+            out = self.apply_fn(params, pack, ctx)
             outputs = self._store_out(ctx, out)
         if capacity not in self.flops.macs_per_capacity:
             self.flops.record_trace(capacity, ctx.macs_by_module())
         return outputs, frame_state
+
+    def _graph_body(self, capacity: int, params, temporal, frame, grid):
+        """``_run_blocks`` with its results copied into the buffers."""
+        res = self._run_blocks(capacity, params, temporal, frame, grid)
+        with torch.no_grad():
+            tree_map(lambda buf, x: buf.copy_(x), self._bufs, res)
 
     # -- task hooks -----------------------------------------------------------
 

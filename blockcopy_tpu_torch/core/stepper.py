@@ -333,8 +333,7 @@ class FixedCapacityStepper:
         rc = pol["running_cost"]
         rc = torch.where(rc < 0, perc, rc)
         rc = rc * cfg.cost_momentum + (1 - cfg.cost_momentum) * perc
-        fi = state["frame_idx"]
-        if fi % cfg.train_interval != 0 or fi < 2:
+        if not self.is_train_frame(state["frame_idx"]):
             return {**pol, "running_cost": rc}
 
         reward_c = -(rc - cfg.block_target)
@@ -349,6 +348,11 @@ class FixedCapacityStepper:
             signed, cfg.policy_arch, cfg.lr, cfg.weight_decay, cfg.momentum,
             grad_reduce=None if group is None else group.mean_tree)
         return {**pol, "params": params, "opt": opt, "running_cost": rc}
+
+    def is_train_frame(self, frame_idx: int) -> bool:
+        """Whether the step that makes frame ``frame_idx`` (counted from 1)
+        runs the REINFORCE update: a host decision, as in JAX."""
+        return frame_idx % self.cfg.train_interval == 0 and frame_idx >= 2
 
     # -- steps --------------------------------------------------------------
 
@@ -424,3 +428,37 @@ class FixedCapacityStepper:
             mid[f"{k}_prev"] = state[k]
         return {**mid, "policy": self._policy_optim(mid, grid_f, cache_x,
                                                     group)}
+
+    # -- in-place steps (the counterpart of donation) -------------------------
+
+    def _write(self, state, new) -> None:
+        """Copy every tensor of ``new`` into ``state``'s own (skipping
+        those already in place, as the canvases) and take its frame
+        counter.  The ``*_prev`` keys go first: ``new["outputs_prev"]`` is
+        ``state["outputs"]``, which the copy into ``state["outputs"]``
+        then overwrites."""
+        def put(dst, src):
+            if isinstance(dst, torch.Tensor) \
+                    and dst.data_ptr() != src.data_ptr():
+                dst.copy_(src)
+
+        with torch.no_grad():
+            for key in sorted(state, key=lambda k: not k.endswith("_prev")):
+                if key != "frame_idx":
+                    rmsprop.tree_map(put, state[key], new[key])
+        state["frame_idx"] = new["frame_idx"]
+
+    def first_step_(self, model_params, state, frame):
+        """``first_step`` written into ``state``'s tensors; returns
+        ``state``.  Its tensors keep their storage, so a CUDA graph can
+        take them as static buffers (``core/graphs.py``)."""
+        self._write(state, self.first_step(model_params, state, frame))
+        return state
+
+    def step_(self, model_params, state, frame, draws: Optional[Tuple] = None):
+        """``step`` written into ``state``'s tensors: the new canvases,
+        outputs and ``outputs_prev``, ``prev_grid``, the policy's params,
+        BN statistics, RMSprop state and running cost.  Returns
+        ``state``."""
+        self._write(state, self.step(model_params, state, frame, draws))
+        return state

@@ -299,17 +299,19 @@ def group_norm(x: Arrayish, num_groups: int, gamma: torch.Tensor,
         valid = (x.idx < x.total).float()
         img = (x.idx // (x.gh * x.gw)).clamp(0, x.n - 1)
         dg = d.reshape(k, bs, bs, g, c // g)
-        blk_sum = dg.sum(dim=(1, 2, 4)) * valid[:, None]
-        img_sum = torch.zeros((x.n, g), device=dev).index_add_(0, img,
-                                                               blk_sum)
-        cnt = torch.zeros((x.n,), device=dev).index_add_(0, img, valid) \
-            * (bs * bs * (c // g))
+        # per-image sums as a masked reduction: index_add_'s float atomics
+        # would make the statistics, and every later frame, differ from
+        # run to run on CUDA
+        member = (img[None, :] == torch.arange(x.n, device=dev)[:, None]
+                  ).float() * valid
+        blk_sum = dg.sum(dim=(1, 2, 4))
+        img_sum = (member[:, :, None] * blk_sum).sum(1)
+        cnt = member.sum(1) * (bs * bs * (c // g))
         cnt = cnt.clamp_min(1.0)
         mean = img_sum / cnt[:, None]
         cent = dg - mean.index_select(0, img)[:, None, None, :, None]
-        blk_sq = (cent * cent).sum(dim=(1, 2, 4)) * valid[:, None]
-        var = torch.zeros((x.n, g), device=dev).index_add_(0, img, blk_sq) \
-            / cnt[:, None]
+        blk_sq = (cent * cent).sum(dim=(1, 2, 4))
+        var = (member[:, :, None] * blk_sq).sum(1) / cnt[:, None]
         inv = torch.rsqrt(var + eps).index_select(0, img)
         out = cent * inv[:, None, None, :, None]
         out = out.reshape(k, bs, bs, c) * gamma + beta

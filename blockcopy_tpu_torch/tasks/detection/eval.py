@@ -190,9 +190,13 @@ class _StepperDetector:
                                         dtype=dtype, device=device)
         self.group = group
         if group is None:
+            from blockcopy_tpu_torch.core.graphs import StepperGraphs
+            # the steps as CUDA graphs, captured at their first calls
+            # (JAX: jax.jit(..., donate_argnums=(1,)))
+            self.graphs = StepperGraphs(self.stepper)
             self.state = self.stepper.init_state(params, seed=1)
-            self._first, self._step = self.stepper.first_step, \
-                self.stepper.step
+            self._first, self._step = self.graphs.first_step, \
+                self.graphs.step
         else:
             self.state = clip_parallel.init_parallel_state(
                 self.stepper, params, 1, group.rank)

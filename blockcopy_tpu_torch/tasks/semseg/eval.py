@@ -219,6 +219,7 @@ def _run(argv, device, group):
     model = None
     stepper_state = {}
     if args.speed_mode and not static:
+        from blockcopy_tpu_torch.core.graphs import StepperGraphs
         from blockcopy_tpu_torch.core.stepper import (FixedCapacityStepper,
                                                       StepperConfig)
         gh, gw = args.res // args.block_size, args.res * 2 // args.block_size
@@ -236,9 +237,12 @@ def _run(argv, device, group):
             logger.info("clip-parallel: rank %d of %d on %s", group.rank,
                         group.size, device)
         else:
+            # the steps as CUDA graphs, captured at their first calls
+            # (JAX: jax.jit(..., donate_argnums=(1,)))
+            graphs = StepperGraphs(stepper)
             stepper_state["state"] = stepper.init_state(params, seed=1)
-            stepper_state["first"] = stepper.first_step
-            stepper_state["step"] = stepper.step
+            stepper_state["first"] = graphs.first_step
+            stepper_state["step"] = graphs.step
         logger.info("speed mode: capacity %d/%d blocks, %.2f GMACs/frame",
                     stepper.capacity, stepper.total,
                     stepper.macs_per_step(params) / 1e9)

@@ -1,11 +1,13 @@
 """Detection benchmark: CSP-R50 + BlockCopy FPS of the detection stepper on
 one GPU (counterpart of the root ``bench_detection.py``, same flags and
-JSON keys).
+JSON keys, plus ``--eager`` and the key ``graphs``).
 
 The workload: ``DetectionStepper`` (policy, blocked CSP, decode and NMS and
 the IoU gain on the device, REINFORCE every 4th frame) at 1024x2048, target
 0.3, bf16, random weights from seed 0, frames of a moving square over
-noise.  After the warm-up, windows of ``--frames`` steps are timed on the
+noise.  Its steps run as the detection CLI runs them, as CUDA graphs
+captured in the warm-up (``core/graphs.py``); ``--eager`` runs them op by
+op.  After the warm-up, windows of ``--frames`` steps are timed on the
 host clock, each fenced by ``torch.cuda.synchronize()``; windows are taken
 until the best has not improved for 5 (6 to 18 windows).
 
@@ -43,11 +45,14 @@ def build_argparser():
     ap.add_argument("--dtype", type=str, default="bfloat16")
     ap.add_argument("--policy-arch", type=str, default="fast",
                     choices=["ref", "fast"])
+    ap.add_argument("--eager", action="store_true",
+                    help="run the steps op by op, not as CUDA graphs")
     return ap
 
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
+    from blockcopy_tpu_torch.core.graphs import StepperGraphs
     from blockcopy_tpu_torch.core.stepper import StepperConfig
     from blockcopy_tpu_torch.device import resolve_device
     from blockcopy_tpu_torch.models.csp import CSPConfig, init_csp
@@ -69,10 +74,11 @@ def main(argv=None):
                                dtype=dtype, device=device)
     frames = synthetic_frames(frame_shape, args.warmup + 7, dtype,
                               device=device)
+    steps = stepper if args.eager else StepperGraphs(stepper)
     state = stepper.init_state(params, seed=1)
-    state = stepper.first_step(params, state, frames[0])
+    state = steps.first_step(params, state, frames[0])
     for t in range(1, args.warmup + 1):
-        state = stepper.step(params, state, frames[t])
+        state = steps.step(params, state, frames[t])
     staged = frames[args.warmup + 1:]
     torch.cuda.synchronize()
 
@@ -82,7 +88,7 @@ def main(argv=None):
     while len(windows) < max_windows:
         t0 = time.perf_counter()
         for t in range(args.frames):
-            state = stepper.step(params, state, staged[t % len(staged)])
+            state = steps.step(params, state, staged[t % len(staged)])
         torch.cuda.synchronize()
         w = args.frames / (time.perf_counter() - t0)
         windows.append(w)
@@ -102,6 +108,7 @@ def main(argv=None):
         "estimator": "max_of_adaptive_fenced_windows",
         "median_fps": round(statistics.median(windows), 3),
         "windows_fps": [round(w, 3) for w in windows],
+        "graphs": not args.eager,
     }
     print(json.dumps(out))
     return out

@@ -345,6 +345,46 @@ def _on(batch, dev):
     return batch[0].to(dev), tuple(m.to(dev) for m in batch[1:])
 
 
+def busy_us(intervals):
+    """Length of the union of ``(start, end)`` intervals."""
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
+def profiled(fn, steps):
+    """``fn(i)`` for ``i < steps`` under torch's profiler: the loop's host
+    ms (fenced by ``synchronize``) and the trace's GPU events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            fn(i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return wall, [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+
+
+def device_idle(fn, steps):
+    """``profiled``'s wall ms a step, device-busy ms a step (the union of
+    the trace's GPU kernel and copy intervals; None where it holds none),
+    the idle share 1 - busy / wall, and GPU kernels a step."""
+    wall, events = profiled(fn, steps)
+    busy = busy_us([(e.time_range.start, e.time_range.end)
+                    for e in events]) / 1e3 if events else None
+    return {"wall_ms": wall / steps,
+            "busy_ms": None if busy is None else busy / steps,
+            "idle_share": None if busy is None else 1.0 - busy / wall,
+            "kernels": len(events) / steps}
+
+
 def device_ms(fn, samples=50, inner=10):
     """Median device time of one call of ``fn`` (``device_times``)."""
     return statistics.median(device_times(fn, samples, inner))

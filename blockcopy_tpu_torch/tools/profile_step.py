@@ -2,12 +2,15 @@
 
     python3 -m blockcopy_tpu_torch.tools.profile_step [--steps 8]
         [--engine stepper|ladder|train] [--model swiftnet|csp]
-        [--backbone resnet50] [--block-size 128]
+        [--backbone resnet50] [--block-size 128] [--eager]
 
 Runs the main path of ``chip_smoke.py`` (SwiftNet-RN50, 1024x2048 bf16, fast
 policy, block 128, target 0.5, REINFORCE every 4th frame), warms up past the
 first two train frames, then traces ``--steps`` steps with
-``torch.profiler`` and prints one JSON line.  ``--backbone`` and
+``torch.profiler`` and prints one JSON line.  The steps are those the CLIs
+run: the stepper's and each ladder capacity's as CUDA graphs
+(``core/graphs.py``), captured in the warm-up; ``--eager`` runs them op by
+op (the line's ``graphs`` says which).  ``--backbone`` and
 ``--block-size`` change SwiftNet's backbone and block size (the stepper's
 capacity stays half the grid: 16 of 32 blocks at block 256); the
 ``BLOCKCOPY_TPU_FUSED_BOTTLENECK`` switch (``0`` runs every bottleneck
@@ -46,31 +49,20 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-import time
 from pathlib import Path
 
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
+from blockcopy_tpu_torch.core.graphs import StepperGraphs
 from blockcopy_tpu_torch.models import swiftnet
 from blockcopy_tpu_torch.ops import kernels
-from blockcopy_tpu_torch.tools.measure import (csp_stepper, swiftnet_stepper,
+from blockcopy_tpu_torch.tools.measure import (busy_us, csp_stepper,
+                                               profiled, swiftnet_stepper,
                                                synthetic_frames)
 
 
 CSP_CONFIG = (Path(__file__).resolve().parents[2] / "configs" / "csp"
               / "csp_r50_clip_blockcopy_030.py")
-
-
-def _busy_us(intervals):
-    """Length of the union of ``(start, end)`` intervals."""
-    busy, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    return busy
 
 
 def _stepper(shape, args):
@@ -82,9 +74,10 @@ def _stepper(shape, args):
                                            torch.bfloat16, "cuda",
                                            block_size=args.block_size)
     box = {"state": stepper.init_state(params, seed=1)}
+    steps = stepper if args.eager else StepperGraphs(stepper)
 
     def run(t, frame):
-        fn = stepper.first_step if t == 0 else stepper.step
+        fn = steps.first_step if t == 0 else steps.step
         box["state"] = fn(params, box["state"], frame)
         return None
 
@@ -111,6 +104,7 @@ def _ladder(shape, args):
             make_apply_fn(cfg),
             init_swiftnet(cfg, seed=0, dtype=torch.bfloat16, device="cuda"),
             default_settings(block_size=args.block_size), device="cuda")
+    model.graphs = not args.eager
 
     def run(t, frame):
         model(frame)
@@ -154,6 +148,8 @@ def main() -> int:
                     default="swiftnet")
     ap.add_argument("--backbone", default="resnet50")
     ap.add_argument("--block-size", type=int, default=128)
+    ap.add_argument("--eager", action="store_true",
+                    help="run the steps op by op, not as CUDA graphs")
     args = ap.parse_args()
     if args.model != "swiftnet" and (args.backbone != "resnet50"
                                      or args.block_size != 128):
@@ -174,14 +170,10 @@ def main() -> int:
 
     counts = []
     kernels.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for t in range(args.warmup + 1, args.warmup + 1 + args.steps):
-            counts.append(run(t, frames[t]))
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    first = args.warmup + 1
+    wall_ms, events = profiled(
+        lambda i: counts.append(run(first + i, frames[first + i])),
+        args.steps)
     steps = args.steps
     k2 = {key: kernels.launches[key] / steps for key in (
         "bottleneck_tail", "bottleneck_tail_rows", "bottleneck_tail_f32")}
@@ -190,6 +182,7 @@ def main() -> int:
               "model": "csp" if args.engine == "train" else args.model,
               "backbone": args.backbone, "block_size": args.block_size,
               "fused_bottleneck": swiftnet.FUSED_BOTTLENECK,
+              "graphs": args.engine != "train" and not args.eager,
               "k2_launches_per_step": k2,
               "halo_pieces_launches_per_step":
                   kernels.launches["halo_pieces"] / steps,
@@ -199,7 +192,7 @@ def main() -> int:
     if args.engine == "ladder":
         result["capacities"] = counts
     if events:
-        busy_ms = _busy_us([(e.time_range.start, e.time_range.end)
+        busy_ms = busy_us([(e.time_range.start, e.time_range.end)
                             for e in events]) / 1e3
         by_name = {}
         for e in events:

@@ -197,7 +197,28 @@ Phases (any failure raises and exits non-zero):
    on injected draws that fix the grids: 1 + 13 K1 and 8 K2 launches a
    frame, the kept boxes equal as sets (IoU >= 0.9 pairs, scores within
    3e-2; unpaired boxes only within 3e-2 of ``score_thr`` or of a full
-   set's lowest kept score: the ``max_per_img`` cut).
+   set's lowest kept score: the ``max_per_img`` cut);
+15. the steps as CUDA graphs (``core/graphs.py``, the port's counterpart of
+   the JAX package's ``jax.jit(..., donate_argnums=(1,))``), before the JSON
+   lines; phases 4, 8a, 9a and 10a drive the steps op by op: (a) phase 4's
+   path through ``StepperGraphs`` (the step both CLIs run), in lockstep with
+   two eager runs over ``first_step`` and 12 steps, the same uniforms
+   injected into each, under cuDNN's deterministic algorithms: after every frame the grid, canvases, outputs and
+   policy parameters of the captured run are as close to the first eager
+   run as the second is (bitwise where the eager runs are bitwise over the
+   clip), every replay under ``set_sync_debug_mode("error")``, 12 K1
+   ``halo_strips``, 1 ``halo_pieces`` and 8 K2 a frame counted around the
+   captured call (each graph adds its capture's counts on a replay); the
+   three graphs' capture seconds; then without draws, both on the card at
+   once: the peak memory of each warm-up, ms/frame in interleaved windows
+   of 8 steps (eager, captured, eager, captured) and a window of each under
+   the profiler (busy ms, idle share, kernels a step); the replays keep 64
+   blocks and draw grids of their own; (b) phase 9a's detection step
+   likewise (13 K1 ``halo_strips``, 1 ``halo_pieces``, 8 K2 a frame); (c)
+   phase 8a's and phase 10a's ladder engines, two op by op and one with a
+   graph per capacity in lockstep over 2 clips of 8 frames with injected
+   draws, cuDNN deterministic: the same counts, outputs as close as the eager engines', one graph
+   a capacity that ran, launches a frame as 8a and 10a, ms/frame of both.
 
 It needs one CUDA GPU and the repository around it: without either it exits
 non-zero and prints no result.
@@ -205,6 +226,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -943,9 +965,10 @@ def phase_ladder():
     # block 128, rl_semseg, target 0.5, quantum 1/16, train interval 4,
     # ref arch: the CLI's defaults
     settings = default_settings()
+    # op by op: phase 15c holds the captured engine against it
     model = BlockCopyModel(make_apply_fn(cfg), params, settings,
                            policy=build_policy_from_settings(settings),
-                           device="cuda")
+                           device="cuda", graphs=False)
     clips = [synthetic_frames(shape, clip_len, dtype, seed=c)
              for c in range(2)]
     ladder = set(capacity_ladder(128, settings["block_quantize_number_exec"]))
@@ -1385,6 +1408,7 @@ def phase_detection_ladder():
     # at random init every score is below score_thr: a zero bias puts them
     # near 0.5, so the boxes, the masks and the gain are live
     model.params["head"]["csp_cls"]["b"].zero_()
+    model.graphs = False        # op by op, as phase 8a
     settings, thr = model.settings, model.cfg.score_thr
     verbose = settings["block_policy_verbose"]
     clips = [synthetic_frames(shape, clip_len, dtype, seed=c)
@@ -1503,7 +1527,7 @@ def phase_detection_cli():
     executed = [0]
     decode = CSPBlockCopy._decode
     step_only, upload = cli._StepperDetector.step_only, cli.to_device
-    step_syncs = []
+    step_syncs, capture_syncs = [], []
 
     def counted(self, maps):
         executed[0] += 1
@@ -1511,10 +1535,17 @@ def phase_detection_cli():
 
     def watched(self, img):
         # speed mode: a steady frame (after a clip's first) makes no sync;
-        # its upload is counted with it
+        # its upload is counted with it.  A step that captures its graph
+        # (the first plain and the first train step) is no steady frame:
+        # its syncs are kept apart
         if self._frame_id == 0:
             return step_only(self, img)
-        step_syncs[-1] += count_syncs(step_only, self, img)[1]
+        kinds = len(self.graphs.graphs)
+        syncs = count_syncs(step_only, self, img)[1]
+        if len(self.graphs.graphs) > kinds:
+            capture_syncs.append(syncs)
+        else:
+            step_syncs[-1] += syncs
 
     def watched_upload(a, device):
         out, syncs = count_syncs(upload, a, device)
@@ -1576,10 +1607,12 @@ def phase_detection_cli():
             cli._StepperDetector.step_only = step_only
             cli.to_device = upload
     log(f"[10b] speed mode: host syncs in each of its {len(step_syncs)} "
-        f"frames (upload, and step for a clip's frames 2-8) {step_syncs}")
-    if len(step_syncs) != 16 or any(step_syncs):
+        f"frames (upload, and step for a clip's frames 2-8 that replayed "
+        f"their graph) {step_syncs}; in the {len(capture_syncs)} steps "
+        f"that captured one {capture_syncs}")
+    if len(step_syncs) != 16 or any(step_syncs) or len(capture_syncs) != 2:
         raise AssertionError(f"speed-mode steady frames made host syncs "
-                             f"{step_syncs}")
+                             f"{step_syncs} (captures {capture_syncs})")
     return out
 
 
@@ -2659,6 +2692,371 @@ def phase_switches_detection():
             "unpaired_marginal": marginal, "score_err": score_err}
 
 
+GRAPH_STEPS = 12         # steps of 15a and 15b after the first
+GRAPH_WINDOW = 8         # frames a timed window (two train frames)
+
+
+def _state_gaps(a, b):
+    """Largest |a - b| of two stepper states by part: the grid, the
+    canvases, the task outputs (with their ``*_prev``) and the policy's
+    parameters."""
+    from blockcopy_tpu_torch.policy.optim import tree_leaves
+
+    def gap(x, y):
+        return max(((u.float() - v.float()).abs().max().item()
+                    for u, v in zip(tree_leaves(x), tree_leaves(y))),
+                   default=0.0)
+
+    outs = [k for k in a if k not in ("canvases", "prev_grid", "frame_idx",
+                                      "policy")]
+    return {"grid": gap(a["prev_grid"], b["prev_grid"]),
+            "canvases": gap(a["canvases"], b["canvases"]),
+            "outputs": gap([a[k] for k in outs], [b[k] for k in outs]),
+            "policy": gap(a["policy"]["params"], b["policy"]["params"])}
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms for a lockstep comparison, so that
+    two eager runs, and the captured one, do not hang on which algorithm
+    cuDNN picks: a floor taken from one nondeterministic pair does not
+    bound the next pair's gaps."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def _hold_to_floor(tag, floor, got):
+    """Each part's gaps over the frames (``got``, captured against eager)
+    against two eager runs' (``floor``): bitwise on every frame where the
+    eager runs are bitwise over the clip, else within their largest gap."""
+    for part in floor[0]:
+        most = max(f[part] for f in floor)
+        worst = max(g[part] for g in got)
+        if (worst > 0 if most == 0 else worst > most):
+            raise AssertionError(
+                f"[{tag}] captured against eager, {part}: largest gap "
+                f"{worst:.3g} over the frames, eager against eager {most:.3g}"
+                f" ({[g[part] for g in got]})")
+
+
+def _replays(graphs, state, draws) -> bool:
+    """Whether ``graphs.step`` on ``state`` replays a captured graph."""
+    train = graphs.stepper.is_train_frame(state["frame_idx"] + 1)
+    return ("train" if train else "plain",
+            draws is not None) in graphs.graphs
+
+
+def _graphs_lockstep(tag, stepper, params, frames, draws, per_frame):
+    """Two eager runs and a captured run (``StepperGraphs``) of one clip in
+    lockstep, the same ``draws`` injected into each step.  After every
+    frame each part of the captured state is held to the eager one
+    (``_hold_to_floor``), every replay runs under
+    ``set_sync_debug_mode("error")`` and launches ``per_frame`` (counted
+    around the captured call only).  Returns the per-frame gaps."""
+    from blockcopy_tpu_torch.core.graphs import StepperGraphs
+    from blockcopy_tpu_torch.ops import kernels
+    per_frame = {k: per_frame.get(k, 0) for k in kernels.launches}
+    a, b, c = (stepper.init_state(params, seed=1) for _ in range(3))
+    graphs = StepperGraphs(stepper)
+    floor, got, replayed = [], [], []
+    for t, frame in enumerate(frames):
+        kw = {} if t == 0 else {"draws": draws[t - 1]}
+        if t == 0:
+            a = stepper.first_step(params, a, frame)
+            b = stepper.first_step(params, b, frame)
+        else:
+            a = stepper.step(params, a, frame, **kw)
+            b = stepper.step(params, b, frame, **kw)
+        replay = t > 0 and _replays(graphs, c, kw["draws"])
+        before = dict(kernels.launches)
+        if replay:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            c = graphs.first_step(params, c, frame) if t == 0 \
+                else graphs.step(params, c, frame, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        used = {k: kernels.launches[k] - before[k] for k in per_frame}
+        if used != per_frame:
+            raise AssertionError(f"[{tag}] frame {t + 1}: launches {used}, "
+                                 f"expected {per_frame}")
+        floor.append(_state_gaps(a, b))
+        got.append(_state_gaps(a, c))
+        replayed.append(replay)
+        if t and int(c["prev_grid"].sum().item()) != stepper.capacity:
+            raise AssertionError(f"[{tag}] frame {t + 1}: not "
+                                 f"{stepper.capacity} blocks")
+    _hold_to_floor(tag, floor, got)
+    capture_s = {"/".join(map(str, k)): round(g.capture_s, 3)
+                 for k, g in graphs.graphs.items()}
+    log(f"[{tag}] {len(frames)} frames in lockstep, eager, eager and "
+        f"captured, injected draws: {sum(replayed)} replays (each under "
+        f"set_sync_debug_mode('error'), no host sync), graphs captured "
+        f"{sorted(capture_s)} in {capture_s} s (their eager run included); "
+        f"launches a frame {per_frame}; largest gap per part, eager against "
+        f"eager {_parts_max(floor)}, captured against eager "
+        f"{_parts_max(got)}")
+    return {"floor": _parts_max(floor), "gap": _parts_max(got),
+            "replays": sum(replayed), "capture_s": capture_s,
+            "per_frame": per_frame,
+            "launches": {k: v * len(frames) for k, v in per_frame.items()}}
+
+
+def _parts_max(gaps):
+    return {part: max(g[part] for g in gaps) for part in gaps[0]}
+
+
+def _graphs_timing(tag, stepper, params, frames):
+    """Eager against captured without injected draws, both on the card at
+    once: each warmed up over ``first_step`` and 4 steps (the captured one
+    captures its three graphs there; peak memory of each warm-up above
+    what was held before it), then timed in interleaved windows of
+    ``GRAPH_WINDOW`` steps (eager, captured, eager, captured; host clock,
+    fenced), then one window of each under the profiler (idle share).  The
+    captured run's replays must keep ``capacity`` blocks and draw
+    different grids."""
+    from blockcopy_tpu_torch.core.graphs import StepperGraphs
+    from blockcopy_tpu_torch.tools.measure import device_idle
+    graphs = StepperGraphs(stepper)
+    runs = {"eager": (stepper.first_step, stepper.step),
+            "captured": (graphs.first_step, graphs.step)}
+    states, peak = {}, {}
+    for name, (first, step) in runs.items():
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        st = first(params, stepper.init_state(params, seed=1), frames[0])
+        for t in range(1, 5):
+            st = step(params, st, frames[t])
+        torch.cuda.synchronize()
+        peak[name] = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        states[name] = st
+    grids, ms = [], {"eager": [], "captured": []}
+    frame_at = lambda i: frames[5 + i % (len(frames) - 5)]
+    for w in range(4):
+        name = ("eager", "captured")[w % 2]
+        step = runs[name][1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(GRAPH_WINDOW):
+            states[name] = step(params, states[name], frame_at(i))
+            if name == "captured":
+                grids.append(states[name]["prev_grid"].clone())
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3 / GRAPH_WINDOW)
+    idle = {}
+    for name in runs:
+        step = runs[name][1]
+
+        def one(i, name=name, step=step):
+            states[name] = step(params, states[name], frame_at(i))
+
+        idle[name] = device_idle(one, GRAPH_WINDOW)
+    blocks = {int(g.sum().item()) for g in grids}
+    distinct = len({tuple(g.flatten().tolist()) for g in grids})
+    log(f"[{tag}] without draws: ms/frame (host clock, synchronize-fenced, "
+        f"windows of {GRAPH_WINDOW} steps, eager, captured, eager, "
+        f"captured): eager {[round(x, 3) for x in ms['eager']]}, captured "
+        f"{[round(x, 3) for x in ms['captured']]}; under the profiler "
+        f"eager {idle['eager']}, captured {idle['captured']}; peak memory "
+        f"of the warm-up (GiB above what was held) eager "
+        f"{peak['eager']:.3f}, captured {peak['captured']:.3f}; "
+        f"{distinct} distinct grids in {len(grids)} replays, blocks "
+        f"{sorted(blocks)}")
+    if blocks != {stepper.capacity} or distinct < 2:
+        raise AssertionError(f"[{tag}] replays without draws: blocks "
+                             f"{blocks}, {distinct} distinct grids")
+    return {"ms": {k: statistics.median(v) for k, v in ms.items()},
+            "windows_ms": ms, "idle": idle, "peak_gib": peak,
+            "distinct_grids": distinct}
+
+
+def _uniform_draws(steps, total, geom, seed):
+    gen = torch.Generator("cuda").manual_seed(seed)
+    return [(torch.rand(geom, generator=gen, device="cuda"),
+             torch.rand((total,), generator=gen, device="cuda"))
+            for _ in range(steps)]
+
+
+def phase_graphs_main():
+    """(15a) phase 4's step as CUDA graphs (``core/graphs.py``
+    ``StepperGraphs``, the step both CLIs run): ``_graphs_lockstep`` with
+    injected draws, then ``_graphs_timing``."""
+    from blockcopy_tpu_torch.tools.measure import (swiftnet_stepper,
+                                                   synthetic_frames)
+    torch.backends.cudnn.allow_tf32 = True
+    frame_shape, dtype = (1, 1024, 2048, 3), torch.bfloat16
+    params, stepper = swiftnet_stepper("resnet50", frame_shape, K, dtype,
+                                       "cuda", train_interval=4)
+    frames = synthetic_frames(frame_shape, GRAPH_STEPS + 1, dtype)
+    draws = _uniform_draws(GRAPH_STEPS, N * GH * GW, (N, GH, GW), 15)
+    per_frame = {"halo_strips": len(HALO_SHAPES),
+                 "halo_pieces": len(PIECE_SHAPES),
+                 "bottleneck_tail": len(TAIL_SHAPES)}
+    with _deterministic_cudnn():
+        res = _graphs_lockstep("15a", stepper, params, frames, draws,
+                               per_frame)
+    res.update(_graphs_timing("15a", stepper, params, frames))
+    return res
+
+
+def phase_graphs_detection():
+    """(15b) phase 9a's detection step (the ``csp_cls`` bias 0) as CUDA
+    graphs, as 15a: decode, NMS and the IoU gain inside them."""
+    from blockcopy_tpu_torch.tools.measure import (csp_stepper,
+                                                   synthetic_frames)
+    torch.backends.cudnn.allow_tf32 = True
+    frame_shape, dtype = (1, 1024, 2048, 3), torch.bfloat16
+    params, stepper = csp_stepper(frame_shape, DET_K, dtype, "cuda")
+    params["head"]["csp_cls"]["b"].zero_()
+    frames = synthetic_frames(frame_shape, GRAPH_STEPS + 1, dtype)
+    draws = _uniform_draws(GRAPH_STEPS, N * GH * GW, (N, GH, GW), 16)
+    per_frame = {"halo_strips": len(DET_HALO_SHAPES),
+                 "halo_pieces": len(PIECE_SHAPES),
+                 "bottleneck_tail": len(DET_TAIL_SHAPES)}
+    with _deterministic_cudnn():
+        res = _graphs_lockstep("15b", stepper, params, frames, draws,
+                               per_frame)
+    res.update(_graphs_timing("15b", stepper, params, frames))
+    return res
+
+
+def _out_gap(a, b):
+    """Largest |a - b| of two ladder frames' outputs: tensors, or per-class
+    box arrays (inf where their shapes differ)."""
+    if isinstance(a, torch.Tensor):
+        return (a.float() - b.float()).abs().max().item()
+    gaps = [float(np.abs(x - y).max(initial=0.0)) if x.shape == y.shape
+            else float("inf") for x, y in zip(a, b)]
+    return max(gaps, default=0.0) if len(a) == len(b) else float("inf")
+
+
+def _graphs_ladder(tag, build, per_exec, clip_len=8):
+    """Two op-by-op engines and one with graphs (``build(graphs)``) over 2
+    clips of ``clip_len`` frames in lockstep, the same draws injected: the
+    captured engine's outputs held to the eager ones as
+    ``_hold_to_floor`` holds a stepper's, the same counts, ``per_exec``
+    launches a frame that ran blocks, one graph captured per capacity.
+    ms/frame of an eager engine and of the captured one (host clock,
+    fenced), over all frames and over the frames that replayed."""
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.tools.measure import synthetic_frames
+    a, b, c = build(False), build(False), build(True)
+    clips = [synthetic_frames((1, 1024, 2048, 3), clip_len, torch.bfloat16,
+                              seed=c) for c in range(2)]
+    draws = _uniform_draws(2 * clip_len, N * GH * GW, (N, GH, GW), 17)
+    floor, got, counts, ms, replay_ms = [], [], [], [], []
+    launches = {k: 0 for k in kernels.launches}
+    for clip in clips:
+        for m in (a, b, c):
+            m.reset_temporal()
+        for frame in clip:
+            d = draws[len(counts)]
+            outs = []
+            for m in (a, b, c):
+                captured = len(m._steps)
+                before = dict(kernels.launches)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs.append(m(frame, draws=d))
+                torch.cuda.synchronize()
+                frame_ms = (time.perf_counter() - t0) * 1e3
+                if m is a:
+                    ms.append(frame_ms)
+                if m is c:
+                    for k in launches:
+                        launches[k] += kernels.launches[k] - before[k]
+                    used = {k: kernels.launches[k] - before[k]
+                            for k in per_exec}
+                    count = c.policy_meta["num_exec"]
+                    if used != (per_exec if count else
+                                {k: 0 for k in per_exec}):
+                        raise AssertionError(f"[{tag}] launches {used} at "
+                                             f"count {count}")
+                    if len(c._steps) == captured and count:
+                        replay_ms.append((frame_ms, ms[-1]))
+            counts.append([m.policy_meta["num_exec"] for m in (a, b, c)])
+            floor.append({"outputs": _out_gap(outs[0], outs[1])})
+            got.append({"outputs": _out_gap(outs[0], outs[2])})
+    if any(len(set(n)) != 1 for n in counts):
+        raise AssertionError(f"[{tag}] counts differ: {counts}")
+    _hold_to_floor(tag, floor, got)
+    caps = sorted(c._steps)
+    if caps != sorted({n[0] for n in counts if n[0]}):
+        raise AssertionError(f"[{tag}] graphs {caps}, counts {counts}")
+    eager_ms = statistics.median(ms[clip_len:])
+    cap_ms = statistics.median(x for x, _ in replay_ms) if replay_ms \
+        else None
+    log(f"[{tag}] 2 clips x {clip_len} frames in lockstep (eager, eager, "
+        f"graphs; injected draws): counts {[n[0] for n in counts]}, "
+        f"{len(caps)} capacities captured {caps}, outputs' largest gap "
+        f"captured against eager {_parts_max(got)['outputs']:.3g}, eager "
+        f"against eager {_parts_max(floor)['outputs']:.3g}; ms/frame "
+        f"(host clock, fenced) eager median {eager_ms:.2f} (clip 2), "
+        f"captured on its {len(replay_ms)} replay frames "
+        f"{[round(x, 2) for x, _ in replay_ms]} (eager on those frames "
+        f"{[round(y, 2) for _, y in replay_ms]})")
+    return {"capacities": caps, "eager_ms": eager_ms, "replay_ms": cap_ms,
+            "replay_frames": len(replay_ms), "launches": launches,
+            "gap": _parts_max(got)["outputs"],
+            "floor": _parts_max(floor)["outputs"]}
+
+
+def phase_graphs_ladder():
+    """(15c) the ladder engines with a graph per capacity: phase 8a's RN50
+    ``BlockCopyModel`` and phase 10a's ``CSPBlockCopy`` (``_graphs_ladder``,
+    under cuDNN's deterministic algorithms)."""
+    from blockcopy_tpu_torch.core.argparser import default_settings
+    from blockcopy_tpu_torch.core.engine import BlockCopyModel
+    from blockcopy_tpu_torch.models.builder import build_detector
+    from blockcopy_tpu_torch.models.swiftnet import (SwiftNetConfig,
+                                                     init_swiftnet,
+                                                     make_apply_fn)
+    from blockcopy_tpu_torch.utils.registry import load_config
+    torch.backends.cudnn.allow_tf32 = True
+    cfg = SwiftNetConfig(backbone="resnet50", num_classes=19)
+    params = init_swiftnet(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    def detector(g):
+        model = build_detector(load_config(str(DET_CONFIG)),
+                               dtype=torch.bfloat16, device="cuda")
+        model.params["head"]["csp_cls"]["b"].zero_()
+        model.graphs = g
+        return model
+
+    with _deterministic_cudnn():
+        out = {"semseg": _graphs_ladder(
+            "15c semseg", lambda g: BlockCopyModel(
+                make_apply_fn(cfg), params, default_settings(),
+                device="cuda", graphs=g),
+            {"halo_strips": len(HALO_SHAPES),
+             "halo_pieces": len(PIECE_SHAPES),
+             "bottleneck_tail": len(TAIL_SHAPES)})}
+        del params
+        out["detection"] = _graphs_ladder(
+            "15c detection", detector,
+            {"halo_strips": len(DET_HALO_SHAPES),
+             "halo_pieces": len(PIECE_SHAPES),
+             "bottleneck_tail": len(DET_TAIL_SHAPES)})
+    return out
+
+
+def graph_keys(graphs, name):
+    """The kernels line's phase-15 launches of kernel ``name``: over the
+    captured runs of 15a and 15b (every frame) and of 15c's two captured
+    engines."""
+    return {"graphs_launches": graphs["main"]["launches"][name],
+            "graphs_detection_launches":
+                graphs["detection"]["launches"][name],
+            "graphs_ladder_launches":
+                graphs["ladder"]["semseg"]["launches"][name],
+            "graphs_detection_ladder_launches":
+                graphs["ladder"]["detection"]["launches"][name]}
+
+
 def switch_keys(sw_main, sw_modes, sw_det, name):
     """The kernels line's phase-14 launches of kernel ``name``: per frame
     under each 14a run, over each 14b GPU run, and per frame of 14c's
@@ -2820,6 +3218,9 @@ def main() -> int:
     sw_main = phase_switches()
     sw_modes = phase_switches_modes()
     sw_det = phase_switches_detection()
+    graphs = {"main": phase_graphs_main(),
+              "detection": phase_graphs_detection(),
+              "ladder": phase_graphs_ladder()}
 
     def phase11_keys(name):
         return {"train_launches": train_launches[name],
@@ -2849,6 +3250,7 @@ def main() -> int:
          **parallel_keys(par, "halo_strips"),
          **native_keys(native_cli, capability, "halo_strips"),
          **switch_keys(sw_main, sw_modes, sw_det, "halo_strips"),
+         **graph_keys(graphs, "halo_strips"),
          "max_abs_err": halo["err"], "ms": halo["strips"],
          "plain_ms": halo["strips_plain"], "bound_ms": halo["bound"],
          "bound_by": "bytes", **common},
@@ -2864,6 +3266,7 @@ def main() -> int:
          **parallel_keys(par, "halo_pieces"),
          **native_keys(native_cli, capability, "halo_pieces"),
          **switch_keys(sw_main, sw_modes, sw_det, "halo_pieces"),
+         **graph_keys(graphs, "halo_pieces"),
          "block256_ms": pieces["block256"]["kernel"],
          "block256_plain_ms": pieces["block256"]["plain"],
          "block256_bound_ms": pieces["block256"]["bound"],
@@ -2876,6 +3279,7 @@ def main() -> int:
          "path": "pallas halo mode", "launches": canvas_launches,
          "detection_ladder_launches": dl_launches["halo_canvas"],
          **parallel_keys(par, "halo_canvas"),
+         **graph_keys(graphs, "halo_canvas"),
          "max_abs_err": halo["err"], "ms": halo["canvas"],
          "plain_ms": halo["canvas_plain"], "bound_ms": halo["bound"],
          "bound_by": "bytes", **common},
@@ -2899,6 +3303,7 @@ def main() -> int:
          **parallel_keys(par, "bottleneck_tail"),
          **native_keys(native_cli, capability, "bottleneck_tail"),
          **switch_keys(sw_main, sw_modes, sw_det, "bottleneck_tail"),
+         **graph_keys(graphs, "bottleneck_tail"),
          "tail_pieces_ms": tail["bf16"]["pieces"],
          "two_launch_ms": tail["bf16"]["two_launch"],
          "max_abs_err": tail["bf16"]["err"], "ms": tail["bf16"]["kernel"],
@@ -2915,6 +3320,7 @@ def main() -> int:
              ("wide_resnet50_2", 128, str(torch.bfloat16))][
              "bottleneck_tail_rows"],
          **parallel_keys(par, "bottleneck_tail_rows"),
+         **graph_keys(graphs, "bottleneck_tail_rows"),
          "wide_ms": rows["wide"]["kernel"],
          "wide_plain_ms": rows["wide"]["plain"],
          "wide_bound_ms": rows["wide"]["bound"],
@@ -2941,6 +3347,7 @@ def main() -> int:
          **parallel_keys(par, "bottleneck_tail_f32"),
          **native_keys(native_cli, capability, "bottleneck_tail_f32"),
          **switch_keys(sw_main, sw_modes, sw_det, "bottleneck_tail_f32"),
+         **graph_keys(graphs, "bottleneck_tail_f32"),
          "tail_pieces_ms": tail["f32"]["pieces"],
          "two_launch_ms": tail["f32"]["two_launch"],
          "max_abs_err": tail["f32"]["err"], "ms": tail["f32"]["kernel"],
@@ -2951,7 +3358,8 @@ def main() -> int:
          "replaces": "tools/probe_int8.py:38", "path": "probe_int8",
          "launches": probe_launches[name],
          "detection_ladder_launches": dl_launches[name],
-         **parallel_keys(par, name), "route": "cuda",
+         **parallel_keys(par, name), **graph_keys(graphs, name),
+         "route": "cuda",
          "matched": True, **mm[name]}
         for name in ("mm_bf16", "mm_int8")]
     log(f"[7] halo, halo_pieces and tail times are per main-path frame "
@@ -3008,6 +3416,16 @@ def main() -> int:
                     for k, v in sw_modes.items())
         + f", detection (14c) {sw_det['ms']:.2f} ms/frame against "
         f"{sw_det['off_ms']:.2f} off"
+        + "; as CUDA graphs (15), ms/frame captured against eager: main "
+        f"path {graphs['main']['ms']['captured']:.2f} against "
+        f"{graphs['main']['ms']['eager']:.2f}, detection "
+        f"{graphs['detection']['ms']['captured']:.2f} against "
+        f"{graphs['detection']['ms']['eager']:.2f}, idle share main "
+        f"{graphs['main']['idle']['captured']['idle_share']} against "
+        f"{graphs['main']['idle']['eager']['idle_share']}, ladder "
+        f"capacities captured {graphs['ladder']['semseg']['capacities']} "
+        f"(semseg), {graphs['ladder']['detection']['capacities']} "
+        f"(detection)"
         + f"; total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kern}))

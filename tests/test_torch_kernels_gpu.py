@@ -901,3 +901,160 @@ def test_mm_kernels_refuse_bad_inputs(cuda_device):
         MM.mm_bf16(torch.zeros((64, 128), **bf).t(),
                    torch.zeros((64, 8), **bf))
     assert kernels.launches == before
+
+
+# -- the steps as CUDA graphs (core/graphs.py) --------------------------------
+
+
+def _graph_states(stepper, params, frames, draws, graphs):
+    """The stepper's states after every frame of ``frames`` (CPU copies),
+    eager or through ``StepperGraphs``, and the launches of each frame."""
+    from blockcopy_tpu_torch.core.graphs import StepperGraphs
+    from blockcopy_tpu_torch.policy.optim import tree_map
+    run = StepperGraphs(stepper) if graphs else stepper
+    state = stepper.init_state(params, seed=1)
+    states, launches = [], []
+    for t, frame in enumerate(frames):
+        before = dict(kernels.launches)
+        if t == 0:
+            state = run.first_step(params, state, frame)
+        else:
+            state = run.step(params, state, frame,
+                             draws=None if draws is None else draws[t - 1])
+        launches.append({k: kernels.launches[k] - before[k] for k in before})
+        states.append(tree_map(
+            lambda x: x.cpu().clone() if isinstance(x, torch.Tensor) else x,
+            {k: v for k, v in state.items() if k != "policy"}
+            | {"params": state["policy"]["params"]}))
+    return states, launches
+
+
+def _rn18_stepper(device):
+    from blockcopy_tpu_torch.tools.measure import (swiftnet_stepper,
+                                                   synthetic_frames)
+    params, stepper = swiftnet_stepper("resnet18", (1, 256, 512, 3), 4,
+                                       torch.float32, device,
+                                       train_interval=2)
+    return params, stepper, synthetic_frames((1, 256, 512, 3), 6,
+                                             torch.float32, device=device)
+
+
+def test_captured_step_matches_eager(cuda_device, monkeypatch):
+    """RN18 256x512 fp32, capacity 4, REINFORCE every 2nd frame, 6 frames
+    with injected draws: the step as CUDA graphs (three captured: first,
+    plain, train; replays from frame 4) against the eager step: the same
+    grids, launches a frame and frame counters, every other tensor
+    bitwise (cuDNN deterministic)."""
+    from blockcopy_tpu_torch.policy import net as policy_net
+    monkeypatch.setattr(policy_net, "COMPUTE_DTYPE", torch.float32)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    params, stepper, frames = _rn18_stepper(cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    draws = [(torch.rand((1, 2, 4), generator=gen, device=cuda_device),
+              torch.rand((8,), generator=gen, device=cuda_device))
+             for _ in frames[1:]]
+    eager, e_launches = _graph_states(stepper, params, frames, draws, False)
+    graphs, g_launches = _graph_states(stepper, params, frames, draws, True)
+    assert g_launches == e_launches and e_launches[-1]["halo_strips"] > 0
+    for t, (a, b) in enumerate(zip(eager, graphs), 1):
+        assert a["frame_idx"] == b["frame_idx"] == t
+        for x, y in zip(_tensor_leaves(a), _tensor_leaves(b)):
+            assert torch.equal(x, y), f"frame {t}"
+
+
+def _tensor_leaves(tree):
+    from blockcopy_tpu_torch.policy.optim import tree_leaves
+    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def test_captured_step_draws_from_its_generator(cuda_device):
+    """Without injected draws the captured steps draw from the state's
+    generator, registered with each graph: every replay draws a new grid
+    of exactly ``capacity`` blocks, the same grids as the eager step from
+    the same seed."""
+    params, stepper, frames = _rn18_stepper(cuda_device)
+    frames = frames + frames
+    eager, _ = _graph_states(stepper, params, frames, None, False)
+    graphs, _ = _graph_states(stepper, params, frames, None, True)
+    grids = [s["prev_grid"] for s in graphs[1:]]
+    assert all(int(g.sum()) == stepper.capacity for g in grids)
+    # replays (frames 4-12) draw grids of their own
+    assert len({tuple(g.flatten().tolist()) for g in grids[2:]}) > 3
+    assert all(torch.equal(a["prev_grid"], b["prev_grid"])
+               for a, b in zip(eager, graphs))
+
+
+def test_captured_step_refuses_a_rebound_state(cuda_device):
+    """A state whose tensors are not those the graph captured raises at
+    the next replay: the graph would read the old buffers."""
+    params, stepper, frames = _rn18_stepper(cuda_device)
+    from blockcopy_tpu_torch.core.graphs import StepperGraphs
+    graphs = StepperGraphs(stepper)
+    state = graphs.first_step(params, stepper.init_state(params, seed=1),
+                              frames[0])
+    state = graphs.first_step(params, state, frames[0])
+    state["prev_grid"] = state["prev_grid"].clone()
+    with pytest.raises(RuntimeError, match="stale CUDA graph"):
+        graphs.first_step(params, state, frames[0])
+
+
+def test_captured_ladder_matches_eager(cuda_device, monkeypatch):
+    """The ladder engine with a graph per capacity against the op-by-op
+    engine: RN50 256x512 fp32 (ladder {2, 4, 6, 8}), 5 frames with
+    injected draws at counts 8, 4, 6, 4, 2: the same counts, outputs
+    bitwise, one graph for each capacity, and the previous output kept
+    apart from the next replay's."""
+    from blockcopy_tpu_torch.core.argparser import default_settings
+    from blockcopy_tpu_torch.core.engine import BlockCopyModel
+    from blockcopy_tpu_torch.models.swiftnet import (SwiftNetConfig,
+                                                     init_swiftnet,
+                                                     make_apply_fn)
+    from blockcopy_tpu_torch.policy import net as policy_net
+    from blockcopy_tpu_torch.tools.measure import synthetic_frames
+    monkeypatch.setattr(policy_net, "COMPUTE_DTYPE", torch.float32)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = SwiftNetConfig(backbone="resnet50", num_classes=19)
+    params = init_swiftnet(cfg, seed=0, device=cuda_device)
+    frames = synthetic_frames((1, 256, 512, 3), 5, torch.float32, seed=2,
+                              device=cuda_device)
+    gen = torch.Generator().manual_seed(6)
+    draws = [None]
+    for n_exec in (3, 5, 4, 2):
+        u = torch.full((8,), 2.0)
+        u[torch.randperm(8, generator=gen)[:n_exec]] = -1.0
+        draws.append((u.view(1, 2, 4).to(cuda_device),
+                      torch.rand((8,), generator=gen).to(cuda_device)))
+    runs = {}
+    for graphs in (False, True):
+        model = BlockCopyModel(make_apply_fn(cfg), params, default_settings(
+            block_quantize_number_exec=0.25), device=cuda_device,
+            graphs=graphs)
+        outs, counts = [], []
+        for t, (frame, d) in enumerate(zip(frames, draws)):
+            outs.append(model(frame, d).clone())
+            counts.append(model.policy_meta["num_exec"])
+            if t:
+                assert torch.equal(model.policy_meta["outputs_prev"],
+                                   outs[-2])
+        runs[graphs] = (outs, counts, sorted(model._steps))
+    assert runs[False][1] == runs[True][1] == [8, 4, 6, 4, 2]
+    assert runs[True][2] == [2, 4, 6, 8]
+    for a, b in zip(runs[False][0], runs[True][0]):
+        assert torch.equal(a, b)
+
+
+def test_blocked_group_norm_is_deterministic(cuda_device):
+    """The blocked GroupNorm (CSP's head) sums its statistics per image as
+    a masked reduction, not with float atomics: repeated calls on 128 bf16
+    blocks agree bitwise, so two runs of a detection step do too."""
+    from blockcopy_tpu_torch.core.blocked import BlockPack
+    from blockcopy_tpu_torch.ops import layers
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    k, bs, c = 128, 32, 256
+    d = torch.randn((k, bs, bs, c), generator=gen, device=cuda_device) * 3
+    x = BlockPack(d.to(torch.bfloat16), torch.arange(k, device=cuda_device),
+                  1, 8, 16)
+    gamma = torch.rand((c,), generator=gen, device=cuda_device)
+    beta = torch.randn((c,), generator=gen, device=cuda_device)
+    outs = [layers.group_norm(x, 32, gamma, beta).data for _ in range(8)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
