@@ -3,15 +3,18 @@
 
 Each frame: the policy picks the grid, the blocked model runs the executed
 blocks padded to the smallest capacity on the quantization ladder, the
-policy optimizes every ``train_interval`` frames.  Each capacity's model
-step is a CUDA graph of its own, captured at the capacity's first use (JAX's
-per-capacity compiled, donated ``_get_step``; ``core/graphs.py``), and its
-MAC tally is recorded once per capacity.  The policy runs eagerly.
+policy optimizes every ``train_interval`` frames.  Under ``graphs`` (the
+default) every compiled program of the JAX engine is a CUDA graph
+(``core/graphs.py``), captured at its first use, in the frame's order: the
+policy's forward (JAX's ``_forward_jit``), the count read, the capacity's
+model step (JAX's per-capacity compiled, donated ``_get_step``), a task's
+decode (``CSPBlockCopy``) and on train frames the REINFORCE update (JAX's
+``_optim_jit``).  Each capacity's MAC tally is recorded once.
 
 The engine's only host sync per frame is the executed-block count
-(``Policy._finalize``), which picks the capacity (a capacity's first frame
-also captures its graph, which synchronizes); a task's decode may add
-its own (``CSPBlockCopy`` reads its boxes back).  A frame with count 0
+(``Policy._finalize``), which picks the capacity (a graph's first call
+captures it, which synchronizes); a task's decode may add its own
+(``CSPBlockCopy`` reads its boxes back).  A frame with count 0
 runs no model and returns the previous outputs.  Temporal state is a dict
 of per-layer canvases updated in place.
 """
@@ -25,7 +28,8 @@ import torch
 
 from blockcopy_tpu_torch.core import grid as gridlib
 from blockcopy_tpu_torch.core.blocked import BlockPack, ExecCtx, split_dense
-from blockcopy_tpu_torch.core.graphs import CapturedStep, graph_pool
+from blockcopy_tpu_torch.core.graphs import (CallGraphs, CapturedStep,
+                                             graph_pool)
 from blockcopy_tpu_torch.device import resolve_device
 from blockcopy_tpu_torch.policy.optim import tree_map
 from blockcopy_tpu_torch.policy.policies import build_policy_from_settings
@@ -68,8 +72,10 @@ class BlockCopyModel:
         settings: the BlockCopy settings dict (``core/argparser.py``).
         policy: a policy object; by default ``build_policy_from_settings``.
         device: default CUDA; raises where it is absent.
-        graphs: run each capacity's model step as a CUDA graph (on the CPU,
-            the same body eagerly); ``False`` runs it op by op.
+        graphs: run the policy's forward and update, each capacity's
+            model step and the decode as CUDA graphs (on the CPU, the same
+            bodies eagerly); ``False`` runs the frame op by op.  Read at
+            every frame.
     """
 
     def __init__(self, apply_fn: Callable, params, settings: dict,
@@ -91,6 +97,7 @@ class BlockCopyModel:
         self.graphs = graphs
         self._steps = {}        # capacity -> CapturedStep
         self._pool = graph_pool(self.device)
+        self._calls = CallGraphs(self.device, self._pool)  # policy, decode
         self._bufs = None       # (outputs, frame_state) the graphs write
         self.reset_temporal()
 
@@ -198,9 +205,10 @@ class BlockCopyModel:
         self.clip_length += 1
         meta = self.policy_meta
         meta["inputs"] = inputs
+        calls = self._calls if self.graphs else None
 
         with timings.env("blockcopy/policy_forward", 3):
-            meta = self.policy(meta, draws)
+            meta = self.policy(meta, draws, calls)
 
         with timings.env("blockcopy/model", 3):
             if self.temporal is None or self._geom is None:
@@ -230,7 +238,8 @@ class BlockCopyModel:
 
         with timings.env("blockcopy/policy_optim", 3):
             train_policy = self.clip_length % self.train_interval == 0
-            self.policy_meta = self.policy.optim(meta, train=train_policy)
+            self.policy_meta = self.policy.optim(meta, train=train_policy,
+                                                 graphs=calls)
         return out
 
     forward = __call__

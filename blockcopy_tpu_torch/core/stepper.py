@@ -45,7 +45,8 @@ from blockcopy_tpu_torch.policy.net import (
     policy_in_channels,
     policy_net_apply,
 )
-from blockcopy_tpu_torch.policy.policies import reinforce_update
+from blockcopy_tpu_torch.policy.policies import (reinforce_grads,
+                                                 reinforce_update)
 from blockcopy_tpu_torch.utils.flops import policy_net_macs
 
 FRAME_STATE = "__frame_state__"
@@ -322,11 +323,15 @@ class FixedCapacityStepper:
             0, order, torch.arange(order.numel(), device=order.device))
         return (rank < self.capacity).reshape(probs.shape)
 
-    def _policy_optim(self, state, grid_f, cache_x, group=None):
+    def _policy_optim(self, state, grid_f, cache_x, group=None,
+                      grads_out=None):
         """Running cost, and the REINFORCE update on train frames, its
         gradients averaged over ``group`` where given (only the gradients:
         the running cost and BN statistics stay per rank, as per device in
-        the JAX package)."""
+        the JAX package).  With ``grads_out`` (a tree shaped as the policy
+        parameters) a train frame writes its own gradients there and leaves
+        the parameters and RMSprop state as they were
+        (``apply_policy_grads_`` makes the update)."""
         cfg = self.cfg
         pol = state["policy"]
         perc = grid_f.mean()
@@ -343,6 +348,12 @@ class FixedCapacityStepper:
         reward_grid = self._reward_grid(state) + reward_c
         signed = torch.where(grid_f > 0, reward_grid, -reward_grid)
 
+        if grads_out is not None:
+            grads, _ = reinforce_grads(pol["params"], pol["bn_state"],
+                                       cache_x, grid_f, signed,
+                                       cfg.policy_arch)
+            rmsprop.tree_copy_(grads_out, grads)
+            return {**pol, "running_cost": rc}
         params, opt, _ = reinforce_update(
             pol["params"], pol["bn_state"], pol["opt"], cache_x, grid_f,
             signed, cfg.policy_arch, cfg.lr, cfg.weight_decay, cfg.momentum,
@@ -380,14 +391,15 @@ class FixedCapacityStepper:
         return new
 
     def step(self, model_params, state, frame, draws: Optional[Tuple] = None,
-             group=None):
+             group=None, grads_out=None):
         """Steady-state frame: sample a grid of ``capacity`` blocks, run
         them, update the policy.  ``draws`` injects the grid's uniforms (see
         ``_sample_grid``).  ``group`` (a ``parallel.distributed.Group``,
         the counterpart of JAX's ``psum_axis``) averages the REINFORCE
         gradients over clip-parallel ranks: one ``all_reduce`` on a train
         frame, none on the others (every rank knows the train frames from
-        its host-side frame counter)."""
+        its host-side frame counter).  ``grads_out``: see
+        ``_policy_optim``."""
         n, gh, gw = self.geom
         pol = state["policy"]
         with torch.no_grad():
@@ -427,7 +439,7 @@ class FixedCapacityStepper:
             mid[k] = task[k]
             mid[f"{k}_prev"] = state[k]
         return {**mid, "policy": self._policy_optim(mid, grid_f, cache_x,
-                                                    group)}
+                                                    group, grads_out)}
 
     # -- in-place steps (the counterpart of donation) -------------------------
 
@@ -455,10 +467,21 @@ class FixedCapacityStepper:
         self._write(state, self.first_step(model_params, state, frame))
         return state
 
-    def step_(self, model_params, state, frame, draws: Optional[Tuple] = None):
+    def step_(self, model_params, state, frame, draws: Optional[Tuple] = None,
+              group=None, grads_out=None):
         """``step`` written into ``state``'s tensors: the new canvases,
         outputs and ``outputs_prev``, ``prev_grid``, the policy's params,
         BN statistics, RMSprop state and running cost.  Returns
         ``state``."""
-        self._write(state, self.step(model_params, state, frame, draws))
+        self._write(state, self.step(model_params, state, frame, draws,
+                                     group, grads_out))
         return state
+
+    def apply_policy_grads_(self, state, grads) -> None:
+        """The RMSprop update of a train frame from ``grads`` (those
+        ``grads_out`` received, averaged over the ranks), written into the
+        state's policy parameters and RMSprop state."""
+        cfg = self.cfg
+        pol = state["policy"]
+        rmsprop.update_(grads, pol["opt"], pol["params"], lr=cfg.lr,
+                        weight_decay=cfg.weight_decay, momentum=cfg.momentum)

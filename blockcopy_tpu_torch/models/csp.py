@@ -398,6 +398,15 @@ def dets_to_bbox_results(dets, labels, valid, num_classes: int
              for c in range(num_classes - 1)]]
 
 
+def _decode_graph(img_shape, cfg: CSPConfig, rescale_factor: float,
+                  nms_impl: str):
+    """``csp_decode`` at these static arguments as a graph's body."""
+    def body(_held, cls_score, bbox_pred, offset_pred):
+        return csp_decode(cls_score, bbox_pred, offset_pred, img_shape, cfg,
+                          rescale_factor, nms_impl)
+    return body
+
+
 # ---------------------------------------------------------------------------
 # BlockCopy detection engine
 # ---------------------------------------------------------------------------
@@ -430,8 +439,25 @@ class CSPBlockCopy(BlockCopyModel):
         return out
 
     def _decode(self, maps):
-        dets, labels, valid = csp_decode(*maps, self._img_shape, self.cfg,
-                                         self._rescale)
+        """Decode and NMS on the device, then the host's box lists.  Under
+        ``graphs`` the decode is a CUDA graph keyed as JAX's
+        ``_csp_decode``'s static arguments (``csp.py:420``): the image
+        shape, the rescale factor, the NMS lowering and ``TOPK_IMPL`` and
+        ``DECODE_LEAN_POINTS``, read at this call.  The ``fixpoint`` NMS
+        (``BLOCKCOPY_TPU_NMS=fixpoint``) reads the host every round
+        (``ops/nms.py``), which no graph can hold: under that switch the
+        decode runs op by op.  Its results are read back at once."""
+        nms_impl = _nms.NMS_IMPL
+        if self.graphs and nms_impl != "fixpoint":
+            key = ("csp_decode", self._img_shape, self._rescale, nms_impl,
+                   TOPK_IMPL, DECODE_LEAN_POINTS)
+            dets, labels, valid = self._calls(key, _decode_graph(
+                self._img_shape, self.cfg, self._rescale, nms_impl), (),
+                *maps)
+        else:
+            dets, labels, valid = csp_decode(*maps, self._img_shape,
+                                             self.cfg, self._rescale,
+                                             nms_impl)
         if self.cfg.nms_type == "soft_nms":
             dets, labels, valid = soft_nms_rescore(dets, labels, valid,
                                                    self.cfg)

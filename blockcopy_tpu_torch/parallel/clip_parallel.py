@@ -6,9 +6,11 @@ shared component, the online policy, stays identical on every rank because
 its REINFORCE gradients are averaged over the ranks before each update
 (``FixedCapacityStepper.step(..., group=...)``, ``Group.mean_tree``).  The
 JAX package stacks the state over a ``Mesh`` and runs one program under
-``shard_map``; here each rank is a process with its own state on its own
-device, started by ``spawn`` (or by a launcher such as ``torchrun``, then
-``distributed.global_group``).  Batch-norm statistics of the policy and its
+``shard_map``, compiled and donated; here each rank is a process with its
+own state on its own device, started by ``spawn`` (or by a launcher such as
+``torchrun``, then ``distributed.global_group``), and runs its steps as
+CUDA graphs (``build_parallel_steps``; on gloo the train frame's average
+runs between two graphs, ``core/graphs.py`` ``StepperGraphs``).  Batch-norm statistics of the policy and its
 running cost stay per rank, as per device in JAX; so do the sampling
 generators, seeded apart.
 """
@@ -16,7 +18,6 @@ generators, seeded apart.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import hashlib
 import os
 import pickle
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from blockcopy_tpu_torch.core.graphs import StepperGraphs
 from blockcopy_tpu_torch.device import resolve_device
 from blockcopy_tpu_torch.parallel.distributed import (Group,
                                                       default_backend,
@@ -208,9 +210,12 @@ def init_parallel_state(stepper, model_params, seed: int, rank: int) -> dict:
 
 
 def build_parallel_steps(stepper, group: Group):
-    """``(first_step, step)`` of ``stepper`` with ``group`` bound: the
-    steady step averages its REINFORCE gradients over the group."""
-    return stepper.first_step, functools.partial(stepper.step, group=group)
+    """``(first_step, step)`` of ``stepper`` with ``group`` bound, as CUDA
+    graphs (``core/graphs.py`` ``StepperGraphs``; JAX's sharded, donated
+    step): a train step averages its REINFORCE gradients over the group.
+    They update the state in place and return it."""
+    graphs = StepperGraphs(stepper, group)
+    return graphs.first_step, graphs.step
 
 
 def params_digest(params) -> str:

@@ -162,6 +162,14 @@ class Group:
         self.device = torch.device(device)
         self.pg = pg
 
+    @property
+    def capturable(self) -> bool:
+        """Whether the collectives can run inside a CUDA graph: a world of
+        one has none; NCCL's can, once the communicator has run one (a
+        graph's eager first call does); gloo stages a CUDA tensor through
+        the host, which syncs."""
+        return self.pg is None or dist.get_backend(self.pg) == "nccl"
+
     def mean_tree(self, tree):
         """``tree`` averaged over the ranks: its leaves flattened into one
         fp32 buffer, one ``all_reduce(SUM)``, a division by the world size

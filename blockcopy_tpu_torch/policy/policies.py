@@ -12,6 +12,12 @@ neither adds a transfer.
 ``policy_meta`` carries the reference's keys: ``inputs``, ``outputs``,
 ``outputs_prev``, ``frame_state``, ``grid``, ``num_exec``, ``num_total``,
 ``perc_exec``, ``output_repr``, ``information_gain``.
+
+``forward`` and ``optim`` take ``graphs`` (a ``core/graphs.py``
+``CallGraphs``, or None for op by op): with it ``PolicyTrainRL`` runs its
+forward and its REINFORCE update as CUDA graphs, JAX's ``_forward_jit`` and
+``_optim_jit`` (``policies.py:254-255``), which write the BN statistics,
+the parameters and the RMSprop state into the policy's own tensors.
 """
 
 from __future__ import annotations
@@ -91,14 +97,10 @@ def build_policy_from_settings(settings: dict, device=None):
     raise NotImplementedError(f"Policy {name} not implemented")
 
 
-def reinforce_update(params, bn_state, opt_state, cache_x, grid_f, signed,
-                     arch: str, lr: float, weight_decay: float,
-                     momentum: float, grad_reduce=None):
-    """One REINFORCE step: ``loss = mean(-log p(grid) * signed)`` through
-    the policy net (BN statistics not updated), then RMSprop.
-    ``grad_reduce(grads)``, where given, replaces the gradients before the
-    update (clip-parallel ranks average theirs).  Returns
-    ``(params, opt_state, loss)``."""
+def reinforce_grads(params, bn_state, cache_x, grid_f, signed, arch: str):
+    """The gradients of the REINFORCE loss ``mean(-log p(grid) * signed)``
+    through the policy net (BN statistics not updated) with respect to
+    ``params``.  Returns ``(grads, loss)``."""
     leaves = rmsprop.tree_map(lambda t: t.detach().requires_grad_(True),
                               params)
     with torch.enable_grad():
@@ -108,14 +110,25 @@ def reinforce_update(params, bn_state, opt_state, cache_x, grid_f, signed,
         logp = grid_f * F.logsigmoid(l) + (1 - grid_f) * F.logsigmoid(-l)
         loss = torch.mean(-logp * signed)
         grads = iter(torch.autograd.grad(loss, rmsprop.tree_leaves(leaves)))
-    grads = rmsprop.tree_map(lambda _: next(grads), leaves)
+    return rmsprop.tree_map(lambda _: next(grads), leaves), loss.detach()
+
+
+def reinforce_update(params, bn_state, opt_state, cache_x, grid_f, signed,
+                     arch: str, lr: float, weight_decay: float,
+                     momentum: float, grad_reduce=None):
+    """One REINFORCE step: ``reinforce_grads``, then RMSprop.
+    ``grad_reduce(grads)``, where given, replaces the gradients before the
+    update (clip-parallel ranks average theirs).  Returns
+    ``(params, opt_state, loss)``."""
+    grads, loss = reinforce_grads(params, bn_state, cache_x, grid_f, signed,
+                                  arch)
     if grad_reduce is not None:
         grads = grad_reduce(grads)
     with torch.no_grad():
         params, opt_state = rmsprop.update(
             grads, opt_state, params, lr=lr, weight_decay=weight_decay,
             momentum=momentum)
-    return params, opt_state, loss.detach()
+    return params, opt_state, loss
 
 
 class PolicyStats:
@@ -176,13 +189,16 @@ class Policy:
         num_exec = int(grid.sum())
         return self.stats.add_policy_meta(policy_meta, num_exec)
 
-    def forward(self, policy_meta: dict, draws: Draws = None) -> dict:
+    def forward(self, policy_meta: dict, draws: Draws = None,
+                graphs=None) -> dict:
         raise NotImplementedError
 
-    def __call__(self, policy_meta: dict, draws: Draws = None) -> dict:
-        return self.forward(policy_meta, draws)
+    def __call__(self, policy_meta: dict, draws: Draws = None,
+                 graphs=None) -> dict:
+        return self.forward(policy_meta, draws, graphs)
 
-    def optim(self, policy_meta: dict, train: bool = True) -> dict:
+    def optim(self, policy_meta: dict, train: bool = True,
+              graphs=None) -> dict:
         return policy_meta
 
     def state(self) -> dict:
@@ -196,7 +212,8 @@ class Policy:
 class PolicyAll(Policy):
     """Execute every block (reference ``policy.py:160-174``)."""
 
-    def forward(self, policy_meta: dict, draws: Draws = None) -> dict:
+    def forward(self, policy_meta: dict, draws: Draws = None,
+                graphs=None) -> dict:
         return self._finalize(policy_meta,
                               self._full_grid(policy_meta["inputs"]))
 
@@ -206,7 +223,8 @@ class PolicyNone(Policy):
     (reference ``policy.py:177-192``).  Keyed off ``outputs_prev``, as the
     reference: frames 1 and 2 of a clip both execute everything."""
 
-    def forward(self, policy_meta: dict, draws: Draws = None) -> dict:
+    def forward(self, policy_meta: dict, draws: Draws = None,
+                graphs=None) -> dict:
         first = policy_meta.get("outputs_prev", None) is None
         return self._finalize(policy_meta,
                               self._full_grid(policy_meta["inputs"], first))
@@ -218,7 +236,8 @@ class PolicyRandom(Policy):
     u_rank)`` of shapes ``(N, GH, GW)`` and ``(N*GH*GW,)`` replaces the
     generator's draws."""
 
-    def forward(self, policy_meta: dict, draws: Draws = None) -> dict:
+    def forward(self, policy_meta: dict, draws: Draws = None,
+                graphs=None) -> dict:
         inputs = policy_meta["inputs"]
         if policy_meta.get("outputs_prev", None) is None:
             return self._finalize(policy_meta, self._full_grid(inputs))
@@ -233,7 +252,10 @@ class PolicyRandom(Policy):
 
 
 class SemsegInformationGain:
-    """Strategy object: KL information gain for segmentation."""
+    """Strategy object: KL information gain for segmentation, computed on
+    the device (inside the REINFORCE graph, as JAX's jitted ``_compute``,
+    ``policies.py:207``): ``gain_inputs`` are the outputs and the previous
+    ones, ``gain`` the KL."""
 
     def __init__(self, num_classes: int):
         self.num_classes = num_classes
@@ -241,9 +263,12 @@ class SemsegInformationGain:
     def get_output_repr(self, policy_meta: dict):
         return semseg_output_repr(policy_meta["outputs"])
 
-    def compute(self, policy_meta: dict):
-        return semseg_information_gain(policy_meta["outputs"],
-                                       policy_meta["outputs_prev"])
+    def gain_inputs(self, policy_meta: dict):
+        return policy_meta["outputs"], policy_meta["outputs_prev"]
+
+    @staticmethod
+    def gain(outputs, outputs_prev):
+        return semseg_information_gain(outputs, outputs_prev)
 
 
 class PolicyTrainRL(Policy):
@@ -308,20 +333,47 @@ class PolicyTrainRL(Policy):
             / (~grid).sum().clamp_min(1)
         return grid, x, bn_state, exec_prob, skip_prob
 
-    def forward(self, policy_meta: dict, draws: Draws = None) -> dict:
+    def _held(self):
+        """What the policy's graphs read and write in place."""
+        return self.net_params, self.bn_state, self.opt_state, self.generator
+
+    def _forward_graph(self, held, frame, frame_state, output_repr, grid,
+                       draws: Draws = None):
+        """The forward graph's body (JAX's ``_forward_jit``):
+        ``_forward_impl`` from the previous grid, the BN statistics written
+        into the policy's own."""
+        with torch.no_grad():
+            grid, x, bn_state, exec_p, skip_p = self._forward_impl(
+                frame, frame_state, output_repr, grid.float(), draws)
+        rmsprop.tree_copy_(self.bn_state, bn_state)
+        return grid, x, exec_p, skip_p
+
+    def forward(self, policy_meta: dict, draws: Draws = None,
+                graphs=None) -> dict:
         """``draws=(u, u_rank)`` of shapes ``(N, GH, GW)`` and
         ``(N*GH*GW,)`` replaces the generator's Bernoulli and rank
-        uniforms."""
+        uniforms.  Under ``graphs`` the frame's forward is a graph (one with
+        ``draws``, one without; the policy's generator registered with
+        both) and its results are cloned out; frame 1's all-ones grid stays
+        outside it."""
         inputs = policy_meta["inputs"]
         if policy_meta.get("outputs", None) is None:
             # no temporal history: execute everything (policy.py:270-274)
             policy_meta["_rl_cache"] = None
             return self._finalize(policy_meta, self._full_grid(inputs))
-        with torch.no_grad():
-            grid, cache_x, self.bn_state, exec_p, skip_p = \
-                self._forward_impl(inputs, policy_meta["frame_state"],
-                                   policy_meta["output_repr"],
-                                   policy_meta["grid"].float(), draws)
+        args = (inputs, policy_meta["frame_state"],
+                policy_meta["output_repr"])
+        if graphs is None:
+            with torch.no_grad():
+                grid, cache_x, self.bn_state, exec_p, skip_p = \
+                    self._forward_impl(*args, policy_meta["grid"].float(),
+                                       draws)
+        else:
+            grid, cache_x, exec_p, skip_p = rmsprop.tree_map(
+                torch.clone, graphs(
+                    ("policy_forward", draws is None), self._forward_graph,
+                    self._held(), *args, policy_meta["grid"],
+                    *(() if draws is None else (tuple(draws),))))
         if self.verbose and not bool(torch.isfinite(exec_p)
                                      & torch.isfinite(skip_p)):
             # NaN guard (reference policy.py:281-283); verbose only, so the
@@ -332,7 +384,36 @@ class PolicyTrainRL(Policy):
         policy_meta["_rl_probs"] = (exec_p, skip_p)
         return self._finalize(policy_meta, grid)
 
-    def optim(self, policy_meta: dict, train: bool = True) -> dict:
+    def _signed_reward(self, ig, grid, rcw):
+        """The gain plus the complexity reward ``rcw``, max-pooled per
+        block, signed by the grid (skipped blocks negative)."""
+        reward = ig.float() + rcw
+        reward_grid = adaptive_max_pool2d(
+            reward, (grid.shape[1], grid.shape[2]))[..., 0]
+        return torch.where(grid, reward_grid, -reward_grid)
+
+    def _optim_graph(self, held, cache_x, grid, rcw, *gain_inputs):
+        """The REINFORCE graph's body (JAX's ``_optim_jit`` with the
+        semseg gain): the gain, the signed reward, the gradients and the
+        RMSprop update, written into the policy's own tensors.  Returns the
+        gain."""
+        with torch.no_grad():
+            ig = self.information_gain.gain(*gain_inputs)
+            signed = self._signed_reward(ig, grid, rcw)
+        grads, _ = reinforce_grads(self.net_params, self.bn_state, cache_x,
+                                   grid.float(), signed, self.arch)
+        rmsprop.update_(grads, self.opt_state, self.net_params, lr=self.lr,
+                        weight_decay=self.weight_decay,
+                        momentum=self.momentum)
+        return ig
+
+    def optim(self, policy_meta: dict, train: bool = True,
+              graphs=None) -> dict:
+        """The running cost, and on a train frame the REINFORCE update;
+        under ``graphs`` a graph (the complexity reward enters it as a
+        host float; the detection gain, painted on the host, as a
+        tensor).  The running cost and the verbose and 300-image checks
+        stay on the host, as in JAX."""
         policy_meta["output_repr"] = self.information_gain.get_output_repr(
             policy_meta)
         block_use = policy_meta["perc_exec"]
@@ -344,20 +425,24 @@ class PolicyTrainRL(Policy):
                 or policy_meta.get("_rl_cache", None) is None):
             return policy_meta
         grid = policy_meta["grid"]
-        with torch.no_grad():
-            ig = self.information_gain.compute(policy_meta)
-            policy_meta["information_gain"] = ig
-            rc = -(self.running_cost - self.block_target)
-            rcw = rc * abs(rc) * self.complexity_weight_gamma
-            # a Python scalar: an upload from pageable memory would sync
-            reward = ig.float() + rcw
-            reward_grid = adaptive_max_pool2d(
-                reward, (grid.shape[1], grid.shape[2]))[..., 0]
-            signed = torch.where(grid, reward_grid, -reward_grid)
-        self.net_params, self.opt_state, _ = reinforce_update(
-            self.net_params, self.bn_state, self.opt_state,
-            policy_meta["_rl_cache"], grid.float(), signed, self.arch,
-            self.lr, self.weight_decay, self.momentum)
+        rc = -(self.running_cost - self.block_target)
+        rcw = rc * abs(rc) * self.complexity_weight_gamma
+        gain_inputs = self.information_gain.gain_inputs(policy_meta)
+        if graphs is None:
+            with torch.no_grad():
+                ig = self.information_gain.gain(*gain_inputs)
+                # a Python scalar: an upload from pageable memory would
+                # sync
+                signed = self._signed_reward(ig, grid, rcw)
+            self.net_params, self.opt_state, _ = reinforce_update(
+                self.net_params, self.bn_state, self.opt_state,
+                policy_meta["_rl_cache"], grid.float(), signed, self.arch,
+                self.lr, self.weight_decay, self.momentum)
+        else:
+            ig = graphs(("policy_optim",), self._optim_graph, self._held(),
+                        policy_meta["_rl_cache"], grid, float(rcw),
+                        *gain_inputs).clone()
+        policy_meta["information_gain"] = ig
         if self.verbose:
             exec_p, skip_p = torch.stack(policy_meta["_rl_probs"]).tolist()
             print(f"BLOCKS/running_cost: {self.running_cost: 0.3f}\n"
@@ -382,9 +467,10 @@ class PolicyTrainRL(Policy):
         }
 
     def load_state(self, state: dict) -> None:
-        """The JAX state's ``key`` is ignored: draws stay with this
-        policy's generator."""
-        self.net_params = state["net_params"]
-        self.bn_state = state["bn_state"]
-        self.opt_state = state["opt_state"]
+        """Copied into this policy's tensors, which its graphs hold.  The
+        JAX state's ``key`` is ignored: draws stay with this policy's
+        generator."""
+        rmsprop.tree_copy_(self.net_params, state["net_params"])
+        rmsprop.tree_copy_(self.bn_state, state["bn_state"])
+        rmsprop.tree_copy_(self.opt_state, state["opt_state"])
         self.running_cost = state["running_cost"]

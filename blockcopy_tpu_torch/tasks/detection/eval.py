@@ -189,10 +189,11 @@ class _StepperDetector:
         self.stepper = DetectionStepper(csp_cfg, scfg, frame_shape, capacity,
                                         dtype=dtype, device=device)
         self.group = group
+        # the steps as CUDA graphs, captured at their first calls (JAX:
+        # jax.jit(..., donate_argnums=(1,)), or the clip-parallel rank's
+        # sharded step)
         if group is None:
             from blockcopy_tpu_torch.core.graphs import StepperGraphs
-            # the steps as CUDA graphs, captured at their first calls
-            # (JAX: jax.jit(..., donate_argnums=(1,)))
             self.graphs = StepperGraphs(self.stepper)
             self.state = self.stepper.init_state(params, seed=1)
             self._first, self._step = self.graphs.first_step, \

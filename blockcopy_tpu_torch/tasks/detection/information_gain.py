@@ -176,7 +176,9 @@ def instance_mask_fixed(dets, labels, valid, hw, num_fg_classes: int,
 class DetectionInformationGain:
     """The detection reward for a REINFORCE policy: box lists are host
     data, painted on the host as the reference does; the policy sees the
-    rasterized fp32 maps on its ``device``."""
+    rasterized fp32 maps on its ``device``.  The gain enters the policy's
+    REINFORCE graph as an input (``gain_inputs``; ``gain`` passes it
+    on)."""
 
     def __init__(self, num_classes: int, device="cpu"):
         self.num_classes = num_classes
@@ -193,3 +195,10 @@ class DetectionInformationGain:
         return to_device(build_instance_mask_iou_gain(
             policy_meta["outputs"], policy_meta["outputs_prev"],
             (n, h, w, self.num_classes)), self.device)
+
+    def gain_inputs(self, policy_meta: Dict):
+        return (self.compute(policy_meta),)
+
+    @staticmethod
+    def gain(ig):
+        return ig

@@ -27,6 +27,7 @@ rank passes.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import logging
 import os
@@ -40,6 +41,7 @@ import torch
 from blockcopy_tpu_torch.core.argparser import add_argparser_arguments
 from blockcopy_tpu_torch.core.blocked import ExecCtx
 from blockcopy_tpu_torch.core.engine import BlockCopyModel
+from blockcopy_tpu_torch.core.graphs import CallGraphs, StepperGraphs
 from blockcopy_tpu_torch.data import transforms as et
 from blockcopy_tpu_torch.data.cityscapes_vid import CityscapesVid
 from blockcopy_tpu_torch.data.demo import DemoImageDataset
@@ -219,7 +221,6 @@ def _run(argv, device, group):
     model = None
     stepper_state = {}
     if args.speed_mode and not static:
-        from blockcopy_tpu_torch.core.graphs import StepperGraphs
         from blockcopy_tpu_torch.core.stepper import (FixedCapacityStepper,
                                                       StepperConfig)
         gh, gw = args.res // args.block_size, args.res * 2 // args.block_size
@@ -229,6 +230,9 @@ def _run(argv, device, group):
             (args.batch_size, args.res, args.res * 2, 3), capacity,
             dtype=dtype, device=device)
         stepper_state["stepper"] = stepper
+        # the steps as CUDA graphs, captured at their first calls (JAX:
+        # jax.jit(..., donate_argnums=(1,)), or the clip-parallel rank's
+        # sharded step)
         if mesh:
             stepper_state["state"] = clip_parallel.init_parallel_state(
                 stepper, params, 1, group.rank)
@@ -237,8 +241,6 @@ def _run(argv, device, group):
             logger.info("clip-parallel: rank %d of %d on %s", group.rank,
                         group.size, device)
         else:
-            # the steps as CUDA graphs, captured at their first calls
-            # (JAX: jax.jit(..., donate_argnums=(1,)))
             graphs = StepperGraphs(stepper)
             stepper_state["state"] = stepper.init_state(params, seed=1)
             stepper_state["first"] = graphs.first_step
@@ -249,9 +251,8 @@ def _run(argv, device, group):
     elif not static:
         model = BlockCopyModel(apply_fn, params, vars(args), device=device)
 
-    def dense_fwd(p, x):
-        with torch.no_grad():
-            return swiftnet_apply(p, x, ExecCtx.dense(), cfg)
+    dense = DenseGraphs(cfg, device)
+    dense_fwd, upsample = dense.dense_fwd, dense.upsample
 
     output_dir = None
     if args.output_dir:
@@ -259,10 +260,6 @@ def _run(argv, device, group):
             raise ValueError("Cannot combine --fast with --output-dir")
         output_dir = os.path.join("output_demo", args.output_dir)
         os.makedirs(output_dir, exist_ok=True)
-
-    def upsample(o, hw):
-        with torch.no_grad():
-            return resize_bilinear(o.float(), hw).argmax(dim=-1)
 
     staged_clip = {}
 
@@ -301,7 +298,7 @@ def _run(argv, device, group):
                 else:
                     out = dense_fwd(params, inputs)
                 if frame_id == len(clip) - 1 or output_dir:
-                    preds = upsample(out, tuple(inputs.shape[1:3]))
+                    preds = upsample(out, tuple(inputs.shape[1:3])).clone()
             if output_dir and phase != "warmup":
                 if arr is None:
                     arr = inputs.float().cpu().numpy()
@@ -486,6 +483,37 @@ def _run(argv, device, group):
     results = process_dataset(dataset_eval, "eval", args.num_clips_eval)
     check_policy_health("eval")
     return results
+
+
+class DenseGraphs:
+    """The CLI's dense forward (``--block-policy static``) and its upsample
+    to the input's size as CUDA graphs (``core/graphs.py`` ``CallGraphs``;
+    JAX's ``jax.jit`` of both, ``upsample``'s ``hw`` static): one graph per
+    input shape, and one per input shape and ``hw``.  Each returns its
+    graph's buffer, which the next call overwrites: a caller clones what it
+    keeps.  On the CPU they run eagerly."""
+
+    def __init__(self, cfg: SwiftNetConfig, device):
+        self.cfg = cfg
+        self.calls = CallGraphs(device)
+
+    def dense_fwd(self, params, x):
+        return self.calls(("dense_fwd",), self._dense, params, x)
+
+    def _dense(self, params, x):
+        with torch.no_grad():
+            return swiftnet_apply(params, x, ExecCtx.dense(), self.cfg)
+
+    def upsample(self, out, hw):
+        return self.calls(("upsample", hw), functools.partial(_upsample, hw),
+                          (), out)
+
+
+def _upsample(hw, _held, out):
+    """The logits resized to ``hw``, their argmax: the upsample graph's
+    body."""
+    with torch.no_grad():
+        return resize_bilinear(out.float(), hw).argmax(dim=-1)
 
 
 def _dump_viz(output_dir, phase, meta, frame_id, arr, preds, model):

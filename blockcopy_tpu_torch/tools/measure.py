@@ -1,14 +1,16 @@
 """What ``chip_smoke.py`` and the tools share: the synthetic clip, a random
 halo in strip form, the SwiftNet and CSP steppers they drive, a small
 detection clip and a small train step for GPU-CPU comparisons, device
-timing by CUDA graph replay, and the body of one clip-parallel rank with the
-group that records its gradient averages, PNG files and Cityscapes-layout
+timing by CUDA graph replay, the bodies of one clip-parallel rank (eager,
+with the group that records its gradient averages, and eager against
+captured), PNG files and Cityscapes-layout
 clips written without PIL, and the port's lowering switches set for a block
 of code."""
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import re
 import statistics
 import struct
@@ -522,7 +524,8 @@ def parallel_stepper_rank(group, model="swiftnet", steps=12):
     (``time.perf_counter``, shared by the processes of one host), the train
     frames with their sync counts and policy digests, the rank's own and
     the averaged gradient of the first train frame, and the peak memory in
-    GiB."""
+    GiB.  The steps are the eager parallel step (``parallel_graphs_rank``
+    holds the captured ones against it)."""
     import torch.distributed as dist
     from blockcopy_tpu_torch.ops import kernels
     from blockcopy_tpu_torch.parallel import clip_parallel
@@ -543,7 +546,8 @@ def parallel_stepper_rank(group, model="swiftnet", steps=12):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     state = clip_parallel.init_parallel_state(stepper, params, 1, group.rank)
-    first, step = clip_parallel.build_parallel_steps(stepper, keep)
+    first, step = stepper.first_step, functools.partial(stepper.step,
+                                                        group=keep)
     state = first(params, state, frames[0])
     torch.cuda.synchronize()
     group.barrier()
@@ -579,6 +583,102 @@ def parallel_stepper_rank(group, model="swiftnet", steps=12):
             "grad_mean": _flat(keep.records[0][1]).cpu(),
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "capacity": stepper.capacity}
+
+
+def parallel_graphs_rank(group, backbone="resnet50", shape=(1, 1024, 2048, 3),
+                         capacity=64, dtype="bfloat16", block_size=128,
+                         train_interval=4, lockstep=8, timed=12):
+    """One clip-parallel rank, the eager parallel step against the captured
+    one (``clip_parallel.build_parallel_steps``, ``core/graphs.py``
+    ``StepperGraphs`` bound to ``group``): a SwiftNet stepper (fast policy,
+    target 0.5, REINFORCE every ``train_interval`` frames) on this rank's
+    own clip, two states from ``init_parallel_state``, stepped in lockstep
+    over ``lockstep`` frames with the same injected draws (seeded by rank),
+    cuDNN's deterministic algorithms on.  After each train frame the
+    digests of both policies.  Then ``timed`` more captured steps, the
+    draws injected, each fenced by ``synchronize`` on CUDA, with its start
+    and end on the host's monotonic clock, under
+    ``set_sync_debug_mode("error")`` (on gloo, which stages the all_reduce
+    through the host, a train frame's syncs are counted instead).  Returns the
+    digests (eager, captured) per train frame, the graphs' keys, whether
+    the captured outputs are finite and bitwise the eager ones after the
+    lockstep, and on CUDA the launches of the timed steps (zeroed just
+    before them), their ms, stamps and train syncs."""
+    import torch.distributed as dist
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.parallel import clip_parallel
+    cuda = group.device.type == "cuda"
+    dtype = getattr(torch, dtype)
+    params, stepper = swiftnet_stepper(backbone, shape, capacity, dtype,
+                                       group.device, train_interval,
+                                       block_size)
+    frames = synthetic_frames(shape, lockstep + timed, dtype,
+                              seed=group.rank, device=group.device)
+    gen = torch.Generator(group.device).manual_seed(100 + group.rank)
+    geom = stepper.geom
+    draws = [(torch.rand(geom, generator=gen, device=group.device),
+              torch.rand((stepper.total,), generator=gen,
+                         device=group.device))
+             for _ in frames]
+    eager = clip_parallel.init_parallel_state(stepper, params, 1, group.rank)
+    state = clip_parallel.init_parallel_state(stepper, params, 1, group.rank)
+    first, step = clip_parallel.build_parallel_steps(stepper, group)
+    digests = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for t in range(lockstep):
+            if t == 0:
+                eager = stepper.first_step(params, eager, frames[0])
+                state = first(params, state, frames[0])
+                continue
+            eager = stepper.step(params, eager, frames[t], draws[t],
+                                 group=group)
+            state = step(params, state, frames[t], draws[t])
+            if stepper.is_train_frame(t + 1):
+                digests.append(tuple(clip_parallel.params_digest(
+                    s["policy"]["params"]) for s in (eager, state)))
+        same = all(torch.equal(a, b) for a, b in zip(
+            _flat_outputs(stepper, eager), _flat_outputs(stepper, state)))
+        finite = all(bool(torch.isfinite(t.float()).all())
+                     for t in _flat_outputs(stepper, state))
+        ms, stamps, trained = [], [], []
+        syncs_on_train = cuda and dist.get_backend(group.pg) == "gloo"
+        if cuda:
+            torch.cuda.synchronize()
+        group.barrier()
+        kernels.reset_launches()
+        for t in range(lockstep, lockstep + timed):
+            train = stepper.is_train_frame(state["frame_idx"] + 1)
+            t0 = time.perf_counter()
+            if train and syncs_on_train:
+                state, syncs = count_syncs(step, params, state, frames[t],
+                                           draws[t])
+            else:
+                if cuda:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    state, syncs = step(params, state, frames[t],
+                                        draws[t]), 0
+                finally:
+                    if cuda:
+                        torch.cuda.set_sync_debug_mode(0)
+            if cuda:
+                torch.cuda.synchronize()
+            stamps.append((t0, time.perf_counter()))
+            ms.append((stamps[-1][1] - t0) * 1e3)
+            if train:
+                trained.append((t + 1, syncs))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return {"digests": digests, "outputs_equal": same, "finite": finite,
+            "launches": dict(kernels.launches), "ms": ms, "stamps": stamps,
+            "trained": trained}
+
+
+def _flat_outputs(stepper, state):
+    out = stepper.fetch_outputs(state)
+    return out if isinstance(out, tuple) else (out,)
 
 
 # -- PNG files without PIL (the card's machine may have none) -----------------

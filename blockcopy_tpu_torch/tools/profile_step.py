@@ -8,9 +8,11 @@ Runs the main path of ``chip_smoke.py`` (SwiftNet-RN50, 1024x2048 bf16, fast
 policy, block 128, target 0.5, REINFORCE every 4th frame), warms up past the
 first two train frames, then traces ``--steps`` steps with
 ``torch.profiler`` and prints one JSON line.  The steps are those the CLIs
-run: the stepper's and each ladder capacity's as CUDA graphs
-(``core/graphs.py``), captured in the warm-up; ``--eager`` runs them op by
-op (the line's ``graphs`` says which).  ``--backbone`` and
+run, as CUDA graphs (``core/graphs.py``) captured in the warm-up: the
+stepper's, and the ladder frame's every graph (the policy's forward and
+REINFORCE update, each capacity's model step, the CSP decode; a capacity
+first met inside the traced steps is captured there); ``--eager`` runs
+them op by op (the line's ``graphs`` says which).  ``--backbone`` and
 ``--block-size`` change SwiftNet's backbone and block size (the stepper's
 capacity stays half the grid: 16 of 32 blocks at block 256); the
 ``BLOCKCOPY_TPU_FUSED_BOTTLENECK`` switch (``0`` runs every bottleneck

@@ -218,7 +218,26 @@ Phases (any failure raises and exits non-zero):
    phase 8a's and phase 10a's ladder engines, two op by op and one with a
    graph per capacity in lockstep over 2 clips of 8 frames with injected
    draws, cuDNN deterministic: the same counts, outputs as close as the eager engines', one graph
-   a capacity that ran, launches a frame as 8a and 10a, ms/frame of both.
+   a capacity that ran, launches a frame as 8a and 10a, ms/frame of both;
+16. the JAX package's remaining compiled serving programs as CUDA graphs
+   (``core/graphs.py`` ``CallGraphs``), before the JSON lines: (a) phase
+   8a's semseg ladder and (b) phase 10a's detection ladder, two op by op
+   and one with every graph (the policy's forward and REINFORCE update, a
+   graph per capacity, the CSP decode) in lockstep over 2 clips of 8 frames
+   with injected draws, cuDNN deterministic: the same counts; outputs,
+   canvases and policy parameters as close as the eager engines'; launches
+   a frame as 8a and 10a; host syncs a frame as 8a (1) and 10a (3 plain, 4
+   train) on every frame of the eager engines and every frame on which the
+   captured one replayed every graph; ms/frame of both on those frames and
+   a window of 8 frames of each under the profiler (idle share); (c) the
+   semseg CLI's ``--block-policy static`` dense forward and upsample as
+   graphs, bitwise their op-by-op bodies, ms/frame of both; (d) the
+   clip-parallel steps as graphs on the one card: an NCCL world of one
+   (the ``all_reduce`` inside the train graph) and two gloo ranks (the
+   split train step), each rank in lockstep with the eager parallel step
+   (policy and outputs bitwise), the policy bitwise across the ranks, 12
+   captured steps with 12 + 1 K1 and 8 K2 a frame and no host sync on a
+   steady frame, aggregate frames/s against phase 12's.
 
 It needs one CUDA GPU and the repository around it: without either it exits
 non-zero and prints no result.
@@ -3044,6 +3063,353 @@ def phase_graphs_ladder():
     return out
 
 
+SERVING_CLIP = 8         # frames a clip of 16a and 16b (2 clips)
+IDLE_WINDOWS = 4         # profiled windows at most (16a, 16b)
+
+
+def _tree_gap(a, b):
+    from blockcopy_tpu_torch.policy.optim import tree_leaves
+    return max(((u.float() - v.float()).abs().max().item()
+                for u, v in zip(tree_leaves(a), tree_leaves(b))),
+               default=0.0)
+
+
+def _engine_gaps(a, b, out_a, out_b):
+    """Largest gaps of two ladder engines after a frame: its outputs, their
+    canvases and their policy parameters."""
+    return {"outputs": _out_gap(out_a, out_b),
+            "canvases": _tree_gap(a.temporal["canvases"],
+                                  b.temporal["canvases"]),
+            "policy": _tree_gap(a.policy.net_params, b.policy.net_params)}
+
+
+def _graph_count(model):
+    """The graphs a ladder engine has captured: one a capacity, and the
+    policy's and the decode's."""
+    return len(model._steps) + len(model._calls.graphs)
+
+
+def _serving_ladder(tag, build, per_exec, syncs_of, clip_len=SERVING_CLIP):
+    """(16a, 16b) Two op-by-op engines (``build(False)``) and one with
+    every graph (``build(True)``: the policy's forward and update, each
+    capacity's model step, the decode) over 2 clips of ``clip_len`` frames
+    in lockstep, the same draws injected, each frame counted for host syncs
+    (``count_syncs``) and timed (host clock, fenced).  The captured
+    engine's outputs, canvases and policy parameters are held to the two
+    eager engines' gaps (``_hold_to_floor``); the counts must be equal;
+    ``per_exec`` launches a frame that ran blocks; on every frame that
+    captured nothing new the captured engine makes ``syncs_of(engine, t,
+    count, ran)`` host syncs, as the eager engines do on every frame after
+    the first (which sets an engine up).  Then both go on over windows of
+    ``GRAPH_WINDOW`` frames (clip 2's frames again, new draws), the first
+    unprofiled, each later one profiled on both (idle share), until the
+    captured engine meets no new capacity in a window (at most
+    ``IDLE_WINDOWS``: a capture inside a window is not a replay's idle
+    time)."""
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.tools.measure import (count_syncs, device_idle,
+                                                   synthetic_frames)
+    a, b, c = build(False), build(False), build(True)
+    shape = (1, 1024, 2048, 3)
+    clips = [synthetic_frames(shape, clip_len + i * 2 * GRAPH_WINDOW,
+                              torch.bfloat16, seed=i) for i in range(2)]
+    draws = _uniform_draws(2 * clip_len + (IDLE_WINDOWS + 1) * GRAPH_WINDOW,
+                           N * GH * GW, (N, GH, GW), 18)
+    floor, got, counts, rows, replays = [], [], [], [], []
+    launches = {k: 0 for k in kernels.launches}
+    for ci, clip in enumerate(clips):
+        for m in (a, b, c):
+            m.reset_temporal()
+        for t, frame in enumerate(clip[:clip_len], 1):
+            d = draws[len(counts)]
+            outs, syncs, ms = [], [], []
+            for m in (a, b, c):
+                graphs = _graph_count(m)
+                before = dict(kernels.launches)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, n = count_syncs(lambda: m(frame, draws=d))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                outs.append(out)
+                syncs.append(n)
+            for k in launches:
+                launches[k] += kernels.launches[k] - before[k]
+            used = {k: kernels.launches[k] - before[k] for k in per_exec}
+            count = c.policy_meta["num_exec"]
+            ran = c.policy_meta.get("_rl_cache") is not None
+            want = syncs_of(c, t, count, ran)
+            replayed = _graph_count(c) == graphs
+            if used != (per_exec if count else {k: 0 for k in per_exec}):
+                raise AssertionError(f"[{tag}] launches {used} at count "
+                                     f"{count}")
+            # an engine's first frame sets it up (kernel loads in a fresh
+            # process), so frame 1 of clip 1 is not held
+            first = ci == 0 and t == 1
+            if not first and (syncs[:2] != [want, want]
+                              or (replayed and syncs[2] != want)):
+                raise AssertionError(
+                    f"[{tag}] clip {ci + 1} frame {t}: host syncs (eager, "
+                    f"eager, captured) {syncs}, expected {want} (captured "
+                    f"frame replayed every graph: {replayed})")
+            counts.append([m.policy_meta["num_exec"] for m in (a, b, c)])
+            floor.append(_engine_gaps(a, b, outs[0], outs[1]))
+            got.append(_engine_gaps(a, c, outs[0], outs[2]))
+            rows.append((ci + 1, t, count, syncs[2], replayed,
+                         round(ms[0], 2), round(ms[2], 2)))
+            if replayed and count:
+                replays.append((ms[2], ms[0]))
+    if any(len(set(n)) != 1 for n in counts):
+        raise AssertionError(f"[{tag}] counts differ: {counts}")
+    _hold_to_floor(tag, floor, got)
+    rest, extra = clips[1][clip_len:], draws[2 * clip_len:]
+    for w in range(IDLE_WINDOWS + 1):
+        idle = {"window": w}
+        for name, m in (("eager", a), ("captured", c)):
+            graphs = _graph_count(m)
+
+            def frame(i, m=m, w=w):
+                k = w * GRAPH_WINDOW + i
+                m(rest[k % len(rest)], draws=extra[k])
+
+            if w == 0:
+                for i in range(GRAPH_WINDOW):
+                    frame(i)
+            else:
+                idle[name] = device_idle(frame, GRAPH_WINDOW)
+            idle["captures"] = _graph_count(m) - graphs
+        if w and not idle["captures"]:
+            break
+    keys = sorted(str(k[0]) for k in c._calls.graphs)
+    eager_ms = statistics.median(y for _, y in replays) if replays else None
+    cap_ms = statistics.median(x for x, _ in replays) if replays else None
+    for row in rows:
+        log(f"[{tag}] clip {row[0]} frame {row[1]}: {row[2]} of 128 blocks, "
+            f"captured engine {row[3]} host syncs (replayed every graph: "
+            f"{row[4]}), ms eager {row[5]}, captured {row[6]}")
+    log(f"[{tag}] 2 clips x {clip_len} frames in lockstep (eager, eager, "
+        f"every graph; injected draws, cuDNN deterministic): capacities "
+        f"{sorted(c._steps)}, policy and decode graphs {keys}; largest gap "
+        f"per part, eager against eager {_parts_max(floor)}, captured "
+        f"against eager {_parts_max(got)}; ms/frame on the {len(replays)} "
+        f"frames that replayed every graph (host clock, fenced) eager "
+        f"median {eager_ms}, captured median {cap_ms}; window "
+        f"{idle['window']} of {GRAPH_WINDOW} frames under the profiler "
+        f"(graphs captured in it: {idle['captures']}) eager "
+        f"{idle['eager']}, captured {idle['captured']}")
+    return {"capacities": sorted(c._steps), "graphs": keys,
+            "eager_ms": eager_ms, "replay_ms": cap_ms,
+            "replay_frames": len(replays), "frames": rows,
+            "launches": launches, "gap": _parts_max(got),
+            "floor": _parts_max(floor), "idle": idle}
+
+
+def phase_serving_ladder():
+    """(16a) phase 8a's semseg ladder (RN50, the CLI's defaults:
+    ``rl_semseg``, ``ref`` policy, block 128, bf16) and (16b) phase 10a's
+    detection ladder (``CSPBlockCopy`` from the 0.3 config, ``csp_cls``
+    bias 0) with every graph, through ``_serving_ladder``: 1 host sync a
+    semseg frame, ``_det_frame_syncs`` a detection frame."""
+    from blockcopy_tpu_torch.core.argparser import default_settings
+    from blockcopy_tpu_torch.core.engine import BlockCopyModel
+    from blockcopy_tpu_torch.models.builder import build_detector
+    from blockcopy_tpu_torch.models.swiftnet import (SwiftNetConfig,
+                                                     init_swiftnet,
+                                                     make_apply_fn)
+    from blockcopy_tpu_torch.utils.registry import load_config
+    torch.backends.cudnn.allow_tf32 = True
+    cfg = SwiftNetConfig(backbone="resnet50", num_classes=19)
+    params = init_swiftnet(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+
+    def detector(g):
+        model = build_detector(load_config(str(DET_CONFIG)),
+                               dtype=torch.bfloat16, device="cuda")
+        model.params["head"]["csp_cls"]["b"].zero_()
+        model.graphs = g
+        return model
+
+    with _deterministic_cudnn():
+        out = {"semseg": _serving_ladder(
+            "16a", lambda g: BlockCopyModel(
+                make_apply_fn(cfg), params, default_settings(),
+                device="cuda", graphs=g),
+            {"halo_strips": len(HALO_SHAPES),
+             "halo_pieces": len(PIECE_SHAPES),
+             "bottleneck_tail": len(TAIL_SHAPES)},
+            lambda m, t, count, ran: 1)}
+        del params
+        out["detection"] = _serving_ladder(
+            "16b", detector,
+            {"halo_strips": len(DET_HALO_SHAPES),
+             "halo_pieces": len(PIECE_SHAPES),
+             "bottleneck_tail": len(DET_TAIL_SHAPES)},
+            lambda m, t, count, ran: _det_frame_syncs(
+                t, count, ran, m.settings["block_policy_verbose"]))
+    return out
+
+
+def phase_serving_dense():
+    """(16c) the semseg CLI's dense forward (``--block-policy static``)
+    and its upsample to 1024x2048 as graphs (``tasks/semseg/eval.py``
+    ``DenseGraphs``) against their bodies run op by op: RN50 1024x2048
+    bf16, 9 frames, logits and predictions bitwise (cuDNN deterministic);
+    then ms/frame in interleaved windows of ``GRAPH_WINDOW`` frames (eager,
+    captured, eager, captured; host clock, fenced; the captured frame
+    clones its predictions, as the CLI does), and the launches of the
+    captured frames."""
+    from blockcopy_tpu_torch.models.swiftnet import (SwiftNetConfig,
+                                                     init_swiftnet)
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.tasks.semseg.eval import DenseGraphs, _upsample
+    from blockcopy_tpu_torch.tools.measure import synthetic_frames
+    torch.backends.cudnn.allow_tf32 = True
+    cfg = SwiftNetConfig(backbone="resnet50", num_classes=19)
+    params = init_swiftnet(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    frames = synthetic_frames((1, 1024, 2048, 3), GRAPH_WINDOW + 1,
+                              torch.bfloat16)
+    hw = (1024, 2048)
+    graphs = DenseGraphs(cfg, "cuda")
+
+    def eager(x):
+        logits = graphs._dense(params, x)
+        return logits, _upsample(hw, (), logits)
+
+    def captured(x):
+        logits = graphs.dense_fwd(params, x)
+        return logits, graphs.upsample(logits, hw).clone()
+
+    gaps = []
+    launches = {k: 0 for k in kernels.launches}
+    with _deterministic_cudnn():
+        for t, x in enumerate(frames):
+            le, pe = eager(x)
+            before = dict(kernels.launches)
+            lc, pc = captured(x)
+            if t:
+                for k in launches:
+                    launches[k] += kernels.launches[k] - before[k]
+            gaps.append((_out_gap(le, lc), int((pe != pc).sum().item())))
+    if any(g != (0.0, 0) for g in gaps):
+        raise AssertionError(f"[16c] captured against eager (logits gap, "
+                             f"predictions that differ) {gaps}")
+    ms = {"eager": [], "captured": []}
+    for w in range(4):
+        name = ("eager", "captured")[w % 2]
+        fn = eager if name == "eager" else captured
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x in frames[1:]:
+            fn(x)
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3 / GRAPH_WINDOW)
+    keys = sorted(str(k[0]) for k in graphs.calls.graphs)
+    log(f"[16c] dense forward and upsample, RN50 1024x2048 bf16, "
+        f"{len(frames)} frames: captured bitwise eager (logits and "
+        f"predictions), graphs {keys}; launches over {len(frames) - 1} "
+        f"replayed frames {launches}; ms/frame (windows of {GRAPH_WINDOW}, "
+        f"eager, captured, eager, captured) eager "
+        f"{[round(x, 3) for x in ms['eager']]}, captured "
+        f"{[round(x, 3) for x in ms['captured']]}")
+    return {"ms": {k: statistics.median(v) for k, v in ms.items()},
+            "windows_ms": ms, "launches": launches, "graphs": keys}
+
+
+def _window_fps(ranks):
+    """Frames a second of every rank's timed steps together: their frames
+    over the window from the first start to the last end (one host
+    clock)."""
+    window = max(r["stamps"][-1][1] for r in ranks) \
+        - min(r["stamps"][0][0] for r in ranks)
+    return sum(len(r["stamps"]) for r in ranks) / window
+
+
+def phase_serving_parallel(par):
+    """(16d) the clip-parallel steps as graphs (``build_parallel_steps``)
+    on the one card, through ``tools/measure.py`` ``parallel_graphs_rank``
+    (phase 4's stepper, REINFORCE every 4th frame): an NCCL world of one,
+    whose train graph holds the ``all_reduce``, and two gloo ranks on
+    ``cuda:0`` with the split train step.  Each rank steps the eager
+    parallel step and the captured one in lockstep over 8 frames on
+    injected draws (cuDNN deterministic): the policy bitwise after every
+    update, the outputs after the clip, the policy bitwise across the
+    ranks; then 12 captured steps timed (12 + 1 K1 and 8 K2 a frame, no
+    host sync on a steady frame), aggregate frames/s against phase 12's
+    (``par``)."""
+    from blockcopy_tpu_torch.parallel import clip_parallel
+    from blockcopy_tpu_torch.tools.measure import parallel_graphs_rank
+    per_frame = {"halo_strips": len(HALO_SHAPES),
+                 "halo_pieces": len(PIECE_SHAPES),
+                 "bottleneck_tail": len(TAIL_SHAPES)}
+    timed = 12
+    out = {}
+    for tag, spec in (
+            ("nccl", clip_parallel.make_group(1, ["cuda:0"],
+                                              backend="nccl")),
+            ("gloo", clip_parallel.make_group(2, ["cuda:0", "cuda:0"],
+                                              backend="gloo"))):
+        t0 = time.perf_counter()
+        ranks = clip_parallel.spawn(spec, parallel_graphs_rank, "resnet50",
+                                    (1, 1024, 2048, 3), 64, "bfloat16", 128,
+                                    4, 8, timed, timeout=600)
+        want = {k: per_frame.get(k, 0) * timed for k in ranks[0]["launches"]}
+        for r, res in enumerate(ranks):
+            if (not res["outputs_equal"] or not res["finite"]
+                    or res["launches"] != want
+                    or len(res["digests"]) != 2
+                    or any(e != c for e, c in res["digests"])):
+                raise AssertionError(
+                    f"[16d {tag}] rank {r}: outputs bitwise eager "
+                    f"{res['outputs_equal']}, finite {res['finite']}, "
+                    f"launches {res['launches']} (expected {want}), policy "
+                    f"digests (eager, captured) {res['digests']}")
+        if any(res["digests"] != ranks[0]["digests"] for res in ranks) or \
+                len({c for _, c in ranks[0]["digests"]}) != 2:
+            raise AssertionError(f"[16d {tag}] policy digests per rank "
+                                 f"{[res['digests'] for res in ranks]}")
+        fps = _window_fps(ranks)
+        out[tag] = {"ranks": [{"launches": res["launches"],
+                               "ms": statistics.median(res["ms"]),
+                               "trained": res["trained"]} for res in ranks],
+                    "fps": fps}
+        log(f"[16d {tag}] {spec.size} rank(s): eager and captured parallel "
+            f"steps bitwise in lockstep (policy after the updates at frames "
+            f"4 and 8, the outputs after frame 8), the policy bitwise "
+            f"across the ranks; {timed} captured steps a rank: ms/frame "
+            f"median {[round(r['ms'], 2) for r in out[tag]['ranks']]}, "
+            f"train frames (frame, host syncs) "
+            f"{[r['trained'] for r in out[tag]['ranks']]}, aggregate "
+            f"{fps:.2f} frames/s ({time.perf_counter() - t0:.1f} s)")
+    log(f"[16d] aggregate frames/s, captured against phase 12's eager: two "
+        f"gloo ranks {out['gloo']['fps']:.2f} against "
+        f"{par['aggregate_fps']:.2f} (12a), NCCL world of one "
+        f"{out['nccl']['fps']:.2f} against {par['nccl_fps']:.2f} (12b)")
+    return out
+
+
+def phase_serving(par):
+    """Phase 16 (module docstring); ``par`` is phase 12's result."""
+    out = phase_serving_ladder()
+    out["dense"] = phase_serving_dense()
+    out["parallel"] = phase_serving_parallel(par)
+    return out
+
+
+def serving_keys(serving, name):
+    """The kernels line's phase-16 launches of kernel ``name``: over 16a's
+    and 16b's captured engines, 16c's replayed frames, and 16d's timed
+    captured steps (NCCL; each gloo rank)."""
+    par = serving["parallel"]
+    return {"serving_ladder_launches":
+                serving["semseg"]["launches"][name],
+            "serving_detection_ladder_launches":
+                serving["detection"]["launches"][name],
+            "serving_dense_launches": serving["dense"]["launches"][name],
+            "serving_parallel_nccl_launches":
+                par["nccl"]["ranks"][0]["launches"][name],
+            "serving_parallel_gloo_launches":
+                [r["launches"][name] for r in par["gloo"]["ranks"]]}
+
+
 def graph_keys(graphs, name):
     """The kernels line's phase-15 launches of kernel ``name``: over the
     captured runs of 15a and 15b (every frame) and of 15c's two captured
@@ -3221,6 +3587,7 @@ def main() -> int:
     graphs = {"main": phase_graphs_main(),
               "detection": phase_graphs_detection(),
               "ladder": phase_graphs_ladder()}
+    serving = phase_serving(par)
 
     def phase11_keys(name):
         return {"train_launches": train_launches[name],
@@ -3251,6 +3618,7 @@ def main() -> int:
          **native_keys(native_cli, capability, "halo_strips"),
          **switch_keys(sw_main, sw_modes, sw_det, "halo_strips"),
          **graph_keys(graphs, "halo_strips"),
+         **serving_keys(serving, "halo_strips"),
          "max_abs_err": halo["err"], "ms": halo["strips"],
          "plain_ms": halo["strips_plain"], "bound_ms": halo["bound"],
          "bound_by": "bytes", **common},
@@ -3267,6 +3635,7 @@ def main() -> int:
          **native_keys(native_cli, capability, "halo_pieces"),
          **switch_keys(sw_main, sw_modes, sw_det, "halo_pieces"),
          **graph_keys(graphs, "halo_pieces"),
+         **serving_keys(serving, "halo_pieces"),
          "block256_ms": pieces["block256"]["kernel"],
          "block256_plain_ms": pieces["block256"]["plain"],
          "block256_bound_ms": pieces["block256"]["bound"],
@@ -3280,6 +3649,7 @@ def main() -> int:
          "detection_ladder_launches": dl_launches["halo_canvas"],
          **parallel_keys(par, "halo_canvas"),
          **graph_keys(graphs, "halo_canvas"),
+         **serving_keys(serving, "halo_canvas"),
          "max_abs_err": halo["err"], "ms": halo["canvas"],
          "plain_ms": halo["canvas_plain"], "bound_ms": halo["bound"],
          "bound_by": "bytes", **common},
@@ -3304,6 +3674,7 @@ def main() -> int:
          **native_keys(native_cli, capability, "bottleneck_tail"),
          **switch_keys(sw_main, sw_modes, sw_det, "bottleneck_tail"),
          **graph_keys(graphs, "bottleneck_tail"),
+         **serving_keys(serving, "bottleneck_tail"),
          "tail_pieces_ms": tail["bf16"]["pieces"],
          "two_launch_ms": tail["bf16"]["two_launch"],
          "max_abs_err": tail["bf16"]["err"], "ms": tail["bf16"]["kernel"],
@@ -3321,6 +3692,7 @@ def main() -> int:
              "bottleneck_tail_rows"],
          **parallel_keys(par, "bottleneck_tail_rows"),
          **graph_keys(graphs, "bottleneck_tail_rows"),
+         **serving_keys(serving, "bottleneck_tail_rows"),
          "wide_ms": rows["wide"]["kernel"],
          "wide_plain_ms": rows["wide"]["plain"],
          "wide_bound_ms": rows["wide"]["bound"],
@@ -3348,6 +3720,7 @@ def main() -> int:
          **native_keys(native_cli, capability, "bottleneck_tail_f32"),
          **switch_keys(sw_main, sw_modes, sw_det, "bottleneck_tail_f32"),
          **graph_keys(graphs, "bottleneck_tail_f32"),
+         **serving_keys(serving, "bottleneck_tail_f32"),
          "tail_pieces_ms": tail["f32"]["pieces"],
          "two_launch_ms": tail["f32"]["two_launch"],
          "max_abs_err": tail["f32"]["err"], "ms": tail["f32"]["kernel"],
@@ -3359,6 +3732,7 @@ def main() -> int:
          "launches": probe_launches[name],
          "detection_ladder_launches": dl_launches[name],
          **parallel_keys(par, name), **graph_keys(graphs, name),
+         **serving_keys(serving, name),
          "route": "cuda",
          "matched": True, **mm[name]}
         for name in ("mm_bf16", "mm_int8")]
@@ -3426,6 +3800,20 @@ def main() -> int:
         f"capacities captured {graphs['ladder']['semseg']['capacities']} "
         f"(semseg), {graphs['ladder']['detection']['capacities']} "
         f"(detection)"
+        + "; the serving programs as CUDA graphs (16), ms/frame captured "
+        f"against eager on frames that replayed every graph: semseg ladder "
+        f"{serving['semseg']['replay_ms']} against "
+        f"{serving['semseg']['eager_ms']}, detection ladder "
+        f"{serving['detection']['replay_ms']} against "
+        f"{serving['detection']['eager_ms']}, idle share semseg "
+        f"{serving['semseg']['idle']['captured']['idle_share']} against "
+        f"{serving['semseg']['idle']['eager']['idle_share']}, detection "
+        f"{serving['detection']['idle']['captured']['idle_share']} against "
+        f"{serving['detection']['idle']['eager']['idle_share']}; dense "
+        f"{serving['dense']['ms']['captured']:.2f} against "
+        f"{serving['dense']['ms']['eager']:.2f}; clip-parallel frames/s "
+        f"gloo {serving['parallel']['gloo']['fps']:.2f}, NCCL "
+        f"{serving['parallel']['nccl']['fps']:.2f}"
         + f"; total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kern}))

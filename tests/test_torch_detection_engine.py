@@ -129,7 +129,9 @@ def rl_clip_matches_jax(monkeypatch, arch):
     n_boxes = []
     for t, f in enumerate(engine_clip(4)):
         pre = jtree(jm.policy.state())
-        before = (pre["net_params"], params_to_numpy(tm.policy.net_params))
+        # a copy: the engine updates the policy's tensors in place
+        before = (pre["net_params"], jax.tree.map(
+            np.copy, params_to_numpy(tm.policy.net_params)))
         draws = jax_draws(jm, 1)
         ref = jm(jnp.asarray(f))
         got = tm(tt(f), draws=draws)

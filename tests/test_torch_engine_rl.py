@@ -77,7 +77,9 @@ def test_rl_semseg_matches_jax(monkeypatch, arch):
     carry()
     for t, f in enumerate(engine_clip(4)):
         pre = jtree(jm.policy.state())
-        before = (pre["net_params"], params_to_numpy(tm.policy.net_params))
+        # a copy: the engine updates the policy's tensors in place
+        before = (pre["net_params"], jax.tree.map(
+            np.copy, params_to_numpy(tm.policy.net_params)))
         engine_frame(jm, tm, f, t)
         ref, got = jtree(jm.policy.state()), tm.policy.state()
         assert got["running_cost"] == pytest.approx(ref["running_cost"],
