@@ -1,5 +1,5 @@
 """Compiled, donated steps as CUDA graphs: the port's counterpart of the
-JAX package's ``jax.jit`` sites on its serving paths.
+JAX package's ``jax.jit`` sites, on its serving paths and in training.
 
 ``CapturedCall(fn, device, pool)`` wraps ``fn(held, *inputs)``.  ``held``
 is what the graph reads and writes in place: parameters, state, generators
@@ -11,20 +11,27 @@ autograd's set-up), then captures ``fn`` over copies of ``inputs``, every
 CUDA generator of ``held`` registered with the graph, so that a replay
 draws what the eager call would draw next.  Each later call copies
 ``inputs`` into those copies (tensors with ``copy_``; a Python float, such
-as a reward weight, with ``fill_`` into a 0-d fp32 tensor: no upload from
-pageable memory, so no host sync; ``fn`` sees that tensor on every device)
-and replays the graph.  What ``fn`` returns (a tree of tensors, or None)
-the graph copies into static buffers outside its pool, which every call
-returns: the next replay overwrites them, so a caller clones what it keeps.
+as a reward weight or a learning rate, with ``fill_`` into a 0-d fp32
+tensor: no upload from pageable memory, so no host sync; ``fn`` sees that
+tensor on every device) and replays the graph.  A tensor input must lie on
+the card already: a host tensor raises, since copying it in would wait for
+the host (``device.to_device`` uploads without that wait).  What ``fn``
+returns (a tree of tensors, or None) the graph copies into static buffers
+outside its pool, which every call returns: the next replay overwrites
+them, so a caller clones what it keeps.
 A failed capture or replay raises: nothing falls back to eager on the card.
+Cyclic garbage collection is held off while a graph captures: a dead graph
+or tensor it freed there would invalidate the capture.
 On the CPU ``fn`` runs eagerly, and its results go into buffers kept across
 calls as on the card (the first call's own), so that a caller who keeps
 one without a clone sees it overwritten there too.
 
 ``CallGraphs`` keys such graphs as JAX's jit cache: by the static
 arguments a caller names (``static_argnums``) and by the shapes and dtypes
-of the inputs; ``CapturedStep`` and ``StepperGraphs`` are the steppers'
-and the ladder engine's model steps (``jax.jit(step, donate_argnums=(1,))``,
+of the inputs (the detection train step, ``tasks/detection/train.py``
+``make_train_step``, is one: JAX's ``train_cli.py:98``); ``CapturedStep``
+and ``StepperGraphs`` are the steppers' and the ladder engine's model
+steps (``jax.jit(step, donate_argnums=(1,))``,
 the JAX package's ``tasks/semseg/eval.py:214-216``,
 ``tasks/detection/eval.py:187-189``, ``core/engine.py:141-157``).
 
@@ -47,6 +54,7 @@ on every replay: the counts read the same per frame eager or replayed.
 from __future__ import annotations
 
 import functools
+import gc
 import time
 from typing import Callable, Dict
 
@@ -78,11 +86,22 @@ def graph_pool(device):
         if torch.device(device).type == "cuda" else None
 
 
-def _as_tensors(inputs, device):
+def as_tensors(inputs, device):
     """``inputs`` with every Python float as a 0-d fp32 tensor."""
     return tree_map(lambda x: torch.full((), x, dtype=torch.float32,
                                          device=device)
                     if isinstance(x, float) else x, inputs)
+
+
+def _on_card(inputs):
+    """Refuse a host tensor among a graph's inputs: its ``copy_`` into a
+    static input would be a host sync."""
+    for x in tree_leaves(inputs):
+        if isinstance(x, torch.Tensor) and x.device.type != "cuda":
+            raise ValueError(
+                f"a {x.device} tensor as a CUDA graph's input: upload it "
+                f"first (device.to_device); copying it in would be a host "
+                f"sync")
 
 
 def _signature(inputs):
@@ -110,13 +129,14 @@ class CapturedCall:
 
     def __call__(self, held, *inputs):
         if self.device.type != "cuda":
-            out = self.fn(held, *_as_tensors(inputs, self.device))
+            out = self.fn(held, *as_tensors(inputs, self.device))
             if self._out is None or out is None:
                 self._out = out
             else:
                 with torch.no_grad():
                     tree_map(lambda buf, x: buf.copy_(x), self._out, out)
             return self._out
+        _on_card(inputs)
         if self.graph is None:
             return self._capture(held, inputs)
         if _bound(held) != self._held:
@@ -143,7 +163,7 @@ class CapturedCall:
         self._held = _bound(held)
         # the static inputs: copies made outside the pool
         static = tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor)
-                          else x, _as_tensors(inputs, self.device))
+                          else x, as_tensors(inputs, self.device))
         self._inputs = tree_leaves(static)
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
@@ -162,6 +182,11 @@ class CapturedCall:
                     and gen.device.type == "cuda":
                 graph.register_generator_state(gen)
         counts = dict(kernels.launches)
+        # no cyclic garbage collection inside the capture: a dead graph it
+        # freed would release its memory pool there (a ``cudaFree``), which
+        # invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=self.pool, stream=side,
                                   capture_error_mode="thread_local"):
@@ -171,6 +196,8 @@ class CapturedCall:
                         tree_map(lambda buf, x: buf.copy_(x), self._out,
                                  out)
         finally:
+            if collecting:
+                gc.enable()
             # capture launches nothing: its counts are the graph's
             self.launches = {k: v - counts[k]
                              for k, v in kernels.launches.items()}

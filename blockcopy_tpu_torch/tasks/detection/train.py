@@ -13,7 +13,8 @@ The train state is ``{params, ema_params, m, v, step}`` with the JAX
 package's flat npz keys (``utils/checkpoint.py`` ``save_params``); ``step``
 is a 0-d int32 tensor kept on the CPU, so the host reads it without a sync.
 A train step makes no host sync: the losses stay on the device until the
-caller reads them.
+caller reads them.  On CUDA the step is a captured CUDA graph, JAX's jitted,
+donated step (``make_train_step``).
 """
 
 from __future__ import annotations
@@ -25,9 +26,11 @@ import numpy as np
 import torch
 
 from blockcopy_tpu_torch.core.blocked import ExecCtx
+from blockcopy_tpu_torch.core.graphs import CallGraphs, as_tensors
 from blockcopy_tpu_torch.device import resolve_device, to_device
 from blockcopy_tpu_torch.models.csp import CSPConfig, csp_apply
-from blockcopy_tpu_torch.policy.optim import tree_leaves, tree_map
+from blockcopy_tpu_torch.policy.optim import (tree_copy_, tree_leaves,
+                                              tree_map)
 
 INF = 1e8
 
@@ -224,16 +227,27 @@ def loss_and_grads(params, images: torch.Tensor, gt_maps,
     return losses, tree_map(lambda _: next(it), params)
 
 
-def adam_ema_update(state: Dict, grads, cfg: TrainConfig) -> Dict:
-    """One Adam step and the mean-teacher EMA, in place on ``state``'s
-    tensors, in the JAX package's order of operations (``train.py:211-230``,
-    each product rounded in float32).  The step counter lives on the host,
-    so nothing here waits for the device."""
-    step = int(state["step"]) + 1
-    lr = lr_at(step, cfg)
+def adam_schedule(step: int, cfg: TrainConfig) -> Tuple[float, float, float]:
+    """Optimizer step ``step``'s learning rate and Adam's bias corrections
+    ``1 - b1 ** step`` and ``1 - b2 ** step``, on the host, each rounded
+    in float32 as the JAX package's ``train.py:204-216``."""
     b1, b2 = cfg.betas
-    c1 = float(1 - np.float32(b1) ** np.float32(step))
-    c2 = float(1 - np.float32(b2) ** np.float32(step))
+    return (lr_at(step, cfg),
+            float(1 - np.float32(b1) ** np.float32(step)),
+            float(1 - np.float32(b2) ** np.float32(step)))
+
+
+def adam_ema_(state: Dict, grads, lr: torch.Tensor, c1: torch.Tensor,
+              c2: torch.Tensor, cfg: TrainConfig) -> None:
+    """One Adam step and the mean-teacher EMA, in place on the tensors of
+    ``state``'s ``params``, ``ema_params``, ``m`` and ``v``, in the JAX
+    package's order of operations (``train.py:211-230``, each product
+    rounded in float32).  ``lr``, ``c1`` and ``c2`` (``adam_schedule``)
+    are 0-d float32 tensors on the state's device, as JAX divides by a
+    device scalar: on CUDA, division by a Python float can multiply by its
+    reciprocal instead, so the eager and the captured step take the same
+    tensors through this same body."""
+    b1, b2 = cfg.betas
     p, e = tree_leaves(state["params"]), tree_leaves(state["ema_params"])
     m, v = tree_leaves(state["m"]), tree_leaves(state["v"])
     g = tree_leaves(grads)
@@ -254,25 +268,73 @@ def adam_ema_update(state: Dict, grads, cfg: TrainConfig) -> Dict:
         a = cfg.ema_alpha
         torch._foreach_mul_(e, a)
         torch._foreach_add_(e, torch._foreach_mul(p, 1 - a))
+
+
+def adam_ema_update(state: Dict, grads, cfg: TrainConfig) -> Dict:
+    """``adam_ema_`` at the state's next step, which it advances.  The step
+    counter lives on the host, so nothing here waits for the device."""
+    step = int(state["step"]) + 1
+    device = tree_leaves(state["params"])[0].device
+    adam_ema_(state, grads, *as_tensors(adam_schedule(step, cfg), device),
+              cfg)
     state["step"] = torch.tensor(step, dtype=torch.int32)
     return state
 
 
-def make_train_step(model_cfg: CSPConfig, cfg: TrainConfig, device=None):
+# the train state's tensors, which the step writes in place
+HELD = ("params", "ema_params", "m", "v")
+
+
+def load_train_state_(state: Dict, loaded: Dict) -> Dict:
+    """``loaded`` (``utils/checkpoint.py`` ``load_npz`` of a saved train
+    state) copied into ``state``'s tensors, which a captured train step
+    holds; its step becomes the host counter."""
+    tree_copy_({k: state[k] for k in HELD}, {k: loaded[k] for k in HELD})
+    state["step"] = torch.tensor(int(loaded["step"]), dtype=torch.int32)
+    return state
+
+
+def make_train_step(model_cfg: CSPConfig, cfg: TrainConfig, device=None,
+                    graphs: bool = True):
     """``train_step(state, images, gt_maps) -> (state, losses)`` on
     ``device`` (default CUDA): dense training as the reference's offline
-    phase; the state is updated in place and returned.  Host arrays and
-    CPU tensors go up pinned and asynchronously (``device.to_device``)."""
+    phase, JAX's ``jax.jit(make_train_step(...), donate_argnums=(0,))``
+    (``train_cli.py:98``).  The forward, the gradients and ``adam_ema_``
+    write the state's tensors in place (the counterpart of donation); the
+    host advances ``state["step"]`` and passes the step's learning rate
+    and bias corrections in as 0-d float32 inputs.  With ``graphs`` that
+    body is one CUDA graph per shape and dtype of the images and maps
+    (``core/graphs.py`` ``CallGraphs``, at ``train_step.calls``), captured
+    at its first call; the losses it returns are the graph's buffers,
+    which the next call overwrites, so a caller clones what it keeps.
+    ``graphs=False`` runs the same body op by op.  On the CPU the body
+    runs eagerly either way (with ``graphs`` its losses still land in
+    buffers that the next call overwrites).  Host arrays and CPU tensors
+    go up pinned and asynchronously (``device.to_device``) before the
+    graph sees them."""
     device = resolve_device(device)
+    calls = CallGraphs(device) if graphs else None
 
     def put(x):
         if isinstance(x, torch.Tensor) and x.device.type == device.type:
             return x
         return to_device(x, device)
 
+    def body(held, images, gt_maps, lr, c1, c2):
+        losses, grads = loss_and_grads(held["params"], images, gt_maps,
+                                       model_cfg, cfg.loss_weights)
+        adam_ema_(held, grads, lr, c1, c2, cfg)
+        return losses
+
     def train_step(state, images, gt_maps):
-        losses, grads = loss_and_grads(state["params"], put(images),
-                                       tuple(map(put, gt_maps)), model_cfg,
-                                       cfg.loss_weights)
-        return adam_ema_update(state, grads, cfg), losses
+        step = int(state["step"]) + 1
+        held = {k: state[k] for k in HELD}
+        inputs = (put(images), tuple(map(put, gt_maps)),
+                  *adam_schedule(step, cfg))
+        losses = body(held, *as_tensors(inputs, device)) if calls is None \
+            else calls((), body, held, *inputs)
+        state["step"] = torch.tensor(step, dtype=torch.int32)
+        return state, losses
+
+    train_step.calls = calls
     return train_step

@@ -30,10 +30,11 @@ import numpy as np
 import torch
 
 from blockcopy_tpu_torch.data.loader import PrefetchLoader
-from blockcopy_tpu_torch.device import resolve_device
+from blockcopy_tpu_torch.device import resolve_device, to_device
 from blockcopy_tpu_torch.models.csp import CSPConfig, init_csp
 from blockcopy_tpu_torch.tasks.detection.train import (TrainConfig,
                                                        init_train_state,
+                                                       load_train_state_,
                                                        make_train_step)
 from blockcopy_tpu_torch.tasks.detection.train_dataset import (
     CityPersonsTrainDataset,
@@ -73,7 +74,8 @@ def build_argparser():
 
 
 def _read_losses(losses):
-    """The loss terms as host floats, in one transfer."""
+    """The loss terms as host floats, in one transfer (read before the
+    next step: under a CUDA graph they are its buffers)."""
     vals = torch.stack(list(losses.values())).tolist()
     return dict(zip(losses, vals))
 
@@ -105,10 +107,11 @@ def main(argv=None):
     params = init_csp(csp_cfg, seed=args.seed, device=device)
     state = init_train_state(params, tcfg)
     if args.resume and os.path.isfile(args.resume):
-        state = load_npz(args.resume, state, device=device)
-        state["step"] = state["step"].cpu()
+        # into the state's own tensors, which the captured step holds
+        load_train_state_(state, load_npz(args.resume, state, device=device))
         logger.info("resumed from %s (step %d)", args.resume,
                     int(state["step"]))
+    # JAX's jitted, donated step: a CUDA graph on the card
     train_step = make_train_step(csp_cfg, tcfg, device)
 
     class _Shuffled:
@@ -133,10 +136,11 @@ def main(argv=None):
         for item in loader:
             group.append(item)
             if len(group) == args.batch_size:
-                # host arrays: the train step uploads them (pinned, async)
-                yield (np.stack([g[0] for g in group]),
-                       tuple(np.stack([g[1 + i] for g in group])
-                             for i in range(3)))
+                # on the device before the step (pinned, async): the
+                # graph copies device tensors into its inputs
+                yield (to_device(np.stack([g[0] for g in group]), device),
+                       tuple(to_device(np.stack([g[1 + i] for g in group]),
+                                       device) for i in range(3)))
                 group = []
 
     history = []

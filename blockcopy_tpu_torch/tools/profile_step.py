@@ -27,8 +27,10 @@ instead (CSP-R50, 1024x2048 bf16, fast policy, block 128, target 0.3: 38 of
 ``configs/csp/csp_r50_clip_blockcopy_030.py``, the ``csp_cls`` bias 0), and
 adds the capacities of the traced frames.  ``--engine train`` runs the
 detection train step of ``chip_smoke.py`` phase 11a instead (CSP-R50, fp32,
-640x1280 crops, batch 2, cuDNN TF32 on: the train CLI's defaults).  The
-line holds:
+640x1280 crops, batch 2, cuDNN TF32 on: the train CLI's defaults), as the
+CLI does: one CUDA graph captured at the first warm-up step (the line's
+``capture_s``, its eager run included), or op by op under ``--eager``.
+The line holds:
 
 * ``wall_ms_per_step``: host clock over the traced steps, fenced by
   ``torch.cuda.synchronize()`` (the profiler's own cost included);
@@ -115,9 +117,9 @@ def _ladder(shape, args):
     return run
 
 
-def _train():
+def _train(shape, args):
     """The detection train step at the train CLI's defaults, on one
-    synthetic batch uploaded once."""
+    synthetic batch uploaded once; ``run.calls`` holds its graph."""
     import numpy as np
     from blockcopy_tpu_torch.models.csp import CSPConfig, init_csp
     from blockcopy_tpu_torch.tasks.detection import train as T
@@ -129,7 +131,7 @@ def _train():
              for i in range(2)]
     images, *maps = [torch.from_numpy(np.stack([it[k] for it in items]))
                      .cuda() for k in range(4)]
-    step = T.make_train_step(cfg, tcfg, "cuda")
+    step = T.make_train_step(cfg, tcfg, "cuda", graphs=not args.eager)
     box = {"state": T.init_train_state(init_csp(cfg, seed=0, device="cuda"),
                                        tcfg)}
 
@@ -137,6 +139,7 @@ def _train():
         box["state"], _ = step(box["state"], images, tuple(maps))
         return None
 
+    run.calls = step.calls
     return run
 
 
@@ -160,9 +163,8 @@ def main() -> int:
         print("profile_step: CUDA is not available", file=sys.stderr)
         return 2
     shape = (1, 1024, 2048, 3)
-    run = {"stepper": lambda: _stepper(shape, args),
-           "ladder": lambda: _ladder(shape, args),
-           "train": _train}[args.engine]()
+    run = {"stepper": _stepper, "ladder": _ladder,
+           "train": _train}[args.engine](shape, args)
     frames = [None] * (args.warmup + args.steps + 1) \
         if args.engine == "train" else synthetic_frames(
             shape, args.warmup + args.steps + 1, torch.bfloat16)
@@ -184,7 +186,7 @@ def main() -> int:
               "model": "csp" if args.engine == "train" else args.model,
               "backbone": args.backbone, "block_size": args.block_size,
               "fused_bottleneck": swiftnet.FUSED_BOTTLENECK,
-              "graphs": args.engine != "train" and not args.eager,
+              "graphs": not args.eager,
               "k2_launches_per_step": k2,
               "halo_pieces_launches_per_step":
                   kernels.launches["halo_pieces"] / steps,
@@ -193,6 +195,8 @@ def main() -> int:
               "kernels_per_step": None, "top": None}
     if args.engine == "ladder":
         result["capacities"] = counts
+    if getattr(run, "calls", None) is not None:
+        result["capture_s"] = [g.capture_s for g in run.calls.graphs.values()]
     if events:
         busy_ms = busy_us([(e.time_range.start, e.time_range.end)
                             for e in events]) / 1e3

@@ -94,8 +94,9 @@ def dets_to_coco(arr, image_id):
 
 def train_csp(csp_cfg, iters, seed=7, device=None):
     """Train a CSP offline on the synthetic blob distribution (train clips
-    from another seed space than the eval clips).  Returns the live fp32
-    params and the run's summary; the losses are read once, at the end."""
+    from another seed space than the eval clips), through the train CLI's
+    step (a CUDA graph on the card).  Returns the live fp32 params and the
+    run's summary; the losses are read once, at the end."""
     from blockcopy_tpu_torch.models.csp import init_csp
     from blockcopy_tpu_torch.tasks.detection import train as T
     from blockcopy_tpu_torch.tasks.detection.eval import \
@@ -122,10 +123,12 @@ def train_csp(csp_cfg, iters, seed=7, device=None):
         clip, _, _ = ds[ci]
         boxes = np.array([(x, y, x + w, y + h)
                           for x, y, w, h in ds._boxes(ci, t)], np.float32)
-        maps = tuple(m[None] for m in T.calc_gt_center(boxes, None, (H, W)))
-        state, losses = step(state, clip[t][None], maps)
+        maps = tuple(to_device(m[None], device)
+                     for m in T.calc_gt_center(boxes, None, (H, W)))
+        state, losses = step(state, to_device(clip[t][None], device), maps)
         if i in (0, iters - 1):
-            totals.append(losses["loss_total"])
+            # a copy: the next replay overwrites the graph's loss buffers
+            totals.append(losses["loss_total"].clone())
     totals = torch.stack(totals).tolist()      # waits for the last step
     # The live params, not the mean-teacher EMA: at alpha 0.999 the teacher
     # still holds 0.999^iters (55-67% at 400-600 iterations) of the random

@@ -123,13 +123,15 @@ Phases (any failure raises and exits non-zero):
    then both timed there in bf16;
 11. detection training, before the JSON lines: (a) the train step on
    CSP-R50 at full width and depth, fp32, 640x1280 crops, batch 2 (the train
-   CLI's defaults; cuDNN TF32 on, matmul TF32 off, torch's defaults): 12
-   steps timed directly, each under ``set_sync_debug_mode("error")``, no
-   kernel launch; ms/step (median of steps 3-12) and peak memory; then the
-   train CLI in-process (``--synthetic --epochs 1 --steps-per-epoch 8
-   --workers 2 --warmup-iters 0``): no host sync in a train step, finite
-   losses, ``step`` 8, the student, teacher and resume checkpoints
-   written; (b) the detection CLI on that teacher checkpoint, ladder bf16
+   CLI's defaults; cuDNN TF32 on, matmul TF32 off, torch's defaults) as
+   the CLI runs it, one CUDA graph captured at the first step: 12 steps
+   timed directly, each under ``set_sync_debug_mode("error")`` (the
+   capture too), no kernel launch, each step's own loss (cloned out of
+   the graph's buffers); ms/step (median of steps 3-12), the capture's
+   seconds and peak memory; then the train CLI in-process (``--synthetic
+   --epochs 1 --steps-per-epoch 8 --workers 2 --warmup-iters 0``): one
+   graph, no host sync in a train step, finite losses, ``step`` 8, the
+   student, teacher and resume checkpoints written; (b) the detection CLI on that teacher checkpoint, ladder bf16
    1024x2048 from the 0.3 config: 13 K1 and 8 K2 launches per frame that
    ran blocks (counts zeroed just before); (c) two train steps of CSP (1,
    2, 2, 1) 128x256 fp32 on the GPU against the CPU, TF32 off: losses
@@ -237,7 +239,25 @@ Phases (any failure raises and exits non-zero):
    split train step), each rank in lockstep with the eager parallel step
    (policy and outputs bitwise), the policy bitwise across the ranks, 12
    captured steps with 12 + 1 K1 and 8 K2 a frame and no host sync on a
-   steady frame, aggregate frames/s against phase 12's.
+   steady frame, aggregate frames/s against phase 12's;
+17. the detection train step as a CUDA graph (``tasks/detection/train.py``
+   ``make_train_step``, JAX's ``jax.jit(make_train_step(...),
+   donate_argnums=(0,))``), before the JSON lines: (a) phase 11a's
+   workload, two eager train states (``graphs=False``) and one captured in
+   lockstep from one init over its 12 batches, cuDNN deterministic: after
+   every step the captured state's ``params``, ``ema_params``, ``m``,
+   ``v`` and loss terms as close to the first eager run's as the second
+   eager run's are (bitwise where those are bitwise over the steps), the
+   host steps equal, every captured step (the capture too) under
+   ``set_sync_debug_mode("error")``, no kernel launch; the capture's seconds, ms/step of each (a step at a
+   time, eager, eager, captured, fenced; median of steps 3-12), peak
+   memory allocated above what each step found held, the process's peak
+   reserved memory while each run stepped, and what the graph's memory
+   pool keeps reserved; (b) the train CLI in-process at phase 11's arguments through
+   its graph, checked as in 11a, and its teacher checkpoint through the
+   detection CLI's loader (``models/builder.py`` ``load_csp_params``),
+   every tensor finite (11b serves phase 11's teacher, also trained
+   through the graph).
 
 It needs one CUDA GPU and the repository around it: without either it exits
 non-zero and prints no result.
@@ -1818,14 +1838,12 @@ def phase_detection_ladder_kernels(gen):
 TRAIN_CROP, TRAIN_BATCH, TRAIN_STEPS = (640, 1280), 2, 12
 
 
-def phase_train():
-    """(11a) the detection train step at full width, timed directly: 12
-    steps, each under ``set_sync_debug_mode("error")`` (the losses are read
-    after the last), launch counts zeroed just before the first; ms/step
-    (median of steps 3-12, synchronize-fenced) and peak memory.  cuDNN's
-    TF32 on, matmul's off: torch's defaults, as the train CLI runs."""
+def _train_setup():
+    """Phase 11a's workload: CSP-R50 at ``CSPConfig()``, the CLI's
+    schedule, its ``TRAIN_STEPS`` synthetic batches on the card, and the
+    initial parameters (seed 0).  cuDNN's TF32 on, matmul's off: torch's
+    defaults, as the train CLI runs."""
     from blockcopy_tpu_torch.models.csp import CSPConfig, init_csp
-    from blockcopy_tpu_torch.ops import kernels
     from blockcopy_tpu_torch.tasks.detection import train as T
     from blockcopy_tpu_torch.tasks.detection.train_dataset import \
         SyntheticDetTrainDataset
@@ -1841,7 +1859,21 @@ def phase_train():
         items = [ds[TRAIN_BATCH * i + j] for j in range(TRAIN_BATCH)]
         batches.append([torch.from_numpy(np.stack([it[k] for it in items]))
                         .cuda() for k in range(4)])
-    state = T.init_train_state(init_csp(cfg, seed=0, device="cuda"), tcfg)
+    return cfg, tcfg, batches, init_csp(cfg, seed=0, device="cuda")
+
+
+def phase_train():
+    """(11a) the detection train step at full width as the CLI runs it (one
+    CUDA graph, captured at the first step), timed directly: 12 steps, each
+    under ``set_sync_debug_mode("error")`` (the losses, cloned out of the
+    graph's buffers, are read after the last), launch counts zeroed just
+    before the first; ms/step (median of steps 3-12, synchronize-fenced),
+    the capture's seconds and peak memory."""
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.tasks.detection import train as T
+
+    cfg, tcfg, batches, params = _train_setup()
+    state = T.init_train_state(params, tcfg)
     step = T.make_train_step(cfg, tcfg, "cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1856,31 +1888,37 @@ def phase_train():
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-        totals.append(losses["loss_total"])
+        totals.append(losses["loss_total"].clone())
     launches = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     totals = torch.stack(totals).tolist()
     med = statistics.median(ms[2:])
+    capture_s = [g.capture_s for g in step.calls.graphs.values()]
     log(f"[11a] train step CSP-R50 fp32 {TRAIN_CROP[0]}x{TRAIN_CROP[1]} "
         f"batch {TRAIN_BATCH} (cuDNN TF32 on, matmul TF32 off), "
-        f"{TRAIN_STEPS} steps, no host sync: ms/step (host clock, "
-        f"synchronize-fenced, steps 3-{TRAIN_STEPS}) median {med:.2f}, min "
-        f"{min(ms[2:]):.2f}, max {max(ms[2:]):.2f}; all "
-        f"{[round(x, 2) for x in ms]}; peak memory {peak:.2f} GiB; "
+        f"{TRAIN_STEPS} steps as one CUDA graph (captured at step 1 in "
+        f"{capture_s} s, its eager run included), no host sync: "
+        f"ms/step (host clock, synchronize-fenced, steps 3-{TRAIN_STEPS}) "
+        f"median {med:.2f}, min {min(ms[2:]):.2f}, max {max(ms[2:]):.2f}; "
+        f"all {[round(x, 2) for x in ms]}; peak memory {peak:.2f} GiB; "
         f"loss_total {[round(x, 4) for x in totals]}; launches {launches}")
     if (any(launches.values()) or not np.isfinite(totals).all()
-            or int(state["step"]) != TRAIN_STEPS):
+            or int(state["step"]) != TRAIN_STEPS or len(capture_s) != 1
+            or len(set(totals)) < TRAIN_STEPS):
         raise AssertionError(f"train step: launches {launches}, losses "
-                             f"{totals}, step {int(state['step'])}")
-    return launches, {"ms": med, "peak_gib": peak, "syncs": 0}
+                             f"{totals}, step {int(state['step'])}, graphs "
+                             f"{len(capture_s)}")
+    return launches, {"ms": med, "peak_gib": peak, "syncs": 0,
+                      "capture_s": capture_s[0]}
 
 
-def phase_train_cli(tmp):
-    """(11a) the train CLI in-process at its defaults (``--synthetic
+def phase_train_cli(tmp, tag="11a"):
+    """(11a) the train CLI in-process at phase 11's arguments (``--synthetic
     --epochs 1 --steps-per-epoch 8 --workers 2 --warmup-iters 0``), each
     train step counted for host syncs (log steps read the losses after
-    theirs): no sync, finite losses, ``step`` 8, the three checkpoints
-    written.  Returns the teacher checkpoint's path and the launches."""
+    theirs): no host sync in a train step (the capture's too), finite
+    losses, ``step`` 8, one graph, the three checkpoints written.  Returns the teacher checkpoint's path, the
+    launches and the capture's seconds."""
     import contextlib
     import io
     from blockcopy_tpu_torch.ops import kernels
@@ -1888,10 +1926,11 @@ def phase_train_cli(tmp):
     from blockcopy_tpu_torch.tools.measure import count_syncs
 
     make = train_cli.make_train_step
-    syncs = []
+    syncs, made = [], []
 
     def watched_make(*a, **kw):
         step = make(*a, **kw)
+        made.append(step)
 
         def watched(*args):
             out, n = count_syncs(step, *args)
@@ -1914,17 +1953,22 @@ def phase_train_cli(tmp):
     line = json.loads(buf.getvalue().strip().splitlines()[-1])
     files = {f: (Path(tmp) / f).is_file() for f in (
         "epoch_1.npz", "epoch_1_teacher.npz", "latest_state.npz")}
-    log(f"[11a] train CLI {' '.join(argv[:-2])}: {json.dumps(line)}; "
-        f"{time.perf_counter() - t0:.1f} s with checkpoints {files}; host "
-        f"syncs per train step {syncs}; launches {launches}")
+    graphs = [g.capture_s for s in made for g in s.calls.graphs.values()]
+    log(f"[{tag}] train CLI {' '.join(argv[:-2])}: {json.dumps(line)}; "
+        f"{time.perf_counter() - t0:.1f} s with checkpoints {files}; graphs "
+        f"captured {len(graphs)} in {graphs} s (step 1, its eager run "
+        f"included); host syncs per train step {syncs}; "
+        f"launches {launches}")
     losses = list(line["first_losses"].values()) \
         + list(line["final_losses"].values())
     if (line != res or res["step"] != 8 or not all(files.values())
             or not np.isfinite(losses).all() or any(syncs)
-            or len(syncs) != 8 or any(launches.values())):
+            or len(syncs) != 8 or any(launches.values())
+            or len(graphs) != 1):
         raise AssertionError(f"train CLI: {line}, files {files}, syncs "
-                             f"{syncs}, launches {launches}")
-    return str(Path(tmp) / "epoch_1_teacher.npz"), launches
+                             f"{syncs}, launches {launches}, graphs "
+                             f"{graphs}")
+    return str(Path(tmp) / "epoch_1_teacher.npz"), launches, graphs[0]
 
 
 def phase_trained_detection_cli(teacher):
@@ -3394,6 +3438,135 @@ def phase_serving(par):
     return out
 
 
+def _train_gaps(a, b, losses_a, losses_b):
+    """Largest |a - b| of two train states by part, and of their loss
+    terms; the host steps must agree.  One host read."""
+    from blockcopy_tpu_torch.policy.optim import tree_leaves
+    if int(a["step"]) != int(b["step"]):
+        raise AssertionError(f"host steps {int(a['step'])} and "
+                             f"{int(b['step'])}")
+    parts = ("params", "ema_params", "m", "v")
+    gaps = [torch.stack(torch._foreach_norm(torch._foreach_sub(
+        tree_leaves(a[k]), tree_leaves(b[k])), float("inf"))).max()
+        for k in parts]
+    gaps.append((torch.stack(list(losses_a.values()))
+                 - torch.stack(list(losses_b.values()))).abs().max())
+    return dict(zip(parts + ("losses",), torch.stack(gaps).tolist()))
+
+
+def phase_train_graphs(tmp):
+    """Phase 17 (module docstring): (a) phase 11a's train step, two eager
+    runs and one captured in lockstep from one init, under cuDNN's
+    deterministic algorithms; (b) the train CLI through the graph and its
+    teacher through the detection CLI's loader."""
+    from blockcopy_tpu_torch.models.builder import load_csp_params
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.policy.optim import tree_leaves, tree_map
+    from blockcopy_tpu_torch.tasks.detection import train as T
+
+    cfg, tcfg, batches, params = _train_setup()
+    names = ("eager", "eager2", "captured")
+    steps = {n: T.make_train_step(cfg, tcfg, "cuda",
+                                  graphs=n == "captured") for n in names}
+    states = {n: T.init_train_state(tree_map(torch.clone, params), tcfg)
+              for n in names}
+    del params
+    ms = {n: [] for n in names}
+    peak = {n: 0.0 for n in names}
+    reserved = {n: 0.0 for n in names}
+    floor, got, totals = [], [], []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with _deterministic_cudnn():
+        for imgs, *maps in batches:
+            losses = {}
+            for n in names:
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                if n == "captured":
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    states[n], losses[n] = steps[n](states[n], imgs,
+                                                    tuple(maps))
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+                ms[n].append((time.perf_counter() - t0) * 1e3)
+                peak[n] = max(peak[n], (torch.cuda.max_memory_allocated()
+                                        - held) / 2 ** 30)
+                reserved[n] = max(reserved[n],
+                                  torch.cuda.max_memory_reserved() / 2 ** 30)
+            floor.append(_train_gaps(states["eager"], states["eager2"],
+                                     losses["eager"], losses["eager2"]))
+            got.append(_train_gaps(states["eager"], states["captured"],
+                                   losses["eager"], losses["captured"]))
+            totals.append(losses["captured"]["loss_total"].item())
+    launches = dict(kernels.launches)
+    _hold_to_floor("17a", floor, got)
+    capture_s = [g.capture_s
+                 for g in steps["captured"].calls.graphs.values()]
+    med = {n: statistics.median(v[2:]) for n, v in ms.items()}
+    # the graph's private pool: what it keeps reserved between replays
+    pool = steps["captured"].calls.pool
+    pool_gib = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if seg["segment_pool_id"] == pool) / 2 ** 30
+    log(f"[17a] train step CSP-R50 fp32 {TRAIN_CROP[0]}x{TRAIN_CROP[1]} "
+        f"batch {TRAIN_BATCH} (cuDNN TF32 on and deterministic, matmul TF32 "
+        f"off), {TRAIN_STEPS} steps in lockstep from one init, eager, eager "
+        f"and captured (one graph, captured at step 1 in {capture_s} s, its "
+        f"eager run included, then {TRAIN_STEPS - 1} replays; each step "
+        f"under set_sync_debug_mode('error'), no host sync); host steps "
+        f"{int(states['captured']['step'])} each; largest gap per part, "
+        f"eager against eager {_parts_max(floor)}, captured against eager "
+        f"{_parts_max(got)}; launches {launches}")
+    log(f"[17a] ms/step (host clock, synchronize-fenced, interleaved a step "
+        f"at a time: eager, eager, captured), median of steps "
+        f"3-{TRAIN_STEPS}: eager {med['eager']:.2f}, eager2 "
+        f"{med['eager2']:.2f}, captured {med['captured']:.2f}; all eager "
+        f"{[round(x, 2) for x in ms['eager']]}, captured "
+        f"{[round(x, 2) for x in ms['captured']]}; peak memory allocated "
+        f"above what was held before a step (GiB, largest over the steps; "
+        f"the captured run's at its capture) "
+        + ", ".join(f"{n} {peak[n]:.3f}" for n in names)
+        + "; peak memory reserved by the process during a run's steps (GiB) "
+        + ", ".join(f"{n} {reserved[n]:.3f}" for n in names)
+        + f"; the graph's memory pool reserves {pool_gib:.3f} GiB; "
+        f"loss_total {[round(x, 4) for x in totals]}")
+    if (any(launches.values()) or len(capture_s) != 1
+            or not np.isfinite(totals).all() or len(set(totals)) < 2):
+        raise AssertionError(f"[17a] launches {launches}, graphs "
+                             f"{capture_s}, losses {totals}")
+    out = {"ms": med, "peak_gib": peak, "reserved_gib": reserved,
+           "pool_gib": pool_gib, "capture_s": capture_s[0],
+           "floor": _parts_max(floor), "gap": _parts_max(got),
+           "launches": launches}
+    del states, steps
+    torch.cuda.empty_cache()
+
+    teacher, cli_launches, cli_capture_s = phase_train_cli(tmp, "17b")
+    loaded = load_csp_params(teacher, cfg, torch.float32, "cuda")
+    leaves = tree_leaves(loaded)
+    finite = bool(torch.stack([torch.isfinite(t).all()
+                               for t in leaves]).all())
+    log(f"[17b] the teacher checkpoint {Path(teacher).name} through the "
+        f"detection CLI's loader (models/builder.py load_csp_params): "
+        f"{len(leaves)} tensors, all finite {finite}")
+    if not finite:
+        raise AssertionError("[17b] the teacher checkpoint is not finite")
+    out.update({"cli_launches": cli_launches,
+                "cli_capture_s": cli_capture_s})
+    return out
+
+
+def train_graph_keys(tg, name):
+    """The kernels line's phase-17 launches of kernel ``name``: over 17a's
+    three runs and 17b's CLI run."""
+    return {"train_graph_launches": tg["launches"][name],
+            "train_graph_cli_launches": tg["cli_launches"][name]}
+
+
 def serving_keys(serving, name):
     """The kernels line's phase-16 launches of kernel ``name``: over 16a's
     and 16b's captured engines, 16c's replayed frames, and 16d's timed
@@ -3572,7 +3745,7 @@ def main() -> int:
     dl_kern = phase_detection_ladder_kernels(gen)
     train_launches, train = phase_train()
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
-        teacher, train_cli_launches = phase_train_cli(tmp)
+        teacher, train_cli_launches, _ = phase_train_cli(tmp)
         trained_cli = phase_trained_detection_cli(teacher)
     train_err = phase_train_modes()
     valid = phase_validation()
@@ -3588,6 +3761,8 @@ def main() -> int:
               "detection": phase_graphs_detection(),
               "ladder": phase_graphs_ladder()}
     serving = phase_serving(par)
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        tg = phase_train_graphs(tmp)
 
     def phase11_keys(name):
         return {"train_launches": train_launches[name],
@@ -3619,6 +3794,7 @@ def main() -> int:
          **switch_keys(sw_main, sw_modes, sw_det, "halo_strips"),
          **graph_keys(graphs, "halo_strips"),
          **serving_keys(serving, "halo_strips"),
+         **train_graph_keys(tg, "halo_strips"),
          "max_abs_err": halo["err"], "ms": halo["strips"],
          "plain_ms": halo["strips_plain"], "bound_ms": halo["bound"],
          "bound_by": "bytes", **common},
@@ -3636,6 +3812,7 @@ def main() -> int:
          **switch_keys(sw_main, sw_modes, sw_det, "halo_pieces"),
          **graph_keys(graphs, "halo_pieces"),
          **serving_keys(serving, "halo_pieces"),
+         **train_graph_keys(tg, "halo_pieces"),
          "block256_ms": pieces["block256"]["kernel"],
          "block256_plain_ms": pieces["block256"]["plain"],
          "block256_bound_ms": pieces["block256"]["bound"],
@@ -3650,6 +3827,7 @@ def main() -> int:
          **parallel_keys(par, "halo_canvas"),
          **graph_keys(graphs, "halo_canvas"),
          **serving_keys(serving, "halo_canvas"),
+         **train_graph_keys(tg, "halo_canvas"),
          "max_abs_err": halo["err"], "ms": halo["canvas"],
          "plain_ms": halo["canvas_plain"], "bound_ms": halo["bound"],
          "bound_by": "bytes", **common},
@@ -3675,6 +3853,7 @@ def main() -> int:
          **switch_keys(sw_main, sw_modes, sw_det, "bottleneck_tail"),
          **graph_keys(graphs, "bottleneck_tail"),
          **serving_keys(serving, "bottleneck_tail"),
+         **train_graph_keys(tg, "bottleneck_tail"),
          "tail_pieces_ms": tail["bf16"]["pieces"],
          "two_launch_ms": tail["bf16"]["two_launch"],
          "max_abs_err": tail["bf16"]["err"], "ms": tail["bf16"]["kernel"],
@@ -3693,6 +3872,7 @@ def main() -> int:
          **parallel_keys(par, "bottleneck_tail_rows"),
          **graph_keys(graphs, "bottleneck_tail_rows"),
          **serving_keys(serving, "bottleneck_tail_rows"),
+         **train_graph_keys(tg, "bottleneck_tail_rows"),
          "wide_ms": rows["wide"]["kernel"],
          "wide_plain_ms": rows["wide"]["plain"],
          "wide_bound_ms": rows["wide"]["bound"],
@@ -3721,6 +3901,7 @@ def main() -> int:
          **switch_keys(sw_main, sw_modes, sw_det, "bottleneck_tail_f32"),
          **graph_keys(graphs, "bottleneck_tail_f32"),
          **serving_keys(serving, "bottleneck_tail_f32"),
+         **train_graph_keys(tg, "bottleneck_tail_f32"),
          "tail_pieces_ms": tail["f32"]["pieces"],
          "two_launch_ms": tail["f32"]["two_launch"],
          "max_abs_err": tail["f32"]["err"], "ms": tail["f32"]["kernel"],
@@ -3732,7 +3913,7 @@ def main() -> int:
          "launches": probe_launches[name],
          "detection_ladder_launches": dl_launches[name],
          **parallel_keys(par, name), **graph_keys(graphs, name),
-         **serving_keys(serving, name),
+         **serving_keys(serving, name), **train_graph_keys(tg, name),
          "route": "cuda",
          "matched": True, **mm[name]}
         for name in ("mm_bf16", "mm_int8")]
@@ -3814,6 +3995,11 @@ def main() -> int:
         f"{serving['dense']['ms']['eager']:.2f}; clip-parallel frames/s "
         f"gloo {serving['parallel']['gloo']['fps']:.2f}, NCCL "
         f"{serving['parallel']['nccl']['fps']:.2f}"
+        + f"; the train step as a CUDA graph (17), ms/step captured against "
+        f"eager (cuDNN deterministic) {tg['ms']['captured']:.2f} against "
+        f"{tg['ms']['eager']:.2f}, captured in {tg['capture_s']:.2f} s, gap "
+        f"to eager {tg['gap']} against eager to eager {tg['floor']}; phase "
+        f"11a's captured step {train['ms']:.2f} ms"
         + f"; total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kern}))

@@ -1058,3 +1058,139 @@ def test_blocked_group_norm_is_deterministic(cuda_device):
     beta = torch.randn((c,), generator=gen, device=cuda_device)
     outs = [layers.group_norm(x, 32, gamma, beta).data for _ in range(8)]
     assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+# -- the detection train step as a CUDA graph (tasks/detection/train.py) -----
+
+# the small CSP of tests/test_torch_graphs_train.py, its warm-up ending at
+# step 2 so that the learning rate the host passes in changes between replays
+TRAIN_STAGES = (1, 2, 2, 1)
+TRAIN_CFG = dict(lr=2e-4, warmup_iters=2, warmup_ratio=0.1, lr_steps=(),
+                 iters_per_epoch=10, loss_weights=(1.0, 1.0, 0.1))
+
+
+def _train_setup(device, steps):
+    """CSP (1, 2, 2, 1) at full widths, its train config, and ``steps``
+    128x256 fp32 batches of 2 on ``device``."""
+    from blockcopy_tpu_torch.models.csp import CSPConfig, init_csp
+    from blockcopy_tpu_torch.tasks.detection import train as T
+    from blockcopy_tpu_torch.tasks.detection.train_dataset import \
+        SyntheticDetTrainDataset
+    cfg, tcfg = CSPConfig(stage_blocks=TRAIN_STAGES), \
+        T.TrainConfig(**TRAIN_CFG)
+    ds = SyntheticDetTrainDataset(2 * steps, 128, 256, seed=5)
+    batches = []
+    for i in range(steps):
+        items = [ds[2 * i], ds[2 * i + 1]]
+        imgs, *maps = [torch.from_numpy(np.stack([it[k] for it in items]))
+                       .to(device) for k in range(4)]
+        batches.append((imgs, tuple(maps)))
+    return cfg, tcfg, init_csp(cfg, seed=0, device=device), batches
+
+
+def test_captured_train_step_matches_eager(cuda_device, monkeypatch):
+    """Three steps across the warm-up's end: the captured step (one graph,
+    captured at step 1, replayed at steps 2-3; no host sync) against
+    the eager step (``graphs=False``), cuDNN deterministic: every state
+    tensor and loss bitwise after every step (a learning rate or bias
+    correction frozen at the capture would part them at step 2), the host
+    steps 1, 2, 3, no kernel launch."""
+    from blockcopy_tpu_torch.policy.optim import tree_leaves, tree_map
+    from blockcopy_tpu_torch.tasks.detection import train as T
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg, tcfg, params, batches = _train_setup(cuda_device, 3)
+    before = dict(kernels.launches)
+    runs = {}
+    for graphs in (False, True):
+        step = T.make_train_step(cfg, tcfg, cuda_device, graphs=graphs)
+        state = T.init_train_state(tree_map(torch.clone, params), tcfg)
+        out = []
+        for i, (imgs, maps) in enumerate(batches):
+            if graphs:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, losses = step(state, imgs, maps)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            out.append((int(state["step"]),
+                        [t.clone() for t in tree_leaves(
+                            {k: state[k] for k in T.HELD})],
+                        {k: v.clone() for k, v in losses.items()}))
+        runs[graphs] = (out, step)
+    assert kernels.launches == before
+    assert len(runs[True][1].calls.graphs) == 1
+    for (sa, ta, la), (sb, tb, lb) in zip(runs[False][0], runs[True][0]):
+        assert sa == sb
+        assert all(torch.equal(x, y) for x, y in zip(ta, tb)), sa
+        assert all(torch.equal(la[k], lb[k]) for k in la), sa
+    assert [s for s, _, _ in runs[True][0]] == [1, 2, 3]
+
+
+def test_captured_train_step_refuses_a_rebound_leaf(cuda_device):
+    """A ``params`` leaf rebound after the capture raises at the next call
+    (the graph would read and write the old tensor); a host tensor is
+    refused as a graph's input (copying it in would sync)."""
+    from blockcopy_tpu_torch.core.graphs import CapturedCall
+    from blockcopy_tpu_torch.tasks.detection import train as T
+    cfg, tcfg, params, batches = _train_setup(cuda_device, 1)
+    step = T.make_train_step(cfg, tcfg, cuda_device)
+    state = T.init_train_state(params, tcfg)
+    imgs, maps = batches[0]
+    for _ in range(2):                  # the capture, then a replay
+        state, _ = step(state, imgs, maps)
+    head = state["params"]["head"]["csp_cls"]
+    head["b"] = head["b"].clone()
+    with pytest.raises(RuntimeError, match="stale CUDA graph"):
+        step(state, imgs, maps)
+    call = CapturedCall(lambda held, x: x * 2, cuda_device)
+    with pytest.raises(ValueError, match="upload it first"):
+        call((), torch.ones(4))
+
+
+def test_captured_train_step_loss_buffers(cuda_device):
+    """The losses the captured step returns are its graph's buffers: a loss
+    kept without a clone reads the next step's value, a clone keeps its
+    own."""
+    from blockcopy_tpu_torch.tasks.detection import train as T
+    cfg, tcfg, params, batches = _train_setup(cuda_device, 2)
+    step = T.make_train_step(cfg, tcfg, cuda_device)
+    state = T.init_train_state(params, tcfg)
+    state, first = step(state, *batches[0])
+    kept, cloned = first["loss_total"], first["loss_total"].clone()
+    state, second = step(state, *batches[1])
+    assert second["loss_total"] is kept
+    assert torch.equal(kept, second["loss_total"])
+    assert not torch.equal(cloned, kept)
+
+
+def test_capture_runs_no_garbage_collection(cuda_device):
+    """A cyclic garbage collection inside a capture can free dead graphs or
+    tensors there and invalidate it (a full run of this file failed a train
+    step's capture so, with 4 collections inside captures):
+    ``CapturedCall`` holds collection off while it captures.  With one due
+    at every allocation, a capture that allocates sees none and succeeds."""
+    import gc
+    from blockcopy_tpu_torch.core.graphs import CapturedCall
+    seen = []
+
+    def watch(phase, info):
+        if phase == "start" and torch.cuda.is_current_stream_capturing():
+            seen.append(info["generation"])
+
+    def body(held, x):
+        junk = [[i] for i in range(1000)]
+        return x * len(junk)
+
+    threshold = gc.get_threshold()
+    gc.callbacks.append(watch)
+    gc.set_threshold(1)
+    try:
+        call = CapturedCall(body, cuda_device)
+        x = torch.ones(4, device=cuda_device)
+        call((), x)
+        out = call((), x + 1)
+    finally:
+        gc.set_threshold(*threshold)
+        gc.callbacks.remove(watch)
+    assert gc.isenabled() and not seen
+    assert torch.equal(out, (x + 1) * 1000)
