@@ -7,6 +7,10 @@ through the kernels.
 
 from __future__ import annotations
 
+import functools
+
+import torch
+
 # K2 counts by route: ``bottleneck_tail`` the bf16 wgmma route,
 # ``bottleneck_tail_rows`` the bf16 row route, ``bottleneck_tail_f32`` fp32
 launches = {"halo_canvas": 0, "halo_strips": 0, "halo_pieces": 0,
@@ -18,3 +22,15 @@ launches = {"halo_canvas": 0, "halo_strips": 0, "halo_pieces": 0,
 def reset_launches() -> None:
     for key in launches:
         launches[key] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sms(device: torch.device) -> int:
+    """The SM count of the card ``device`` names, read once a card: what
+    the kernels' launch plans size their grids from."""
+    return _sms(device.index if device.index is not None
+                else torch.cuda.current_device())

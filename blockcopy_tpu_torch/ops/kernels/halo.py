@@ -10,6 +10,10 @@ Replaces the Pallas kernel ``blockcopy_tpu/ops/pallas/halo.py``
 * ``halo_pieces``, the 8 pieces unassembled from edge-strip storage
   (contract of ``blockcopy_tpu/core/blocked.py:gather_halo_strips``).
 
+The first two launch over the plan of ``halo_plan``: each padded output row
+is three contiguous source segments, the rows are cut into pieces and the
+pieces into equal shares, one a CTA, as many as the card's SM count asks.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.
 """
@@ -26,6 +30,19 @@ from blockcopy_tpu_torch.ops import kernels
 from blockcopy_tpu_torch.ops.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+# the assembled gather's plan (csrc/halo.cu gather_kernel): pieces of a
+# padded row at most PIECE_MAX bytes, cut finer (not below PIECE_MIN) where a
+# launch has fewer pieces than the card has SMs; CTAS_PER_SM shares an SM; a
+# ring of at most RING_BYTES of piece buffers and GATHER_THREADS slots a CTA
+# (the kernel's kGatherThreads; its entry refuses a deeper ring).  PIECE_MAX,
+# CTAS_PER_SM and RING_BYTES gave the best per-frame sums of chip_smoke.py
+# halo_frames' sweep on the H100
+PIECE_MAX = 4096
+PIECE_MIN = 2048
+CTAS_PER_SM = 6
+RING_BYTES = 24 * 1024
+GATHER_THREADS = 64
 
 
 def _take(src: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -92,6 +109,49 @@ def halo_gather_strips_plain(strips, pack_idx, pad, n, gh, gw, center):
     return torch.cat([row_top, row_mid, row_bot], dim=1)
 
 
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def halo_plan(k: int, bs: int, c_bytes: int, p: int, sms: int) -> Dict:
+    """The launch plan of ``halo_gather_strips`` / ``halo_gather_canvas`` for
+    ``k`` blocks of ``bs`` pixels, ``c_bytes`` bytes a pixel, pad ``p``, on a
+    card of ``sms`` SMs.  The launch's ``k (bs+2p)`` padded rows are each cut
+    into ``cuts`` pieces of ``piece`` bytes (the last of a row shorter), and
+    the ``pieces`` pieces, row-major, into shares of ``share`` consecutive
+    pieces, one a CTA (``ctas``).  ``depth`` is the CTA's ring of piece
+    buffers (0 where ``c_bytes`` is no multiple of 16 and the kernel copies
+    4- or 2-byte units instead), ``span`` the most blocks a share touches,
+    ``smem`` the CTA's shared memory in bytes.  The C entry checks the plan
+    and refuses one that leaves a row uncovered or does not fit."""
+    w = bs + 2 * p
+    row, rows = w * c_bytes, k * w
+    if rows <= 0:
+        return {"cuts": 1, "piece": 16, "share": 1, "ctas": 0, "depth": 0,
+                "span": 0, "smem": 0, "pieces": 0}
+    unit = 16 if c_bytes % 16 == 0 else 4 if c_bytes % 4 == 0 else 2
+    units = row // unit
+    cuts = _ceil(row, PIECE_MAX)
+    if rows * cuts < sms:
+        cuts = max(cuts, min(_ceil(sms, rows), row // PIECE_MIN))
+    piece = _ceil(units, min(cuts, units)) * unit
+    cuts = _ceil(row, piece)
+    pieces = rows * cuts
+    share = _ceil(pieces, CTAS_PER_SM * sms)
+    depth = (min(share, max(1, RING_BYTES // piece), GATHER_THREADS)
+             if unit == 16 else 0)
+    span = min(k, ((share - 1) // cuts + 1) // w + 2)
+    return {"cuts": cuts, "piece": piece, "share": share,
+            "ctas": _ceil(pieces, share), "depth": depth, "span": span,
+            "smem": depth * piece + 8 * depth + 64 * span, "pieces": pieces}
+
+
+def _plan_args(k, bs, c_bytes, p, device) -> list:
+    plan = halo_plan(k, bs, c_bytes, p, kernels.sms(device))
+    return [plan[key] for key in ("cuts", "piece", "share", "ctas", "depth",
+                                  "span")]
+
+
 def _check(name: str, t: torch.Tensor, dtype, device, shape=None) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -136,10 +196,11 @@ def _lib():
     lib = build.library("halo")
     if not getattr(lib, "_typed", False):
         ints = [ctypes.c_int] * 7
-        lib.halo_gather_canvas.argtypes = [ctypes.c_void_p] * 4 + ints + [
-            ctypes.c_void_p]
-        lib.halo_gather_strips.argtypes = [ctypes.c_void_p] * 5 + ints + [
-            ctypes.c_void_p]
+        plan = [ctypes.c_int] * 6
+        lib.halo_gather_canvas.argtypes = [ctypes.c_void_p] * 4 + ints \
+            + plan + [ctypes.c_void_p]
+        lib.halo_gather_strips.argtypes = [ctypes.c_void_p] * 5 + ints \
+            + plan + [ctypes.c_void_p]
         lib.halo_pieces.argtypes = [ctypes.c_void_p] * 4 + ints + [
             ctypes.c_void_p]
         lib.halo_gather_canvas.restype = ctypes.c_int
@@ -161,7 +222,8 @@ def halo_gather_canvas(canvas, pack_idx, pad, n, gh, gw, center):
            (total + 1, bs, bs, center.shape[-1]))
     err = _lib().halo_gather_canvas(
         _ptr(out), _ptr(canvas), _ptr(center), _ptr(pack_idx), k, bs,
-        c_bytes, pad, n, gh, gw, _stream())
+        c_bytes, pad, n, gh, gw,
+        *_plan_args(k, bs, c_bytes, pad, canvas.device), _stream())
     build.check(err, "halo_gather_canvas")
     kernels.launches["halo_canvas"] += 1
     return out
@@ -180,7 +242,8 @@ def halo_gather_strips(strips, pack_idx, pad, n, gh, gw, center):
     _check("cols", cols, rows.dtype, rows.device, (total + 1, bs, 2 * pad, c))
     err = _lib().halo_gather_strips(
         _ptr(out), _ptr(rows), _ptr(cols), _ptr(center), _ptr(pack_idx), k,
-        bs, c_bytes, pad, n, gh, gw, _stream())
+        bs, c_bytes, pad, n, gh, gw,
+        *_plan_args(k, bs, c_bytes, pad, rows.device), _stream())
     build.check(err, "halo_gather_strips")
     kernels.launches["halo_strips"] += 1
     return out

@@ -20,7 +20,6 @@ pure function ``plan`` and passed to the kernel, so the CPU tests hold it.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import List, NamedTuple, Tuple
 
 import torch
@@ -71,11 +70,6 @@ def split_ranges(chunks: int, splits: int) -> List[Tuple[int, int]]:
     return [(z * chunks // splits,
              (z + 1) * chunks // splits - z * chunks // splits)
             for z in range(splits)]
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def mm_bf16_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -129,9 +123,7 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, n: int,
             raise ValueError("mm operands must be contiguous and 16-byte "
                              "aligned")
     rows, k = x.shape
-    p = plan(rows, k, n, _sms(x.device.index if x.device.index is not None
-                              else torch.cuda.current_device()),
-             x.element_size())
+    p = plan(rows, k, n, kernels.sms(x.device), x.element_size())
     y = torch.empty((rows, n), dtype=out_dtype, device=x.device)
     ws = None
     if p.splits > 1:

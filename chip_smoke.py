@@ -8,8 +8,13 @@ Phases (any failure raises and exits non-zero):
 1. card and build: ``nvidia-smi`` name and power limit, then the kernels of
    ``blockcopy_tpu_torch/csrc`` built in parallel, with the build seconds;
 2. halo kernel (both entry points) against its plain versions, bitwise, at
-   every main-path shape, bf16 and fp32, pad 1 and 3, on a partial grid with
-   padding slots; times at the main-path shapes; then its ``halo_pieces``
+   every main-path shape, bf16 and fp32, pads 1-3, on a partial grid with
+   padding slots; times at the main-path shapes at K = 8, 64 and 128
+   (ladder mode's smallest capacity, the main path's, every block), each
+   with its launch plan (``halo_plan``), the per-frame sums beside the
+   bytes bound and K1's launch floor (the entry at K = 1, bs 4, C 8:
+   ``halo_launch_floor``; ``halo_frames`` times every path's per-frame sums
+   alone, and under other plan settings); then its ``halo_pieces``
    entry (the 8 pieces of the stem's plane pool in one launch: the fused
    tails read their halo inside K2) likewise at every (bs, C) of the
    block-128 and block-256 paths' plane pools and fused tails, timed at
@@ -120,7 +125,8 @@ Phases (any failure raises and exits non-zero):
    2, 1)`` 256x512 fp32, 4 frames, injected draws: counts, ``valid`` and
    labels equal, canvases and boxes within 1e-5; (d) K1 bitwise and K2
    against their plain versions at every detection shape at K = 8 and 128,
-   then both timed there in bf16;
+   then both timed there in bf16, K1's per-frame sums beside its launch
+   floor;
 11. detection training, before the JSON lines: (a) the train step on
    CSP-R50 at full width and depth, fp32, 640x1280 crops, batch 2 (the train
    CLI's defaults; cuDNN TF32 on, matmul TF32 off, torch's defaults) as
@@ -328,6 +334,9 @@ DET_HALO_SHAPES = ([(32, 48, 1)] + [(32, 64, 1)] * 3
 # layer4 is dilated), the semseg path's eight
 DET_TAIL_SHAPES = TAIL_SHAPES
 DET_K = 38
+# K1's capacities phase 2 times: ladder mode's smallest, the main path's,
+# every block
+HALO_KS = (8, K, 128)
 # K2's capacities: ladder mode's smallest at 1024x2048 (block 128, quantum
 # 1/16), the main path's, and ladder mode's largest
 TAIL_KS = (8, K, 128)
@@ -469,7 +478,7 @@ def phase_halo(gen):
     ok, err = True, 0.0
     for bs, c in sorted(set(HALO_SHAPES)):
         for dtype in (torch.bfloat16, torch.float32):
-            for p in (1, 3):
+            for p in (1, 2, 3):
                 if p >= bs:
                     continue
                 canvas, strips, idx, center = _halo_case(gen, bs, c, p,
@@ -488,38 +497,145 @@ def phase_halo(gen):
                 if not same:
                     log(f"[2] MISMATCH halo bs={bs} C={c} p={p} {dtype}")
     log(f"[2] halo kernel bitwise == plain at {len(set(HALO_SHAPES))} "
-        f"shapes x bf16/fp32 x pad 1/3 (partial grid, 4 padding slots): {ok}")
+        f"shapes x bf16/fp32 x pad 1-3 (partial grid, 4 padding slots): "
+        f"{ok}")
     if not ok:
         raise AssertionError("halo kernel disagrees with its plain version")
 
-    rows = {}
-    for bs, c in sorted(set(HALO_SHAPES)):
-        canvas, strips, idx, center = _halo_case(gen, bs, c, 1,
-                                                 torch.bfloat16, K)
-        args = (idx, 1, N, GH, GW, center)
-        t = {
-            "canvas": device_ms(
-                lambda: H.halo_gather_canvas(canvas, *args)),
-            "strips": device_ms(
-                lambda: H.halo_gather_strips(strips, *args)),
-            "canvas_plain": device_ms(
-                lambda: H.halo_gather_canvas_plain(canvas, *args)),
-            "strips_plain": device_ms(
-                lambda: H.halo_gather_strips_plain(strips, *args)),
-            "bound": halo_bytes(bs, c, 1, 2) / HBM_BYTES_PER_S * 1e3,
-        }
-        rows[(bs, c)] = t
-        log(f"[2] halo bs={bs:2d} C={c:3d} bf16 K={K}: "
-            f"strips {t['strips']:.4f} ms (plain {t['strips_plain']:.4f}), "
-            f"canvas {t['canvas']:.4f} ms (plain {t['canvas_plain']:.4f}), "
-            f"bound {t['bound']:.4f} ms (bytes)")
-    per_step = {key: sum(rows[s][key] for s in HALO_SHAPES)
-                for key in ("canvas", "strips", "canvas_plain",
-                            "strips_plain", "bound")}
-    log(f"[2] halo per main-path step ({len(HALO_SHAPES)} launches): "
-        + ", ".join(f"{k} {v:.4f} ms" for k, v in per_step.items()))
-    per_step["err"] = err
-    return per_step
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    floor = halo_launch_floor(gen)
+    log(f"[2] halo launch floor (halo_gather_strips at K=1, bs=4, C=8 bf16): "
+        f"{floor:.4f} ms a launch")
+    out = {}
+    for k in HALO_KS:
+        rows = {}
+        for bs, c in sorted(set(HALO_SHAPES)):
+            canvas, strips, idx, center = _halo_case(
+                gen, bs, c, 1, torch.bfloat16, halo_n_set(k), k)
+            args = (idx, 1, N, GH, GW, center)
+            t = {
+                "canvas": device_ms(
+                    lambda: H.halo_gather_canvas(canvas, *args)),
+                "strips": device_ms(
+                    lambda: H.halo_gather_strips(strips, *args)),
+                "canvas_plain": device_ms(
+                    lambda: H.halo_gather_canvas_plain(canvas, *args)),
+                "strips_plain": device_ms(
+                    lambda: H.halo_gather_strips_plain(strips, *args)),
+                "bound": halo_bytes(bs, c, 1, 2, k) / HBM_BYTES_PER_S * 1e3,
+            }
+            ref = H.halo_gather_canvas_plain(canvas, *args)
+            if not (torch.equal(H.halo_gather_canvas(canvas, *args), ref)
+                    and torch.equal(H.halo_gather_strips(strips, *args),
+                                    ref)):
+                raise AssertionError(f"halo kernel disagrees with its plain "
+                                     f"version at K={k} bs={bs} C={c}")
+            rows[(bs, c)] = t
+            plan = H.halo_plan(k, bs, 2 * c, 1, sms)
+            log(f"[2] halo bs={bs:2d} C={c:3d} bf16 K={k}: "
+                f"strips {t['strips']:.4f} ms (plain "
+                f"{t['strips_plain']:.4f}), canvas {t['canvas']:.4f} ms "
+                f"(plain {t['canvas_plain']:.4f}), bound {t['bound']:.4f} ms "
+                f"(bytes); plan {plan['ctas']} CTAs x {plan['share']} "
+                f"pieces of {plan['piece']} B, ring {plan['depth']}")
+        per_step = {key: sum(rows[s][key] for s in HALO_SHAPES)
+                    for key in ("canvas", "strips", "canvas_plain",
+                                "strips_plain", "bound")}
+        log(f"[2] halo per main-path frame at K={k} ({len(HALO_SHAPES)} "
+            f"launches): " + ", ".join(f"{key} {v:.4f} ms"
+                                       for key, v in per_step.items())
+            + f"; launch floor {floor:.4f} ms, x{len(HALO_SHAPES)} = "
+            f"{floor * len(HALO_SHAPES):.4f} ms")
+        out[k] = per_step
+    # the main path's capacity at the top level, the ladder's beside it
+    out = {**out[K], "ladder": {k: out[k] for k in HALO_KS if k != K},
+           "floor": floor, "err": err}
+    return out
+
+
+def halo_n_set(k):
+    """Executed blocks of K1's timed cases at capacity ``k``: ladder mode's
+    smallest (8) holds 7 and a padding slot, as phase 10d; every other
+    capacity is full."""
+    return k - 1 if k == 8 else k
+
+
+def halo_launch_floor(gen):
+    """K1's launch floor: ``halo_gather_strips`` at K = 1, bs 4, C 8 bf16,
+    pad 1 (1.5 KB out) in the ``device_ms`` harness: what any K1 launch
+    costs, the floor under a per-frame sum of its launches."""
+    from blockcopy_tpu_torch.ops.kernels import halo as H
+    from blockcopy_tpu_torch.tools.measure import device_ms
+    _, strips, idx, center = _halo_case(gen, 4, 8, 1, torch.bfloat16, 1, 1)
+    return device_ms(lambda: H.halo_gather_strips(strips, idx, 1, N, GH, GW,
+                                                  center))
+
+
+# K1's per-frame readings of ``halo_frames``: (path, capacity)
+HALO_FRAMES = (("semseg", 8), ("semseg", K), ("semseg", 128),
+               ("detection", 8), ("detection", DET_K), ("detection", 128))
+# settings of halo_plan's (PIECE_MAX, CTAS_PER_SM, RING_BYTES) that
+# ``halo_frames`` times besides the shipped one when asked
+HALO_PLAN_SWEEP = ((8192, 2, 65536), (8192, 4, 32768), (4096, 4, 32768),
+                   (2048, 4, 32768), (4096, 8, 16384))
+
+
+def halo_frames(gen, sweep=()):
+    """K1's ``halo_gather_strips`` summed over each path's launches a frame
+    (semseg ``HALO_SHAPES`` at pad 1, detection ``DET_HALO_SHAPES``) at
+    each of ``HALO_FRAMES``' capacities (``halo_n_set`` executed), bf16,
+    beside the bytes bound, each shape's time (keyed bs x C x pad x K), the
+    launch floor and, beside it, a one-element ``zero_`` (a launch of any
+    kernel in the harness); then the per-frame sums under each (PIECE_MAX,
+    CTAS_PER_SM, RING_BYTES) of ``sweep``.  It calls only the wrappers'
+    signatures, so it also times an older tree's kernel (that tree's package
+    first on ``sys.path``; no sweep there).  Logs and returns one dict."""
+    from blockcopy_tpu_torch.ops.kernels import halo as H
+    from blockcopy_tpu_torch.tools.measure import device_ms
+    paths = {"semseg": [(bs, c, 1) for bs, c in HALO_SHAPES],
+             "detection": DET_HALO_SHAPES}
+    cases = {}
+    for name, k in HALO_FRAMES:
+        for bs, c, p in sorted(set(paths[name])):
+            cases.setdefault((bs, c, p, k), _halo_case(
+                gen, bs, c, p, torch.bfloat16, halo_n_set(k), k)[1:])
+
+    def shapes():
+        ms = {}
+        for key in sorted(set((bs, c, p, k) for name, k in HALO_FRAMES
+                              for bs, c, p in paths[name])):
+            strips, idx, center = cases[key]
+            bs, c, p, k = key
+            ms[key] = device_ms(lambda: H.halo_gather_strips(
+                strips, idx, p, N, GH, GW, center))
+        return ms
+
+    def frames(ms):
+        return {f"{name}_k{k}": sum(ms[(bs, c, p, k)]
+                                    for bs, c, p in paths[name])
+                for name, k in HALO_FRAMES}
+
+    ms = shapes()
+    one = torch.zeros(1, device="cuda")
+    out = {"launch_floor_ms": halo_launch_floor(gen),
+           "fill_floor_ms": device_ms(one.zero_), "ms": frames(ms),
+           "bound_ms": {f"{name}_k{k}": sum(
+               halo_bytes(bs, c, p, 2, k) for bs, c, p in paths[name])
+               / HBM_BYTES_PER_S * 1e3 for name, k in HALO_FRAMES},
+           "shape_ms": {"x".join(map(str, key)): v
+                        for key, v in ms.items()}}
+    if sweep:
+        shipped = (H.PIECE_MAX, H.CTAS_PER_SM, H.RING_BYTES)
+        out["sweep"] = []
+        try:
+            for setting in sweep:
+                H.PIECE_MAX, H.CTAS_PER_SM, H.RING_BYTES = setting
+                out["sweep"].append({"setting": setting,
+                                     "ms": frames(shapes())})
+        finally:
+            H.PIECE_MAX, H.CTAS_PER_SM, H.RING_BYTES = shipped
+    log("[2] halo frames " + json.dumps(out))
+    return out
 
 
 def _tail_case(gen, bs, cm, co, dtype, k=K, n_set=None):
@@ -1755,7 +1871,10 @@ def phase_detection_ladder_kernels(gen):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     tail_err = {"bf16": 0.0, "f32": 0.0}
-    out = {}
+    floor = halo_launch_floor(gen)
+    log(f"[10d] halo launch floor (halo_gather_strips at K=1, bs=4, C=8 "
+        f"bf16): {floor:.4f} ms a launch")
+    out = {"floor": floor}
     for k in DET_LADDER_KS:
         n_set = k - 1 if k < N * GH * GW else k
         for bs, c, p in sorted(set(DET_HALO_SHAPES)):
@@ -1828,7 +1947,9 @@ def phase_detection_ladder_kernels(gen):
             log(f"[10d] {name} per detection ladder frame at K={k} "
                 f"({len(shapes)} launches): "
                 + ", ".join(f"{key} {v:.4f}"
-                            for key, v in out[(name, k)].items()))
+                            for key, v in out[(name, k)].items())
+                + (f"; launch floor {floor:.4f}, x{len(shapes)} = "
+                   f"{floor * len(shapes):.4f}" if name == "halo" else ""))
     out["tail_err"] = tail_err
     return out
 
@@ -3631,6 +3752,17 @@ def ladder_keys(kern, name):
             for k in DET_LADDER_KS for key in ("ms", "plain_ms", "bound_ms")}
 
 
+def halo_ladder_keys(halo, entry):
+    """The kernels line's per-frame semseg times of a K1 entry at the
+    ladder's capacities (phase 2), and K1's launch floor."""
+    out = {"launch_floor_ms": halo["floor"]}
+    for k, t in halo["ladder"].items():
+        out.update({f"ladder_{key}_k{k}": t[entry + suffix]
+                    for key, suffix in (("ms", ""), ("plain_ms", "_plain"))})
+        out[f"ladder_bound_ms_k{k}"] = t["bound"]
+    return out
+
+
 def mm_cost(rows, k, n, itemsize, out_itemsize, peak):
     """Operations and the bound of one GEMM launch (each input read once,
     the output written once): (ms, "bytes" or "operations")."""
@@ -3795,6 +3927,7 @@ def main() -> int:
          **graph_keys(graphs, "halo_strips"),
          **serving_keys(serving, "halo_strips"),
          **train_graph_keys(tg, "halo_strips"),
+         **halo_ladder_keys(halo, "strips"),
          "max_abs_err": halo["err"], "ms": halo["strips"],
          "plain_ms": halo["strips_plain"], "bound_ms": halo["bound"],
          "bound_by": "bytes", **common},
@@ -3828,6 +3961,7 @@ def main() -> int:
          **graph_keys(graphs, "halo_canvas"),
          **serving_keys(serving, "halo_canvas"),
          **train_graph_keys(tg, "halo_canvas"),
+         **halo_ladder_keys(halo, "canvas"),
          "max_abs_err": halo["err"], "ms": halo["canvas"],
          "plain_ms": halo["canvas_plain"], "bound_ms": halo["bound"],
          "bound_by": "bytes", **common},

@@ -1,7 +1,8 @@
 """Halo-gather kernel module: both plain versions held bitwise against
 ``halo_gather``, ``halo_gather_strips`` and the Pallas ``halo_gather_pallas``
-(interpret mode).  The CUDA kernel is held against the plain versions in
-``test_torch_kernels_gpu.py``."""
+(interpret mode), and the inputs gathered in ``halo_plan``'s order as the
+CUDA kernel addresses them against JAX's two.  The CUDA kernel is held
+against the plain versions in ``test_torch_kernels_gpu.py``."""
 
 import functools
 
@@ -15,6 +16,7 @@ from blockcopy_tpu.core import grid as JG
 from blockcopy_tpu.ops.pallas.halo import halo_gather_pallas
 from blockcopy_tpu_torch.ops import kernels
 from blockcopy_tpu_torch.ops.kernels import halo as H
+from test_torch_halo_plan import gather_by_plan
 from torch_port_util import assert_same, tt
 from torch_port_util import two_torch_threads  # noqa: F401
 
@@ -80,3 +82,27 @@ def test_strip_width_must_match_pad():
     with pytest.raises(ValueError, match="strip width"):
         H.halo_gather_strips_plain({k: tt(v) for k, v in strips.items()},
                                    tt(idx).long(), 2, *geo, tt(center))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+@pytest.mark.parametrize("c", [5, 256])
+@pytest.mark.parametrize("pad", [1, 2, 3])
+def test_plan_order_matches_jax(pad, c, dtype):
+    """The canvas and the strips gathered piece by piece in the order of
+    ``halo_plan`` at 1, 3 and 132 SMs (the kernel's three segments a padded
+    row; at C = 256 rows cut into pieces, at C = 5 its 2- or 4-byte units),
+    bitwise against JAX's ``halo_gather`` and ``halo_gather_strips`` on a
+    partial grid with padding slots."""
+    canvas, strips, idx, center, geo = _case(pad, True, dtype, c=c, seed=pad)
+    static = (2, 3, 4, 5)
+    ref = jax.jit(JB.halo_gather, static_argnums=static)(
+        canvas, idx, pad, *geo, center=center)
+    assert_same(ref, jax.jit(JB.halo_gather_strips, static_argnums=static)(
+        strips, idx, pad, *geo, center))
+    tcenter, tidx = tt(center), tt(idx).long()
+    for sms in (1, 3, 132):
+        plan = H.halo_plan(tidx.shape[0], 8, c * tcenter.element_size(), pad,
+                           sms)
+        for store in (tt(canvas), {k: tt(v) for k, v in strips.items()}):
+            assert_same(ref, gather_by_plan(plan, store, tcenter, tidx, pad,
+                                            *geo))

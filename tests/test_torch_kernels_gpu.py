@@ -206,6 +206,97 @@ def test_halo_kernel_refuses_bad_inputs(cuda_device):
         H.halo_gather_canvas(canvas[:-1], idx, 1, 1, 2, 4, center)
 
 
+# the semseg path's K1 sites at block 128 (bs, C): chip_smoke.HALO_SHAPES
+SEMSEG_HALO_SHAPES = [(32, 48), (32, 64), (32, 128), (16, 256), (8, 512),
+                      (4, 512), (8, 128), (16, 128)]
+
+
+@pytest.mark.parametrize("sms", [None, 1, 3])
+@pytest.mark.parametrize("k", [1, 2])
+def test_halo_kernel_smallest_capacities(cuda_device, monkeypatch, k, sms):
+    """K = 1 (one executed block) and K = 2 (one and a padding slot) at
+    three main-path shapes, pad 1 and 3, with the launch planned for the
+    card's SMs or for 1 or 3 (``halo_plan``): at 3 SMs a share ends inside
+    a padded row and, at K = 2, spans both blocks."""
+    if sms is not None:
+        monkeypatch.setattr(kernels, "sms", lambda device: sms)
+    for bs, c in [(32, 48), (32, 128), (4, 512)]:
+        for pad in (1, 3):
+            for dtype in (torch.float32, torch.bfloat16):
+                _halo_full_grid(cuda_device, bs, c, pad, dtype, 1, k,
+                                seed=k + bs + c + pad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,c", SEMSEG_HALO_SHAPES)
+@pytest.mark.parametrize("pad", [2, 3])
+def test_halo_kernel_semseg_pads(cuda_device, pad, bs, c, dtype):
+    """Every semseg shape at pads 2 and 3, 61 of 128 blocks and 3 padding
+    slots (K = 64), both entry points."""
+    _halo_full_grid(cuda_device, bs, c, pad, dtype, 61, 64,
+                    seed=pad * bs + c)
+
+
+@pytest.mark.parametrize("c", [2, 3, 5, 6, 10])
+@pytest.mark.parametrize("k", [8, 64])
+def test_halo_kernel_narrow_units_bf16(cuda_device, k, c):
+    """bf16 widths of C * 2 bytes that are no multiple of 16: 4-byte units
+    (C = 2, 6, 10) and 2-byte units (C = 3, 5), the kernel's unit loop, at
+    pads 1-3, both entry points."""
+    for pad in (1, 2, 3):
+        _halo_full_grid(cuda_device, 32, c, pad, torch.bfloat16, k - 1, k,
+                        seed=k + c + pad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs,c", SEMSEG_HALO_SHAPES)
+@pytest.mark.parametrize("k", [8, 128])
+def test_halo_canvas_ladder_capacities(cuda_device, k, bs, c, dtype):
+    """Both entry points, the canvas one included, at every semseg shape at
+    the ladder's extremes: K = 8 (7 blocks and a padding slot) and K = 128
+    (every block)."""
+    _halo_full_grid(cuda_device, bs, c, 1, dtype, k - 1 if k < 128 else k,
+                    k, seed=k + bs + c)
+
+
+@pytest.mark.parametrize("entry", ["strips", "canvas"])
+def test_halo_kernel_refuses_bad_plan(cuda_device, monkeypatch, entry):
+    """The C entries check the plan they are given: shares that leave the
+    last rows uncovered (a CTA short), a neighbour table too small for a
+    share's blocks, and a ring past the card's shared memory are refused
+    with cudaErrorInvalidValue (1), raised through ``build.check``, and
+    count no launch."""
+    bs, c, pad, k = 32, 48, 1, 8
+    gen = torch.Generator().manual_seed(0)
+    canvas = torch.randn((129, bs, bs, c), generator=gen).to(cuda_device)
+    strips = {"rows": torch.cat([canvas[:, :pad], canvas[:, -pad:]], 1)
+              .contiguous(),
+              "cols": torch.cat([canvas[:, :, :pad], canvas[:, :, -pad:]], 2)
+              .contiguous()}
+    idx = torch.arange(k, device=cuda_device)
+    center = torch.randn((k, bs, bs, c), generator=gen).to(cuda_device)
+    good = H.halo_plan
+
+    def call():
+        if entry == "strips":
+            return H.halo_gather_strips(strips, idx, pad, 1, 8, 16, center)
+        return H.halo_gather_canvas(canvas, idx, pad, 1, 8, 16, center)
+
+    plain = call()   # the plan as made launches
+    assert torch.equal(plain.cpu(), H.halo_gather_canvas_plain(
+        canvas.cpu(), idx.cpu(), pad, 1, 8, 16, center.cpu()))
+    for change in (lambda q: {**q, "ctas": q["ctas"] - 1},
+                   lambda q: {**q, "span": 0},
+                   lambda q: {**q, "piece": 2 ** 17}):
+        monkeypatch.setattr(H, "halo_plan",
+                            lambda *a, change=change: change(good(*a)))
+        before = dict(kernels.launches)
+        with pytest.raises(RuntimeError, match="CUDA error 1 at launch"):
+            call()
+        assert kernels.launches == before
+    torch.cuda.synchronize()
+
+
 def _halo(seed, k, bs, cm, device="cpu", n_set=None):
     """K2's halo in strip form (``measure.strip_halo``): post-ReLU strips
     of the 1024x2048 block-128 grid (8x16 blocks, most of a small K's on

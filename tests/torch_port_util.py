@@ -3,10 +3,10 @@ the port and compare the two packages' results."""
 
 import jax
 import numpy as np
-import pytest
 import torch
 
 from blockcopy_tpu_torch.utils.convert import to_numpy, to_torch
+from torch_threads import two_torch_threads  # noqa: F401
 
 # float tolerances of the JAX suite's own re-lowerings
 # (tests/test_fused_bottleneck.py:72)
@@ -180,15 +180,3 @@ def engine_frame(jm, tm, frame, t, tol=1e-4):
     assert_tree(jc, tc, lambda a, b, m: close_rel(
         a, b, tol, f"frame {t + 1} canvas{m}"))
     return got
-
-
-@pytest.fixture(autouse=True)
-def two_torch_threads():
-    """Two intra-op threads per test: the suite runs in parallel workers,
-    and torch's default of one thread per core in every worker
-    oversubscribes the CPU several times over.  Test modules import this
-    fixture to use it."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
