@@ -154,7 +154,8 @@ class BlockCopyModel:
         step = self._steps.get(capacity)
         if step is None:
             step = self._steps[capacity] = CapturedStep(
-                partial(self._graph_body, capacity), self.device, self._pool)
+                partial(self._graph_body, capacity), self.device, self._pool,
+                "model_step")
         step(self.params, self.temporal, frame, grid)
         return tree_map(torch.clone, self._bufs)
 
@@ -201,7 +202,12 @@ class BlockCopyModel:
 
     def __call__(self, inputs, draws=None):
         """One frame.  ``inputs``: dense (N, H, W, 3), normalized, on the
-        engine's device.  ``draws`` goes to the policy's ``forward``."""
+        engine's device.  ``draws`` goes to the policy's ``forward``.  The
+        ``timings`` spans (level 3: ``blockcopy/policy_forward``,
+        ``blockcopy/model``, ``blockcopy/policy_optim``) time the host's
+        part of each phase; nothing waits for the card, so device work
+        queued there may finish in a later span (the count read of the
+        next phase waits for it)."""
         self.clip_length += 1
         meta = self.policy_meta
         meta["inputs"] = inputs

@@ -49,6 +49,17 @@ K2, whose weights are prepared once (``ops/kernels/bottleneck.py``
 The kernel wrappers do not run on a replay, so each graph records the
 launch counts of its capture (``ops/kernels`` ``launches``) and adds them
 on every replay: the counts read the same per frame eager or replayed.
+
+Tracing (``utils/profiler.py``, level 2 and above): a call's host time is
+split into the spans ``bc.graph.check`` (the host-tensor and stale checks),
+``bc.graph.inputs`` (the copies into the static inputs) and
+``bc.graph.launch`` (the replay); the counters ``replays/<kind>``,
+``inputs/tensors``, ``inputs/bytes``, ``captures`` and ``capture_s`` count
+them.  On the CPU they read as on the card: the first call counts as the
+capture, each later one as a replay with its input copies.  The device
+marks a body launches at level 3 are captured with it; a graph records
+whether its capture held marks, and a call at a level that disagrees
+raises, as a stale graph does.
 """
 
 from __future__ import annotations
@@ -62,6 +73,8 @@ import torch
 
 from blockcopy_tpu_torch.ops import kernels
 from blockcopy_tpu_torch.policy.optim import tree_leaves, tree_map
+from blockcopy_tpu_torch.utils import profiler
+from blockcopy_tpu_torch.utils.profiler import timings
 
 
 def _host_copy(tree):
@@ -116,51 +129,92 @@ class CapturedCall:
     the first call (see the module's docstring).  Calls return ``fn``'s
     result: on CUDA the graph's output buffers.  ``capture_s`` is the first
     call's seconds, its eager run included; ``launches`` the kernel
-    launches a replay adds."""
+    launches a replay adds; ``kind`` names its replays' counter."""
 
-    def __init__(self, fn: Callable, device, pool=None):
+    def __init__(self, fn: Callable, device, pool=None, kind: str = "call"):
         self.fn = fn
         self.device = torch.device(device)
         self.pool = pool
+        self.kind = kind
         self.graph = None
         self._out = None
         self.launches: Dict[str, int] = {}
         self.capture_s = None
+        self.marked = None      # whether the capture holds device marks
+
+    def _count_replay(self, copied) -> None:
+        """The replay counters: ``copied`` are the inputs copied in."""
+        if timings.level < 2:
+            return
+        timings.count(f"replays/{self.kind}")
+        timings.count("inputs/tensors", len(copied))
+        # a float is filled into a 0-d fp32 tensor
+        timings.count("inputs/bytes", sum(
+            x.nbytes if isinstance(x, torch.Tensor) else 4 for x in copied))
 
     def __call__(self, held, *inputs):
         if self.device.type != "cuda":
-            out = self.fn(held, *as_tensors(inputs, self.device))
-            if self._out is None or out is None:
-                self._out = out
-            else:
-                with torch.no_grad():
-                    tree_map(lambda buf, x: buf.copy_(x), self._out, out)
-            return self._out
-        _on_card(inputs)
+            return self._eager(held, inputs)
+        with timings.env("bc.graph.check", 2):
+            _on_card(inputs)
+            if self.graph is not None:
+                self._check(held)
         if self.graph is None:
             return self._capture(held, inputs)
+        with timings.env("bc.graph.inputs", 2):
+            given = tree_leaves(inputs)
+            if len(given) != len(self._inputs):
+                raise ValueError(f"{len(given)} inputs, the graph captured "
+                                 f"{len(self._inputs)}")
+            copied = []
+            for buf, x in zip(self._inputs, given):
+                if isinstance(x, float):
+                    buf.fill_(x)
+                elif x is not buf:
+                    buf.copy_(x)
+                else:
+                    continue
+                copied.append(x)
+        with timings.env("bc.graph.launch", 2):
+            self.graph.replay()
+        for key, n in self.launches.items():
+            kernels.launches[key] += n
+        self._count_replay(copied)
+        return self._out
+
+    def _eager(self, held, inputs):
+        """The CPU's call: ``fn`` op by op, its result kept in buffers."""
+        t0 = time.perf_counter()
+        out = self.fn(held, *as_tensors(inputs, self.device))
+        if self._out is None or out is None:
+            self._out = out
+        else:
+            with torch.no_grad():
+                tree_map(lambda buf, x: buf.copy_(x), self._out, out)
+        if self.capture_s is None:
+            self.capture_s = time.perf_counter() - t0
+            timings.count("captures")
+            timings.count("capture_s", self.capture_s)
+        else:
+            self._count_replay(tree_leaves(inputs))
+        return self._out
+
+    def _check(self, held) -> None:
         if _bound(held) != self._held:
             raise RuntimeError(
                 "stale CUDA graph: the parameters or the state's tensors or "
                 "generators are not those it captured (update them with "
                 "copy_, do not replace them)")
-        given = tree_leaves(inputs)
-        if len(given) != len(self._inputs):
-            raise ValueError(f"{len(given)} inputs, the graph captured "
-                             f"{len(self._inputs)}")
-        for buf, x in zip(self._inputs, given):
-            if isinstance(x, float):
-                buf.fill_(x)
-            elif x is not buf:
-                buf.copy_(x)
-        self.graph.replay()
-        for key, n in self.launches.items():
-            kernels.launches[key] += n
-        return self._out
+        if profiler.marking() != self.marked:
+            raise RuntimeError(
+                f"stale CUDA graph: captured with device marks "
+                f"{'on' if self.marked else 'off'}, called at tracing level "
+                f"{timings.level} (set the level before the first call)")
 
     def _capture(self, held, inputs):
         t0 = time.perf_counter()
         self._held = _bound(held)
+        self.marked = profiler.marking()
         # the static inputs: copies made outside the pool
         static = tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor)
                           else x, as_tensors(inputs, self.device))
@@ -205,6 +259,8 @@ class CapturedCall:
         main.wait_stream(side)
         self.graph = graph
         self.capture_s = time.perf_counter() - t0
+        timings.count("captures")
+        timings.count("capture_s", self.capture_s)
         return self._out
 
 
@@ -224,8 +280,9 @@ class CallGraphs:
         sig = (key, _signature(inputs))
         call = self.graphs.get(sig)
         if call is None:
+            kind = key[0] if key and isinstance(key[0], str) else "call"
             call = self.graphs[sig] = CapturedCall(fn, self.device,
-                                                   self.pool)
+                                                   self.pool, kind)
         return call(held, *inputs)
 
 
@@ -238,11 +295,12 @@ class CapturedStep(CapturedCall):
     caller keeps that bookkeeping on both paths.  Calls return
     ``state``."""
 
-    def __init__(self, fn: Callable, device, pool=None):
+    def __init__(self, fn: Callable, device, pool=None,
+                 kind: str = "step"):
         def body(held, *inputs):
             fn(held[0], _host_copy(held[1]), *inputs)
 
-        super().__init__(body, device, pool)
+        super().__init__(body, device, pool, kind)
 
     def __call__(self, params, state, *inputs):
         super().__call__((params, state), *inputs)
@@ -267,7 +325,11 @@ class StepperGraphs:
     tensor through the host, the train frame runs as a graph that writes
     the gradients into buffers of its own, the eager ``Group.mean_tree``,
     and a graph of the in-place RMSprop update from the averaged
-    gradients."""
+    gradients.
+
+    Each call is the host span ``bc.step`` (tracing level 2); each graph
+    counts its replays under its kind (``first``, ``plain``, ``train``,
+    ``grads``, ``update``)."""
 
     def __init__(self, stepper, group=None):
         self.stepper = stepper
@@ -279,16 +341,21 @@ class StepperGraphs:
     def _graph(self, key, fn) -> CapturedStep:
         if key not in self.graphs:
             self.graphs[key] = CapturedStep(fn, self.stepper.device,
-                                            self.pool)
+                                            self.pool, key[0])
         return self.graphs[key]
 
     def first_step(self, model_params, state, frame):
-        self._graph(("first",), self.stepper.first_step_)(
-            model_params, state, frame)
+        with timings.env("bc.step", 2):
+            self._graph(("first",), self.stepper.first_step_)(
+                model_params, state, frame)
         state["frame_idx"] = 1
         return state
 
     def step(self, model_params, state, frame, draws=None):
+        with timings.env("bc.step", 2):
+            return self._step(model_params, state, frame, draws)
+
+    def _step(self, model_params, state, frame, draws):
         train = self.stepper.is_train_frame(state["frame_idx"] + 1)
         extra = () if draws is None else (tuple(draws),)
         if not (train and self.group is not None):

@@ -10,6 +10,27 @@ The carried state is a dict: per-layer canvases (updated in place), the
 previous grid and outputs, the frame counter, and the policy state (params,
 BN running statistics, RMSprop state, running cost, and the
 ``torch.Generator`` the grid draws come from).
+
+At tracing level 3 (``utils/profiler.py``) a step marks the device where
+its layers end, so that the marks are captured into its CUDA graph.  The
+in-place forms open a step of their kind (``first``, ``plain``, ``train``,
+the gloo split's ``grads`` and ``update``) and close it after the write
+back; each mark ends the span it names:
+
+* ``policy``: policy-input assembly, the policy forward, the grid's
+  sampling and the executed indices (not on the first frame);
+* ``blocks``: ``split_dense``, the frame-state scatter and the blocked
+  model (backbone, then the decoder or the neck and head);
+* ``outputs``: the task outputs (semseg the output store; detection the
+  decode and NMS);
+* ``reinforce``: the running cost, and on a train frame the reward grid,
+  the REINFORCE backward, the gradients' all-reduce and RMSprop (not on
+  the first frame; the ``update`` step is RMSprop alone);
+* ``writeback``: the copy into the state's tensors (the first frame's
+  running cost too).
+
+So a first step marks 4 times (enter, blocks, outputs, exit), a plain,
+train or grads step 6 times, an update step 3 times.
 """
 
 from __future__ import annotations
@@ -47,6 +68,7 @@ from blockcopy_tpu_torch.policy.net import (
 )
 from blockcopy_tpu_torch.policy.policies import (reinforce_grads,
                                                  reinforce_update)
+from blockcopy_tpu_torch.utils import profiler
 from blockcopy_tpu_torch.utils.flops import policy_net_macs
 
 FRAME_STATE = "__frame_state__"
@@ -136,11 +158,15 @@ class FixedCapacityStepper:
         place next frame, while the state keeps this frame's outputs as
         ``outputs_prev``)."""
         out = self.apply_fn(params, pack, ctx)
+        profiler.mark("blocks", pack.data)
         if OUT_BLOCKS:
-            return {"outputs": ctx.store_blocks(OUT, out).clone()}
-        if PACKED_OUT:
-            return {"outputs": self._store_dense_packed(ctx, out)}
-        return {"outputs": ctx.store_dense(OUT, out)}
+            task = {"outputs": ctx.store_blocks(OUT, out).clone()}
+        elif PACKED_OUT:
+            task = {"outputs": self._store_dense_packed(ctx, out)}
+        else:
+            task = {"outputs": ctx.store_dense(OUT, out)}
+        profiler.mark("outputs", pack.data)
+        return task
 
     def _store_dense_packed(self, ctx, out) -> torch.Tensor:
         """``store_dense`` through a lane-packed (total+1, bs, bs*C) canvas
@@ -427,6 +453,7 @@ class FixedCapacityStepper:
                                      pol["generator"])
             grid_f = grid.float()
             idx = gridlib.exec_indices(grid, self.capacity)
+            profiler.mark("policy", frame)
             canvases, task = self._run_model(model_params, state, frame, idx)
         mid = {
             **state,
@@ -438,8 +465,9 @@ class FixedCapacityStepper:
         for k in self.task_keys:
             mid[k] = task[k]
             mid[f"{k}_prev"] = state[k]
-        return {**mid, "policy": self._policy_optim(mid, grid_f, cache_x,
-                                                    group, grads_out)}
+        pol = self._policy_optim(mid, grid_f, cache_x, group, grads_out)
+        profiler.mark("reinforce", frame)
+        return {**mid, "policy": pol}
 
     # -- in-place steps (the counterpart of donation) -------------------------
 
@@ -464,7 +492,9 @@ class FixedCapacityStepper:
         """``first_step`` written into ``state``'s tensors; returns
         ``state``.  Its tensors keep their storage, so a CUDA graph can
         take them as static buffers (``core/graphs.py``)."""
+        profiler.enter_step("first", frame)
         self._write(state, self.first_step(model_params, state, frame))
+        profiler.exit_step(frame)
         return state
 
     def step_(self, model_params, state, frame, draws: Optional[Tuple] = None,
@@ -473,8 +503,12 @@ class FixedCapacityStepper:
         outputs and ``outputs_prev``, ``prev_grid``, the policy's params,
         BN statistics, RMSprop state and running cost.  Returns
         ``state``."""
+        kind = "grads" if grads_out is not None else "train" \
+            if self.is_train_frame(state["frame_idx"] + 1) else "plain"
+        profiler.enter_step(kind, frame)
         self._write(state, self.step(model_params, state, frame, draws,
                                      group, grads_out))
+        profiler.exit_step(frame)
         return state
 
     def apply_policy_grads_(self, state, grads) -> None:
@@ -483,5 +517,9 @@ class FixedCapacityStepper:
         state's policy parameters and RMSprop state."""
         cfg = self.cfg
         pol = state["policy"]
+        where = pol["running_cost"]
+        profiler.enter_step("update", where)
         rmsprop.update_(grads, pol["opt"], pol["params"], lr=cfg.lr,
                         weight_decay=cfg.weight_decay, momentum=cfg.momentum)
+        profiler.mark("reinforce", where)
+        profiler.exit_step(where)

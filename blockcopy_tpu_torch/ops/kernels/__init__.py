@@ -12,11 +12,12 @@ import functools
 import torch
 
 # K2 counts by route: ``bottleneck_tail`` the bf16 wgmma route,
-# ``bottleneck_tail_rows`` the bf16 row route, ``bottleneck_tail_f32`` fp32
+# ``bottleneck_tail_rows`` the bf16 row route, ``bottleneck_tail_f32`` fp32;
+# ``mark`` the device marks of ``utils/profiler.py`` (``csrc/mark.cu``)
 launches = {"halo_canvas": 0, "halo_strips": 0, "halo_pieces": 0,
             "bottleneck_tail": 0,
             "bottleneck_tail_rows": 0, "bottleneck_tail_f32": 0,
-            "mm_bf16": 0, "mm_int8": 0}
+            "mm_bf16": 0, "mm_int8": 0, "mark": 0}
 
 
 def reset_launches() -> None:

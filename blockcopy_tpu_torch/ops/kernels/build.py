@@ -27,6 +27,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
+from blockcopy_tpu_torch.utils.profiler import timings
+
 PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
@@ -88,7 +90,8 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     per source, all started together.  Returns ``{name: compiler output}``
     for the sources it compiled (for a ``.cu``, ``-Xptxas -v``: registers,
     shared memory and spills of every kernel).  A failed compile raises
-    with the compiler's output."""
+    with the compiler's output.  Each compile adds one to the profiler's
+    ``builds`` counter."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in names:
@@ -112,6 +115,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
                           f"{source(name).name}:\n{out}")
         else:
             os.replace(tmp, target)
+            timings.count("builds")
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs

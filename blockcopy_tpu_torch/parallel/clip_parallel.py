@@ -153,7 +153,7 @@ def launch(num_devices: int, device, run: Callable, argv: list):
                           if device.type == "cpu" else None)
         if device.type == "cuda":
             from blockcopy_tpu_torch.ops.kernels import build
-            build.build(["halo", "bottleneck"])
+            build.build(["halo", "bottleneck", "mark"])
         return spawn(spec, _spawned, run, argv)[0]
     if device.type == "cuda" and detect_env() is not None:
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))

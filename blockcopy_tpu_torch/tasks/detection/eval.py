@@ -54,6 +54,7 @@ from blockcopy_tpu_torch.tasks.detection.eval_mr import (
     bbox_results_to_coco,
 )
 from blockcopy_tpu_torch.utils.flops import format_gmacs_breakdown
+from blockcopy_tpu_torch.utils import profiler
 from blockcopy_tpu_torch.utils.profiler import timings
 from blockcopy_tpu_torch.utils.registry import load_config
 
@@ -137,7 +138,17 @@ def build_argparser():
                    help="json file for detection dump")
     p.add_argument("--output-dir", type=str, default="",
                    help="write detection/grid visualization overlays")
-    p.add_argument("--timings", type=int, default=0)
+    p.add_argument("--timings", type=int, default=0,
+                   help="tracing level (utils/profiler.py), printed after "
+                   "the eval phase: 0 off; 2 the steps' bc.* spans "
+                   "(bc.step, bc.graph.check, bc.graph.inputs, "
+                   "bc.graph.launch, bc.upload) and the counters (replays, "
+                   "input copies, captures, kernel builds); 3 also the "
+                   "ladder engine's phase spans and the device marks "
+                   "captured into the stepper's graphs (device time a span "
+                   "a kind of frame: policy, blocks, outputs, reinforce, "
+                   "writeback).  Spans are host time: nothing waits for "
+                   "the card")
     p.add_argument("--policy-checkpoint", type=str, default="",
                    help="load the online policy state from this path if it "
                    "exists, save it after warmup: an .npz holds one "
@@ -450,6 +461,7 @@ def _run(argv, device, group):
         return detections, num_images, elapsed
 
     def run_phase(ds, phase, max_clips):
+        profiler.reset()        # --timings reports the last phase
         if mesh:
             return run_phase_mesh(ds, phase, max_clips)
         loader = PrefetchLoader(ds, num_workers=args.workers,
@@ -530,7 +542,7 @@ def _run(argv, device, group):
         logger.info("Average Miss Rate (MR) %-22s = %.2f%%", k, mrs[k])
     logger.info("%s", format_gmacs_breakdown(breakdown))
     if args.timings:
-        logger.info("%s", timings)
+        logger.info("%s", profiler.text())
     return results
 
 

@@ -20,6 +20,7 @@ from blockcopy_tpu_torch.tasks.detection.information_gain import (
     instance_mask_fixed,
     iou_gain_fixed,
 )
+from blockcopy_tpu_torch.utils import profiler
 
 
 class DetectionStepper(FixedCapacityStepper):
@@ -38,6 +39,7 @@ class DetectionStepper(FixedCapacityStepper):
 
     def _model_fn(self, params, pack, ctx):
         cls_s, bbox_p, off_p = self.apply_fn(params, pack, ctx)
+        profiler.mark("blocks", cls_s)
         if cls_s.is_meta:
             # the shape pass: the decode's output shapes, without running it
             k = self.csp_cfg.max_per_img
@@ -48,6 +50,7 @@ class DetectionStepper(FixedCapacityStepper):
                     "valid": empty(k, dt=torch.bool)}
         dets, labels, valid = csp_decode(cls_s, bbox_p, off_p,
                                          self.img_shape, self.csp_cfg)
+        profiler.mark("outputs", dets)
         return {"dets": dets, "labels": labels, "valid": valid}
 
     def fetch_outputs(self, state):

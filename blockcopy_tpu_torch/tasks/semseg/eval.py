@@ -59,6 +59,7 @@ from blockcopy_tpu_torch.policy.optim import tree_map
 from blockcopy_tpu_torch.utils.checkpoint import load_params
 from blockcopy_tpu_torch.utils.flops import format_gmacs_breakdown
 from blockcopy_tpu_torch.utils.metrics import StreamSegMetrics
+from blockcopy_tpu_torch.utils import profiler
 from blockcopy_tpu_torch.utils.profiler import timings
 
 logger = logging.getLogger("blockcopy_tpu_torch.semseg")
@@ -130,7 +131,18 @@ def build_argparser():
                         help="clip-parallel over N devices (speed mode "
                         "only): each rank steps one clip on its device, "
                         "the policy gradients are averaged over the ranks")
-    parser.add_argument("--timings", type=int, default=0)
+    parser.add_argument("--timings", type=int, default=0,
+                        help="tracing level (utils/profiler.py), printed "
+                        "after the eval phase: 0 off; 1 the clip span; 2 "
+                        "also the frame span, the steps' bc.* spans "
+                        "(bc.step, bc.graph.check, bc.graph.inputs, "
+                        "bc.graph.launch, bc.upload) and the counters "
+                        "(replays, input copies, captures, kernel builds); "
+                        "3 also the ladder engine's phase spans and the "
+                        "device marks captured into the stepper's graphs "
+                        "(device time a span a kind of frame: policy, "
+                        "blocks, outputs, reinforce, writeback).  Spans "
+                        "are host time: nothing waits for the card")
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default; raises without a GPU) or "
                         "'cpu'")
@@ -284,6 +296,8 @@ def _run(argv, device, group):
                 if args.single_clip_loop:
                     staged_clip[frame_id] = inputs
             timings.add_count(inputs.shape[0])
+            # host time (nothing waits for the card): the frame's
+            # submission, and the waits of any read-back inside it
             with timings.env("process_clip/model", 2):
                 if stepper_state:
                     fn = stepper_state["first"] if frame_id == 0 \
@@ -310,7 +324,7 @@ def _run(argv, device, group):
         metrics = StreamSegMetrics(
             num_classes, classes=CityscapesVid.fine_classes,
             class_names=CityscapesVid.train_id_to_name)
-        timings.reset()
+        profiler.reset()
         if mesh:
             # clip d of each group of D clips to rank d; a partial final
             # group is dropped, as the batch collate drops one
@@ -375,6 +389,7 @@ def _run(argv, device, group):
             if mesh and len(set(group.gather_objects(len(clip)))) > 1:
                 raise ValueError("clip-parallel groups step frame-"
                                  "synchronous and need equal clip lengths")
+            # host time: a clip's submission, not its device time
             with timings.env("process_dataset/process_clip", 1):
                 preds = process_clip(clip, meta, phase)
             if has_labels and not args.fast and not isinstance(target, int):
@@ -443,7 +458,7 @@ def _run(argv, device, group):
             results["gmacs_breakdown"] = {k: v / 1e9
                                           for k, v in breakdown.items()}
         if args.timings:
-            logger.info("%s", timings)
+            logger.info("%s", profiler.text())
         return results
 
     def check_policy_health(phase):

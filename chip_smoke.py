@@ -359,7 +359,7 @@ def phase_card():
         f"device {torch.cuda.get_device_name(0)}")
     from blockcopy_tpu_torch.ops.kernels import build
     t0 = time.perf_counter()
-    logs = build.build(["halo", "bottleneck", "mm"])
+    logs = build.build(["halo", "bottleneck", "mm", "mark"])
     log(f"[1] kernels built in {time.perf_counter() - t0:.2f} s")
     for name, out in logs.items():
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", out)]
