@@ -122,7 +122,8 @@ class FixedCapacityStepper:
 
     ``apply_fn(params, x, ctx)`` is the blocked model.  ``step`` and
     ``first_step`` update the canvases of the state they are given in place
-    and return the new state."""
+    (``step`` on a train frame also the policy's parameters and RMSprop
+    state) and return the new state."""
 
     task_keys = ("outputs",)
 
@@ -354,7 +355,9 @@ class FixedCapacityStepper:
         """Running cost, and the REINFORCE update on train frames, its
         gradients averaged over ``group`` where given (only the gradients:
         the running cost and BN statistics stay per rank, as per device in
-        the JAX package).  With ``grads_out`` (a tree shaped as the policy
+        the JAX package), written into the policy's own parameters and
+        RMSprop state (one launch on CUDA, which the state's write-back then
+        skips).  With ``grads_out`` (a tree shaped as the policy
         parameters) a train frame writes its own gradients there and leaves
         the parameters and RMSprop state as they were
         (``apply_policy_grads_`` makes the update)."""
@@ -379,12 +382,13 @@ class FixedCapacityStepper:
                                        cache_x, grid_f, signed,
                                        cfg.policy_arch)
             rmsprop.tree_copy_(grads_out, grads)
-            return {**pol, "running_cost": rc}
-        params, opt, _ = reinforce_update(
-            pol["params"], pol["bn_state"], pol["opt"], cache_x, grid_f,
-            signed, cfg.policy_arch, cfg.lr, cfg.weight_decay, cfg.momentum,
-            grad_reduce=None if group is None else group.mean_tree)
-        return {**pol, "params": params, "opt": opt, "running_cost": rc}
+        else:
+            reinforce_update(
+                pol["params"], pol["bn_state"], pol["opt"], cache_x, grid_f,
+                signed, cfg.policy_arch, cfg.lr, cfg.weight_decay,
+                cfg.momentum,
+                grad_reduce=None if group is None else group.mean_tree)
+        return {**pol, "running_cost": rc}
 
     def is_train_frame(self, frame_idx: int) -> bool:
         """Whether the step that makes frame ``frame_idx`` (counted from 1)

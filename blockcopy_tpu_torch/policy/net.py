@@ -6,9 +6,17 @@ k4s4 conv, two basic blocks, 2-layer head).  The net always runs in train
 mode: BatchNorm normalises with batch statistics (biased variance) and
 updates running statistics (unbiased variance, momentum 0.02).
 
-Precision: convolutions run in ``COMPUTE_DTYPE`` (bf16 by default) and are
-cast to fp32 before the bias; parameters, BN statistics, gradients and the
+Precision: convolutions run in ``COMPUTE_DTYPE`` (bf16 by default) on
+channels-last tensors; BatchNorm reads their outputs as they are, takes
+fp32 statistics and computes its affine, the residual and the ReLU in fp32,
+and writes the next convolution's input in ``COMPUTE_DTYPE`` (and fp32
+only where a residual reads it later); the last conv's output is cast to
+fp32 before the bias.  Parameters, BN statistics, gradients and the
 optimizer state stay fp32.  Conv weights are OIHW.
+
+Each BatchNorm, with the ReLU and residual after it, is
+``ops/kernels/policy.py`` ``bn_train``: on CUDA two launches forward
+(statistics, apply) and two backward; on the CPU its plain version.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from blockcopy_tpu_torch.device import resolve_device
+from blockcopy_tpu_torch.ops.kernels.policy import bn_train
 from blockcopy_tpu_torch.ops.layers import nchw, nhwc, resize_nearest
 
 BN_MOMENTUM = 0.02
@@ -123,43 +132,73 @@ def init_policy_net(in_channels: int, seed: int = 0, width_factor: int = 2,
 # ---------------------------------------------------------------------------
 
 
+class _WeightCast(torch.autograd.Function):
+    """A conv weight in ``dtype``, channels-last, as cuDNN takes it with a
+    channels-last input (else it copies the weight itself); its gradient
+    comes back as an fp32 contiguous tensor, as the parameter is."""
+
+    @staticmethod
+    def forward(ctx, w, dtype):
+        return w.to(dtype=dtype, memory_format=torch.channels_last)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(dtype=torch.float32,
+                    memory_format=torch.contiguous_format), None
+
+
 def _conv(x, p, stride=1):
-    """Conv in ``COMPUTE_DTYPE``, then fp32, then the bias."""
+    """Conv in ``COMPUTE_DTYPE`` on channels-last tensors: its NHWC output
+    in that dtype (no bias)."""
     w = p["w"]
     pad = 1 if w.shape[2] == 3 else 0
-    out = F.conv2d(nchw(x.to(COMPUTE_DTYPE)), w.to(COMPUTE_DTYPE), None,
-                   stride, pad)
-    out = nhwc(out).float()
-    return out + p["b"] if "b" in p else out
+    out = F.conv2d(nchw(x.to(COMPUTE_DTYPE)),
+                   _WeightCast.apply(w, COMPUTE_DTYPE), None, stride, pad)
+    return nhwc(out)
 
 
-def _bn_train(x, p, s, update_stats: bool):
-    """Train-mode BatchNorm over (N, H, W); optionally the running update."""
-    dims = (0, 1, 2)
-    mean = x.mean(dims)
-    var = x.var(dims, unbiased=False)
-    y = (x - mean) * torch.rsqrt(var + BN_EPS) * p["gamma"] + p["beta"]
-    if update_stats:
-        count = x.shape[0] * x.shape[1] * x.shape[2]
-        unbiased = var * count / max(count - 1, 1)
-        s = {"mean": (1 - BN_MOMENTUM) * s["mean"] + BN_MOMENTUM * mean,
-             "var": (1 - BN_MOMENTUM) * s["var"] + BN_MOMENTUM * unbiased}
-    return y, s
+def _conv_bias(x, p, stride):
+    """The last conv: ``_conv``, then fp32, then the bias."""
+    return _conv(x, p, stride).float() + p["b"]
 
 
-def _basic_block(x, p, s, stride, update_stats):
+def _bn(y, p, s, update_stats: bool, relu: bool = True, residual=None,
+        outs: str = "c"):
+    """Train-mode BatchNorm of conv output ``y`` over (N, H, W), then the
+    residual and the ReLU: the outputs ``outs`` names
+    (``ops/kernels/policy.py`` ``OUTS``) and the running statistics,
+    updated where ``update_stats``."""
+    out, (mean, var) = bn_train(
+        y, p["gamma"], p["beta"], s["mean"], s["var"],
+        update_stats=update_stats, relu=relu, residual=residual, outs=outs,
+        dtype_c=COMPUTE_DTYPE, eps=BN_EPS, momentum=BN_MOMENTUM)
+    return out, ({"mean": mean, "var": var} if update_stats else s)
+
+
+def _feeds(p_next) -> str:
+    """What a unit's output feeds: a basic block with a down conv (two
+    convs), one without (a conv and the residual), else a head conv."""
+    if p_next is None:
+        return "c"
+    return "cc" if "down_conv" in p_next else "cf"
+
+
+def _basic_block(xs, p, s, stride, update_stats, outs):
+    """``xs`` is the block's input as ``_feeds(p)`` gave it; returns the
+    outputs ``outs`` names and the block's BN statistics."""
     s = dict(s)
-    identity = x
     if "down_conv" in p:
-        identity = _conv(x, p["down_conv"], stride)
-        identity, s["down_bn"] = _bn_train(identity, p["down_bn"],
-                                           s["down_bn"], update_stats)
-    out = _conv(x, p["conv1"], stride)
-    out, s["bn1"] = _bn_train(out, p["bn1"], s["bn1"], update_stats)
-    out = torch.clamp_min(out, 0)
-    out = _conv(out, p["conv2"], 1)
-    out, s["bn2"] = _bn_train(out, p["bn2"], s["bn2"], update_stats)
-    return torch.clamp_min(out + identity, 0), s
+        x_down, x = xs
+        (identity,), s["down_bn"] = _bn(
+            _conv(x_down, p["down_conv"], stride), p["down_bn"],
+            s["down_bn"], update_stats, relu=False, outs="f")
+    else:
+        x, identity = xs
+    (h,), s["bn1"] = _bn(_conv(x, p["conv1"], stride), p["bn1"], s["bn1"],
+                         update_stats)
+    out, s["bn2"] = _bn(_conv(h, p["conv2"], 1), p["bn2"], s["bn2"],
+                        update_stats, residual=identity, outs=outs)
+    return out, s
 
 
 def _conv_stem4(x, p):
@@ -170,7 +209,7 @@ def _conv_stem4(x, p):
     w4 = w.reshape(w.shape[0], S2D, S2D, c_in).permute(0, 3, 1, 2)
     out = F.conv2d(nchw(x.to(COMPUTE_DTYPE)), w4.to(COMPUTE_DTYPE), None,
                    S2D)
-    return nhwc(out).float()
+    return nhwc(out)
 
 
 def _space_to_depth(x, r: int):
@@ -220,37 +259,36 @@ def policy_net_apply(params, bn_state, x, update_stats: bool = True,
     s = dict(bn_state)
     if arch == "fast":
         if isinstance(x, tuple):
-            x = _conv_stem4_split(x, params["stem"])
+            y = _conv_stem4_split(x, params["stem"])
         elif POLICY_STEM_CONV4:
-            x = _conv_stem4(x, params["stem"])
+            y = _conv_stem4(x, params["stem"])
         else:
-            x = _conv(_space_to_depth(x, S2D), params["stem"], 1)
-        x, s["stem_bn"] = _bn_train(x, params["stem_bn"], s["stem_bn"],
-                                    update_stats)
-        x = torch.clamp_min(x, 0)
-        x, s["block1"] = _basic_block(x, params["block1"], s["block1"], 1,
-                                      update_stats)
-        x, s["block2"] = _basic_block(x, params["block2"], s["block2"], 2,
-                                      update_stats)
-        x = _conv(x, params["head0"], 2)
-        x, s["head0_bn"] = _bn_train(x, params["head0_bn"], s["head0_bn"],
-                                     update_stats)
-        return _conv(torch.clamp_min(x, 0), params["head1"], 2), s
+            y = _conv(_space_to_depth(x, S2D), params["stem"], 1)
+        xs, s["stem_bn"] = _bn(y, params["stem_bn"], s["stem_bn"],
+                               update_stats, outs=_feeds(params["block1"]))
+        xs, s["block1"] = _basic_block(xs, params["block1"], s["block1"], 1,
+                                       update_stats,
+                                       _feeds(params["block2"]))
+        (x,), s["block2"] = _basic_block(xs, params["block2"], s["block2"],
+                                         2, update_stats, "c")
+        (x,), s["head0_bn"] = _bn(_conv(x, params["head0"], 2),
+                                  params["head0_bn"], s["head0_bn"],
+                                  update_stats)
+        return _conv_bias(x, params["head1"], 2), s
     if arch != "ref":
         raise ValueError(f"unknown policy arch {arch!r}")
-    x = _conv(x, params["conv1"], 1)
-    x, s["bn1"] = _bn_train(x, params["bn1"], s["bn1"], update_stats)
-    x = torch.clamp_min(x, 0)
+    xs, s["bn1"] = _bn(_conv(x, params["conv1"], 1), params["bn1"],
+                       s["bn1"], update_stats, outs=_feeds(params["layer1"]))
     for i, stride in enumerate([1, 2, 2]):
-        x, s[f"layer{i + 1}"] = _basic_block(
-            x, params[f"layer{i + 1}"], s[f"layer{i + 1}"], stride,
-            update_stats)
+        xs, s[f"layer{i + 1}"] = _basic_block(
+            xs, params[f"layer{i + 1}"], s[f"layer{i + 1}"], stride,
+            update_stats, _feeds(params.get(f"layer{i + 2}")))
+    (x,) = xs
     for i in range(2):
-        x = _conv(x, params[f"head{i}"], 2)
-        x, s[f"head{i}_bn"] = _bn_train(x, params[f"head{i}_bn"],
-                                        s[f"head{i}_bn"], update_stats)
-        x = torch.clamp_min(x, 0)
-    return _conv(x, params["head2"], 2), s
+        (x,), s[f"head{i}_bn"] = _bn(_conv(x, params[f"head{i}"], 2),
+                                     params[f"head{i}_bn"],
+                                     s[f"head{i}_bn"], update_stats)
+    return _conv_bias(x, params["head2"], 2), s
 
 
 def assemble_policy_input(frame, frame_state, output_repr, prev_grid,

@@ -9,12 +9,16 @@
 Trees are nested dicts/lists of tensors; the state is
 ``{"square_avg": tree, "momentum_buf": tree}``.  ``update`` returns new
 trees; ``update_`` writes the same values into the given ones (a CUDA graph
-keeps the tensors it captured, ``core/graphs.py``).
+keeps the tensors it captured, ``core/graphs.py``).  Both are
+``ops/kernels/policy.py`` ``rmsprop_multi`` over the trees' leaves: on
+CUDA one launch for all of them.
 """
 
 from __future__ import annotations
 
 import torch
+
+from blockcopy_tpu_torch.ops.kernels.policy import rmsprop_multi
 
 
 def tree_map(fn, *trees):
@@ -40,42 +44,42 @@ def init(params):
             "momentum_buf": tree_map(torch.zeros_like, params)}
 
 
+def _leaves(grads, state, params):
+    return ([g.contiguous() for g in tree_leaves(grads)],
+            tree_leaves(params), tree_leaves(state["square_avg"]),
+            tree_leaves(state["momentum_buf"]))
+
+
+def _like(tree, leaves):
+    """``tree``'s structure with ``leaves`` in its leaves' order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
 def update(grads, state, params, lr: float = 1e-4,
            weight_decay: float = 1e-3, momentum: float = 0.0,
            alpha: float = 0.99, eps: float = 1e-8):
-    """One step; returns ``(new_params, new_state)``."""
-    def upd(g, sq, buf, p):
-        g = g + weight_decay * p
-        sq = alpha * sq + (1.0 - alpha) * g * g
-        step = g / (torch.sqrt(sq) + eps)
-        if momentum > 0:
-            buf = momentum * buf + step
-            step = buf
-        return p - lr * step, sq, buf
-
-    out = tree_map(upd, grads, state["square_avg"], state["momentum_buf"],
-                   params)
-    return _pick(out, 0), {"square_avg": _pick(out, 1),
-                           "momentum_buf": _pick(out, 2)}
+    """One step; returns ``(new_params, new_state)`` (the momentum
+    buffers as given where ``momentum`` is 0)."""
+    with torch.no_grad():
+        p, sq, buf = rmsprop_multi(
+            *_leaves(grads, state, params), lr=lr,
+            weight_decay=weight_decay, momentum=momentum, alpha=alpha,
+            eps=eps)
+    return _like(params, p), {"square_avg": _like(params, sq),
+                              "momentum_buf": _like(params, buf)}
 
 
 def update_(grads, state, params, lr: float = 1e-4,
             weight_decay: float = 1e-3, momentum: float = 0.0,
             alpha: float = 0.99, eps: float = 1e-8) -> None:
-    """``update`` written into ``params`` and ``state``'s tensors: each
-    new value is ``update``'s expression, copied, so bitwise equal."""
-    def upd(g, sq, buf, p):
-        g = g + weight_decay * p
-        sq.copy_(alpha * sq + (1.0 - alpha) * g * g)
-        step = g / (torch.sqrt(sq) + eps)
-        if momentum > 0:
-            buf.copy_(momentum * buf + step)
-            step = buf
-        p.copy_(p - lr * step)
-
+    """``update`` written into ``params`` and ``state``'s tensors, bitwise
+    its values."""
+    g, p, sq, buf = _leaves(grads, state, params)
     with torch.no_grad():
-        tree_map(upd, grads, state["square_avg"], state["momentum_buf"],
-                 params)
+        rmsprop_multi(g, p, sq, buf, (p, sq, buf), lr=lr,
+                      weight_decay=weight_decay, momentum=momentum,
+                      alpha=alpha, eps=eps)
 
 
 def tree_copy_(dst, src) -> None:
@@ -89,12 +93,3 @@ def tree_copy_(dst, src) -> None:
 
     with torch.no_grad():
         tree_map(put, dst, src)
-
-
-def _pick(tree, i):
-    """Element ``i`` of every ``(p, sq, buf)`` leaf tuple of ``tree``."""
-    if isinstance(tree, dict):
-        return {k: _pick(v, i) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_pick(v, i) for v in tree]
-    return tree[i]

@@ -116,18 +116,17 @@ def reinforce_grads(params, bn_state, cache_x, grid_f, signed, arch: str):
 def reinforce_update(params, bn_state, opt_state, cache_x, grid_f, signed,
                      arch: str, lr: float, weight_decay: float,
                      momentum: float, grad_reduce=None):
-    """One REINFORCE step: ``reinforce_grads``, then RMSprop.
-    ``grad_reduce(grads)``, where given, replaces the gradients before the
-    update (clip-parallel ranks average theirs).  Returns
-    ``(params, opt_state, loss)``."""
+    """One REINFORCE step: ``reinforce_grads``, then RMSprop written into
+    ``params`` and ``opt_state``'s own tensors (``rmsprop.update_``: on
+    CUDA one launch).  ``grad_reduce(grads)``, where given, replaces the
+    gradients before the update (clip-parallel ranks average theirs).
+    Returns ``(params, opt_state, loss)``, the trees given."""
     grads, loss = reinforce_grads(params, bn_state, cache_x, grid_f, signed,
                                   arch)
     if grad_reduce is not None:
         grads = grad_reduce(grads)
-    with torch.no_grad():
-        params, opt_state = rmsprop.update(
-            grads, opt_state, params, lr=lr, weight_decay=weight_decay,
-            momentum=momentum)
+    rmsprop.update_(grads, opt_state, params, lr=lr,
+                    weight_decay=weight_decay, momentum=momentum)
     return params, opt_state, loss
 
 
@@ -400,11 +399,9 @@ class PolicyTrainRL(Policy):
         with torch.no_grad():
             ig = self.information_gain.gain(*gain_inputs)
             signed = self._signed_reward(ig, grid, rcw)
-        grads, _ = reinforce_grads(self.net_params, self.bn_state, cache_x,
-                                   grid.float(), signed, self.arch)
-        rmsprop.update_(grads, self.opt_state, self.net_params, lr=self.lr,
-                        weight_decay=self.weight_decay,
-                        momentum=self.momentum)
+        reinforce_update(self.net_params, self.bn_state, self.opt_state,
+                         cache_x, grid.float(), signed, self.arch, self.lr,
+                         self.weight_decay, self.momentum)
         return ig
 
     def optim(self, policy_meta: dict, train: bool = True,
@@ -434,7 +431,7 @@ class PolicyTrainRL(Policy):
                 # a Python scalar: an upload from pageable memory would
                 # sync
                 signed = self._signed_reward(ig, grid, rcw)
-            self.net_params, self.opt_state, _ = reinforce_update(
+            reinforce_update(
                 self.net_params, self.bn_state, self.opt_state,
                 policy_meta["_rl_cache"], grid.float(), signed, self.arch,
                 self.lr, self.weight_decay, self.momentum)

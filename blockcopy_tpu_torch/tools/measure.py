@@ -396,7 +396,7 @@ def device_times(fn, samples, inner):
     """Device times of one call of ``fn``, one per sample: ``inner`` calls
     are captured in a CUDA graph (so host dispatch does not pace the card)
     and the graph is replayed ``samples`` times between CUDA events, after a
-    warm-up on a side stream."""
+    warm-up on the side stream that then captures them."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -404,7 +404,7 @@ def device_times(fn, samples, inner):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(inner):
             fn()
     graph.replay()

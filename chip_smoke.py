@@ -263,7 +263,17 @@ Phases (any failure raises and exits non-zero):
    its graph, checked as in 11a, and its teacher checkpoint through the
    detection CLI's loader (``models/builder.py`` ``load_csp_params``),
    every tensor finite (11b serves phase 11's teacher, also trained
-   through the graph).
+   through the graph);
+18. the policy net's kernels (``ops/kernels/policy.py``,
+   ``csrc/policy.cu``), before the JSON lines: (a) the BatchNorm kernels
+   against their plain versions at every BatchNorm of a ref-arch forward
+   at block 128 and 256 (bf16), timed per forward beside the bytes bound,
+   the plain versions and the library's train-mode BatchNorm, and RMSprop
+   over the ref policy's leaves beside its plain version (bitwise) and
+   ``torch.optim.RMSprop(foreach=True)``; (b) the captured steps at full
+   size with the ref policy (semseg bf16, detection fp32): the policy
+   kernels' launches a frame by its kind.  The other phases' launch checks
+   leave the policy kernels out (``_model_launches``).
 
 It needs one CUDA GPU and the repository around it: without either it exits
 non-zero and prints no result.
@@ -349,6 +359,15 @@ def log(*a):
     print(*a, flush=True)
 
 
+def _model_launches(counts):
+    """``counts`` without the policy net's kernels (``kernels.POLICY``):
+    their launches a frame depend on the frame's kind (none on a clip's
+    first, forward on a plain frame, forward twice, backward and RMSprop
+    on a train frame), and phase 18 counts them by kind."""
+    from blockcopy_tpu_torch.ops import kernels
+    return {k: v for k, v in counts.items() if k not in kernels.POLICY}
+
+
 def phase_card():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -359,7 +378,7 @@ def phase_card():
         f"device {torch.cuda.get_device_name(0)}")
     from blockcopy_tpu_torch.ops.kernels import build
     t0 = time.perf_counter()
-    logs = build.build(["halo", "bottleneck", "mm", "mark"])
+    logs = build.build(["halo", "bottleneck", "mm", "mark", "policy"])
     log(f"[1] kernels built in {time.perf_counter() - t0:.2f} s")
     for name, out in logs.items():
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", out)]
@@ -880,7 +899,8 @@ def _drive_stepper(tag, stepper, params, frames, per_frame, watch=None,
     launches, ms per step, the trained frames, what ``watch`` kept and the
     peak memory in GiB."""
     from blockcopy_tpu_torch.ops import kernels
-    per_frame = {k: per_frame.get(k, 0) for k in kernels.launches}
+    per_frame = _model_launches({k: per_frame.get(k, 0)
+                                 for k in kernels.launches})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -919,7 +939,8 @@ def _drive_stepper(tag, stepper, params, frames, per_frame, watch=None,
     if any(b != stepper.capacity for b in blocks):
         raise AssertionError(f"executed blocks per step {blocks}")
     want = {k: v * len(frames) for k, v in per_frame.items()}
-    if any(built.values()) or first != per_frame or launches != want:
+    if any(built.values()) or _model_launches(first) != per_frame \
+            or _model_launches(launches) != want:
         raise AssertionError(f"launch counts {launches} (first step "
                              f"{first}), expected {want}")
     trained = []
@@ -2217,10 +2238,11 @@ def _check_ranks(tag, ranks, per_frame, frames):
     update the policy parameters are bitwise equal across the ranks and
     moved.  Returns per rank: the launches, the median ms/frame of steps
     3 on, the train frames' syncs and the peak memory."""
-    want = {k: per_frame.get(k, 0) * frames for k in ranks[0]["launches"]}
+    want = _model_launches({k: per_frame.get(k, 0) * frames
+                            for k in ranks[0]["launches"]})
     train = [f for f in range(2, frames + 1) if f % 4 == 0]
     for r, res in enumerate(ranks):
-        if res["launches"] != want or not res["finite"]:
+        if _model_launches(res["launches"]) != want or not res["finite"]:
             raise AssertionError(f"[{tag}] rank {r}: launches "
                                  f"{res['launches']} (expected {want}), "
                                  f"finite outputs {res['finite']}")
@@ -2943,7 +2965,8 @@ def _graphs_lockstep(tag, stepper, params, frames, draws, per_frame):
     around the captured call only).  Returns the per-frame gaps."""
     from blockcopy_tpu_torch.core.graphs import StepperGraphs
     from blockcopy_tpu_torch.ops import kernels
-    per_frame = {k: per_frame.get(k, 0) for k in kernels.launches}
+    per_frame = _model_launches({k: per_frame.get(k, 0)
+                                 for k in kernels.launches})
     a, b, c = (stepper.init_state(params, seed=1) for _ in range(3))
     graphs = StepperGraphs(stepper)
     floor, got, replayed = [], [], []
@@ -3516,10 +3539,11 @@ def phase_serving_parallel(par):
         ranks = clip_parallel.spawn(spec, parallel_graphs_rank, "resnet50",
                                     (1, 1024, 2048, 3), 64, "bfloat16", 128,
                                     4, 8, timed, timeout=600)
-        want = {k: per_frame.get(k, 0) * timed for k in ranks[0]["launches"]}
+        want = _model_launches({k: per_frame.get(k, 0) * timed
+                                for k in ranks[0]["launches"]})
         for r, res in enumerate(ranks):
             if (not res["outputs_equal"] or not res["finite"]
-                    or res["launches"] != want
+                    or _model_launches(res["launches"]) != want
                     or len(res["digests"]) != 2
                     or any(e != c for e, c in res["digests"])):
                 raise AssertionError(
@@ -3843,6 +3867,309 @@ def phase_probe():
     return launches
 
 
+# the policy's BatchNorms a forward (phase 18): the ref arch at block 128
+# (a 256x512 input) as (N, H, W, C), what each adds (residual) and writes
+# ("c" the next conv's input, "cc" it for two convs, "cf" it and fp32, "f"
+# fp32): the stem, layer1 (bn1, bn2), layer2 and layer3 (down, bn1, bn2),
+# head0, head1; block 256 halves H and W
+POLICY_BNS = ([((1, 256, 512, 32), False, "cf"),
+               ((1, 256, 512, 32), False, "c"),
+               ((1, 256, 512, 32), True, "cc")]
+              + [u for c, h in ((64, 128), (128, 64)) for u in (
+                  ((1, h, 2 * h, c), False, "f"),
+                  ((1, h, 2 * h, c), False, "c"),
+                  ((1, h, 2 * h, c), True, "cc" if c == 64 else "c"))]
+              + [((1, 32, 64, 128), False, "c"),
+                 ((1, 16, 32, 128), False, "c")])
+HBM_BYTES_S = 3.35e12
+
+
+def _policy_bn_case(shape, residual, outs, half, gen):
+    """Inputs of one BatchNorm of ``POLICY_BNS`` (H and W halved where
+    ``half``), bf16 as served."""
+    n, h, w, c = shape
+    if half:
+        h, w = h // 2, w // 2
+    dev = "cuda"
+
+    def rnd(*sh, dtype=torch.float32, scale=1.0):
+        return (torch.randn(sh, generator=gen, device=dev) * scale).to(dtype)
+    y = rnd(n, h, w, c, dtype=torch.bfloat16, scale=2.0)
+    return {"y": y, "gamma": rnd(c) * 0.1 + 1, "beta": rnd(c, scale=0.1),
+            "rm": rnd(c, scale=0.1), "rv": rnd(c).abs() + 0.5,
+            "residual": rnd(n, h, w, c) if residual else None,
+            "relu": outs != "f", "outs": outs,
+            "g0": None if outs == "f" else rnd(n, h, w, c,
+                                               dtype=torch.bfloat16,
+                                               scale=1e-2),
+            "g1": rnd(n, h, w, c, dtype=torch.bfloat16, scale=1e-2)
+            if outs == "cc" else None,
+            "gf": rnd(n, h, w, c, scale=1e-2) if "f" in outs else None}
+
+
+def _policy_bn_bytes(a):
+    """Least bytes of a BatchNorm's forward (statistics and apply) and
+    backward, each input read and each output written once."""
+    el = a["y"].numel()
+    outs = a["outs"]
+    fwd = el * (2 + (4 if a["residual"] is not None else 0)
+                + (2 if outs != "f" else 0) + (4 if "f" in outs else 0))
+    grads = sum(0 if a[k] is None else a[k].element_size()
+                for k in ("g0", "g1", "gf"))
+    bwd = el * (2 + grads + (8 if a["residual"] is not None else 0) + 2)
+    return fwd, bwd
+
+
+def phase_policy(gen):
+    """(18a) the policy's kernels (``ops/kernels/policy.py``) against their
+    plain versions on the card at every BatchNorm of a ref-arch forward,
+    block 128 and block 256 (bf16 conv outputs, as served): statistics at
+    1e-5 of (1 + their size), sums at 1e-4 of their norm, apply and backward apply bitwise given them; then
+    a forward's sums of kernel times (``device_ms``, in a CUDA graph as the
+    step runs them) against the bytes bound at 3.35 TB/s, the plain
+    versions' and the library's train-mode BatchNorm
+    (``torch.ops.aten.native_batch_norm`` and its backward, channels-last
+    bf16; a yardstick the port never calls); RMSprop over the ref policy's
+    35 leaves against its plain version (bitwise) and
+    ``torch.optim.RMSprop(foreach=True)``."""
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.ops.kernels import policy as P
+    from blockcopy_tpu_torch.policy import net as N
+    from blockcopy_tpu_torch.policy import optim
+    from blockcopy_tpu_torch.tools.measure import device_ms
+
+    def lib_ms(fn):
+        try:
+            return device_ms(fn)
+        except RuntimeError as e:   # a yardstick only: logged, not held
+            log(f"[18a] library call failed: {e}")
+            return None
+
+    hp = dict(eps=N.BN_EPS, momentum=N.BN_MOMENTUM)
+    out = {}
+    for half in (False, True):
+        tag = "block256" if half else "block128"
+        sums = {k: 0.0 for k in ("stats", "apply", "grad", "grad_apply",
+                                 "plain_fwd", "plain_bwd", "bound_fwd",
+                                 "bound_bwd", "lib_fwd", "lib_bwd")}
+        err = 0.0
+        for shape, residual, outs in POLICY_BNS:
+            a = _policy_bn_case(shape, residual, outs, half, gen)
+            y, g, b, res, relu = (a["y"], a["gamma"], a["beta"],
+                                  a["residual"], a["relu"])
+            grads = (a["g0"], a["g1"], a["gf"])
+            mean, rstd, nm, nv = P.bn_stats(y, a["rm"], a["rv"], **hp)
+            ref = P.bn_stats_plain(y, a["rm"], a["rv"], **hp)
+            for x, r in zip((mean, rstd, nm, nv), ref):
+                err = max(err, float(((x - r).abs() / (r.abs() + 1))
+                                     .max()))
+            want = (outs != "f", "f" in outs)
+            o = P.bn_apply(y, mean, rstd, g, b, res, relu, torch.bfloat16,
+                           *want)
+            po = P.bn_apply_plain(y, mean, rstd, g, b, res, relu,
+                                  torch.bfloat16, *want)
+            d_res, dg, db = P.bn_grad(y, grads, res, mean, rstd, g, b, relu,
+                                      res is not None)
+            pr = P.bn_grad_plain(y, grads, res, mean, rstd, g, b, relu,
+                                 res is not None)
+            for x, r in zip((dg, db), pr[1:]):
+                rel = float((x - r).norm() / r.norm().clamp_min(1e-30))
+                if rel > 1e-4:
+                    raise AssertionError(f"[18a] {shape} {outs}: backward "
+                                         f"sums {rel}")
+            dy = P.bn_grad_apply(y, grads, res, mean, rstd, g, b, relu,
+                                 d_res, dg, db)
+            pdy = P.bn_grad_apply_plain(y, grads, res, mean, rstd, g, b,
+                                        relu, d_res, dg, db)
+            same = all(x is None and r is None or torch.equal(x, r)
+                       for x, r in zip((*o, d_res, dy), (*po, pr[0], pdy)))
+            if not same or err > 1e-5:
+                raise AssertionError(f"[18a] {shape} {outs}: apply or "
+                                     f"backward apply not bitwise "
+                                     f"({same}), statistics {err}")
+            sums["stats"] += device_ms(
+                lambda: P.bn_stats(y, a["rm"], a["rv"], **hp))
+            sums["apply"] += device_ms(
+                lambda: P.bn_apply(y, mean, rstd, g, b, res, relu,
+                                   torch.bfloat16, *want))
+            sums["grad"] += device_ms(
+                lambda: P.bn_grad(y, grads, res, mean, rstd, g, b, relu,
+                                  res is not None))
+            sums["grad_apply"] += device_ms(
+                lambda: P.bn_grad_apply(y, grads, res, mean, rstd, g, b,
+                                        relu, d_res, dg, db))
+            sums["plain_fwd"] += device_ms(lambda: P.bn_apply_plain(
+                y, *P.bn_stats_plain(y, a["rm"], a["rv"], **hp)[:2], g, b,
+                res, relu, torch.bfloat16, *want))
+            sums["plain_bwd"] += device_ms(lambda: P.bn_grad_apply_plain(
+                y, grads, res, mean, rstd, g, b, relu,
+                *P.bn_grad_plain(y, grads, res, mean, rstd, g, b, relu,
+                                 res is not None)))
+            fwd_b, bwd_b = _policy_bn_bytes(a)
+            sums["bound_fwd"] += fwd_b / HBM_BYTES_S * 1e3
+            sums["bound_bwd"] += bwd_b / HBM_BYTES_S * 1e3
+            x = y.permute(0, 3, 1, 2)
+            rm, rv = a["rm"].clone(), a["rv"].clone()
+            lib = torch.ops.aten.native_batch_norm
+            f = lib_ms(lambda: lib(x, g, b, rm, rv, True, N.BN_MOMENTUM,
+                                   N.BN_EPS))
+            go = (a["g0"] if a["g0"] is not None
+                  else a["gf"].to(torch.bfloat16)).permute(0, 3, 1, 2)
+            bk = None
+            if f is not None:
+                _, sm, si = lib(x, g, b, rm, rv, True, N.BN_MOMENTUM,
+                                N.BN_EPS)
+                bk = lib_ms(
+                    lambda: torch.ops.aten.native_batch_norm_backward(
+                        go, x, g, rm, rv, sm, si, True, N.BN_EPS,
+                        [True] * 3))
+            for key, v in (("lib_fwd", f), ("lib_bwd", bk)):
+                sums[key] = None if v is None or sums[key] is None \
+                    else sums[key] + v
+        out[tag] = {k: (None if v is None else round(v, 4))
+                    for k, v in sums.items()}
+        out[tag]["stats_err"] = err
+        log(f"[18a] {tag}: {len(POLICY_BNS)} BatchNorms a forward, bitwise "
+            f"apply and backward apply, statistics within {err:.2g}; ms a "
+            f"forward (sums): {out[tag]}")
+    params, _ = N.init_policy_net(N.policy_in_channels(19), seed=0,
+                                  device="cuda")
+    leaves = optim.tree_leaves(params)
+    grads = [torch.randn(t.shape, generator=gen, device="cuda") * 1e-2
+             for t in leaves]
+    state = optim.init(params)
+    sq, buf = (optim.tree_leaves(state[k])
+               for k in ("square_avg", "momentum_buf"))
+    rms_hp = dict(lr=1e-4, weight_decay=1e-3, momentum=0.0, alpha=0.99,
+                  eps=1e-8)
+    new = P.rmsprop_multi(grads, leaves, sq, buf, **rms_hp)
+    ref = P.rmsprop_multi_plain(grads, leaves, sq, buf, **rms_hp)
+    if not all(torch.equal(x, r) for xs, rs in zip(new, ref)
+               for x, r in zip(xs, rs)):
+        raise AssertionError("[18a] rmsprop_multi not bitwise its plain "
+                             "version")
+    numel = sum(t.numel() for t in leaves)
+    own = [t.clone() for t in leaves]
+    lib_p = [torch.nn.Parameter(t.clone()) for t in leaves]
+    for p_, g_ in zip(lib_p, grads):
+        p_.grad = g_.clone()
+    lib_opt = torch.optim.RMSprop(lib_p, lr=1e-4, alpha=0.99, eps=1e-8,
+                                  weight_decay=1e-3, foreach=True,
+                                  capturable=True)
+    out["rmsprop"] = {
+        "leaves": len(leaves), "params": numel,
+        "ms": round(device_ms(lambda: P.rmsprop_multi(
+            grads, own, sq, buf, out=(own, sq, buf), **rms_hp)), 4),
+        "plain_ms": round(device_ms(lambda: P.rmsprop_multi_plain(
+            grads, leaves, sq, buf, **rms_hp)), 4),
+        "bound_ms": round(numel * 20 / HBM_BYTES_S * 1e3, 4),
+        "library_ms": lib_ms(lambda: lib_opt.step())}
+    log(f"[18a] rmsprop_multi over {len(leaves)} leaves ({numel} params): "
+        f"bitwise its plain version; {out['rmsprop']}")
+    out["launches"] = {k: kernels.launches[k] for k in kernels.POLICY}
+    return out
+
+
+def _policy_kinds(stepper, params, frames, draws):
+    """The policy kernels' launches of each frame through ``StepperGraphs``
+    (eager first calls, then replays; the counters zeroed just before each
+    step and their tallies restored after it), beside an eager run, and
+    the policy parameters' largest gap between the two after each frame."""
+    from blockcopy_tpu_torch.core.graphs import StepperGraphs
+    from blockcopy_tpu_torch.ops import kernels
+    from blockcopy_tpu_torch.policy.optim import tree_leaves
+    graphs = StepperGraphs(stepper)
+    a = stepper.init_state(params, seed=1)
+    c = stepper.init_state(params, seed=1)
+    kinds, gaps = [], []
+    for t, frame in enumerate(frames):
+        if t == 0:
+            a = stepper.first_step(params, a, frame)
+        else:
+            a = stepper.step(params, a, frame, draws=draws[t - 1])
+        tally = {k: kernels.launches[k] for k in kernels.POLICY}
+        kernels.launches.update(dict.fromkeys(kernels.POLICY, 0))
+        if t == 0:
+            c = graphs.first_step(params, c, frame)
+        else:
+            c = graphs.step(params, c, frame, draws=draws[t - 1])
+        kinds.append({k: kernels.launches[k] for k in kernels.POLICY})
+        kernels.launches.update({k: tally[k] + kinds[-1][k]
+                                 for k in kernels.POLICY})
+        gaps.append(max(float((x - y).abs().max()) for x, y in zip(
+            tree_leaves(a["policy"]["params"]),
+            tree_leaves(c["policy"]["params"]))))
+    return kinds, gaps
+
+
+def phase_policy_steps():
+    """(18b) the captured steps at full size with the ref policy (the
+    benchmark's: SwiftNet-RN50 bf16 at block 128, 64 of 128 blocks,
+    REINFORCE every 3rd frame; CSP-R50 fp32, 38 blocks, every 4th): the
+    policy kernels' launches a frame by kind (none on a clip's first; one
+    statistics and one apply launch a BatchNorm on a plain frame; twice
+    those, the two backward launches a BatchNorm and one RMSprop launch on
+    a train frame), and the captured policy parameters bitwise an eager
+    run's after every frame (cuDNN deterministic).  Returns the launches
+    measured on a clip's first plain and first train frame."""
+    from blockcopy_tpu_torch.core.stepper import (FixedCapacityStepper,
+                                                  StepperConfig)
+    from blockcopy_tpu_torch.models.csp import CSPConfig, init_csp
+    from blockcopy_tpu_torch.models.swiftnet import (SwiftNetConfig,
+                                                     init_swiftnet,
+                                                     make_apply_fn)
+    from blockcopy_tpu_torch.tasks.detection.stepper import DetectionStepper
+    from blockcopy_tpu_torch.tools.measure import synthetic_frames
+    shape = (1, 1024, 2048, 3)
+    out = {}
+    for name in ("semseg", "detection"):
+        if name == "semseg":
+            dtype, interval, cap = torch.bfloat16, 3, 64
+            cfg = SwiftNetConfig(backbone="resnet50", num_classes=19)
+            params = init_swiftnet(cfg, seed=0, dtype=dtype, device="cuda")
+            stepper = FixedCapacityStepper(
+                make_apply_fn(cfg), StepperConfig(
+                    train_interval=interval, policy_arch="ref"),
+                shape, cap, dtype=dtype, device="cuda")
+        else:
+            dtype, interval, cap = torch.float32, 4, 38
+            cfg = CSPConfig()
+            params = init_csp(cfg, seed=0, dtype=dtype, device="cuda")
+            stepper = DetectionStepper(cfg, StepperConfig(
+                block_target=0.3, train_interval=interval, num_classes=1,
+                policy_arch="ref"), shape, cap, dtype=dtype, device="cuda")
+        frames = synthetic_frames(shape, 2 * interval + 2, dtype)
+        draws = _uniform_draws(len(frames) - 1, N * GH * GW, (N, GH, GW),
+                               23)
+        with _deterministic_cudnn():
+            kinds, gaps = _policy_kinds(stepper, params, frames, draws)
+        bns = 11
+        plain = {"policy_bn_stats": bns, "policy_bn_apply": bns,
+                 "policy_bn_grad": 0, "policy_bn_grad_apply": 0,
+                 "rmsprop_multi": 0}
+        train = {"policy_bn_stats": 2 * bns, "policy_bn_apply": 2 * bns,
+                 "policy_bn_grad": bns, "policy_bn_grad_apply": bns,
+                 "rmsprop_multi": 1}
+        want = [dict.fromkeys(plain, 0)] + [
+            train if stepper.is_train_frame(t) else plain
+            for t in range(2, len(frames) + 1)]
+        if kinds != want:
+            raise AssertionError(f"[18b {name}] policy launches by frame "
+                                 f"{kinds}, expected {want}")
+        if max(gaps) != 0:
+            raise AssertionError(f"[18b {name}] captured policy parameters "
+                                 f"off the eager run's by {gaps} a frame")
+        first = {stepper.is_train_frame(t): kinds[t - 1]
+                 for t in range(len(frames), 1, -1)}
+        out[name] = {"plain": first[False], "train": first[True],
+                     "param_gaps": gaps}
+        log(f"[18b {name}] {len(frames)} frames through StepperGraphs: "
+            f"policy launches measured on a plain frame {first[False]}, on "
+            f"a train frame {first[True]}; captured policy parameters "
+            f"bitwise the eager run's after every frame")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3895,6 +4222,8 @@ def main() -> int:
     serving = phase_serving(par)
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         tg = phase_train_graphs(tmp)
+    policy = phase_policy(gen)
+    policy_steps = phase_policy_steps()
 
     def phase11_keys(name):
         return {"train_launches": train_launches[name],
@@ -4051,6 +4380,34 @@ def main() -> int:
          "route": "cuda",
          "matched": True, **mm[name]}
         for name in ("mm_bf16", "mm_int8")]
+    for name, ms_key, bound_key, plain_key, lib_key in (
+            ("policy_bn_stats", "stats", None, None, None),
+            ("policy_bn_apply", "apply", "bound_fwd", "plain_fwd",
+             "lib_fwd"),
+            ("policy_bn_grad", "grad", None, None, None),
+            ("policy_bn_grad_apply", "grad_apply", "bound_bwd", "plain_bwd",
+             "lib_bwd")):
+        kern.append({
+            "name": name, "source": source + "policy.cu",
+            "replaces": None, "path": "the policy net's BatchNorms (main, "
+            "detection, ladder, CLIs)",
+            "plain_frame_launches": policy_steps["semseg"]["plain"][name],
+            "train_frame_launches": policy_steps["semseg"]["train"][name],
+            "ms": policy["block128"][ms_key],
+            "block256_ms": policy["block256"][ms_key],
+            **({"pair_bound_ms": policy["block128"][bound_key],
+                "pair_plain_ms": policy["block128"][plain_key],
+                "pair_library_ms": policy["block128"][lib_key]}
+               if bound_key else {}),
+            "bound_by": "bytes", "route": "cuda", "matched": True})
+    kern.append({"name": "rmsprop_multi", "source": source + "policy.cu",
+                 "replaces": None, "path": "the policy's RMSprop",
+                 "plain_frame_launches":
+                     policy_steps["semseg"]["plain"]["rmsprop_multi"],
+                 "train_frame_launches":
+                     policy_steps["semseg"]["train"]["rmsprop_multi"],
+                 **policy["rmsprop"],
+                 "bound_by": "bytes", "route": "cuda", "matched": True})
     log(f"[7] halo, halo_pieces and tail times are per main-path frame "
         f"(sums over its launch shapes; halo_pieces block256_*: per "
         f"block-256 frame at K = {K_256}), their library_ms null: no single "

@@ -120,7 +120,7 @@ def test_detection_clip_matches_jax(monkeypatch):
     ts = tst.first_step(tparams, ts, tt(frames[0]))
     _compare(js, ts, 1)
     assert 8 <= int(ts["valid"].sum()) < 100
-    heads = [npf(ts["policy"]["params"]["head1"]["w"])]
+    heads = [npf(ts["policy"]["params"]["head1"]["w"]).copy()]
     n, gh, gw = jst.geom
     for t, frame in enumerate(frames[1:], start=2):
         u, u_rank = stepper_draws(js["policy"], (n, gh, gw), n * gh * gw)
@@ -130,7 +130,7 @@ def test_detection_clip_matches_jax(monkeypatch):
         assert float(ts["prev_grid"].sum()) == CAPACITY
         assert_same(JG.exec_indices(js["prev_grid"] > 0, CAPACITY),
                     TG.exec_indices(ts["prev_grid"] > 0, CAPACITY))
-        heads.append(npf(ts["policy"]["params"]["head1"]["w"]))
+        heads.append(npf(ts["policy"]["params"]["head1"]["w"]).copy())
         dets, labels, valid = tst.fetch_outputs(ts)
         assert 8 <= int(valid.sum()) < 100
         assert bool(torch.isfinite(dets).all())

@@ -1285,3 +1285,267 @@ def test_capture_runs_no_garbage_collection(cuda_device):
         gc.callbacks.remove(watch)
     assert gc.isenabled() and not seen
     assert torch.equal(out, (x + 1) * 1000)
+
+
+# -- the policy net's BatchNorm and RMSprop (csrc/policy.cu) -------------------
+
+# the policy's BatchNorm inputs (N, H, W, C): the ref arch at block 128
+# (256x512 input: the stem and layer1, layer2, layer3, head0, head1), its
+# block-256 halves' ends, the fast arch's trunk and head
+POLICY_BN_SHAPES = [(1, 256, 512, 32), (1, 128, 256, 64), (1, 64, 128, 128),
+                    (1, 32, 64, 128), (1, 16, 32, 128), (1, 128, 256, 32),
+                    (1, 8, 16, 128), (1, 32, 64, 256), (1, 16, 32, 256)]
+# (the conv output's dtype, the next conv input's): bf16 as served, fp32
+# policy convs, the fast arch's split stem
+POLICY_BN_DTYPES = [(torch.bfloat16, torch.bfloat16),
+                    (torch.float32, torch.float32),
+                    (torch.float32, torch.bfloat16)]
+
+
+def _policy_bn_inputs(shape, dtype, dtype_c, device, seed):
+    gen = torch.Generator(device).manual_seed(seed)
+    c = shape[-1]
+
+    def rnd(*s, scale=1.0, shift=0.0):
+        return torch.randn(s, generator=gen, device=device) * scale + shift
+    return {"y": rnd(*shape, scale=3.0, shift=1.5).to(dtype),
+            "gamma": rnd(c, scale=0.3, shift=1.0),
+            "beta": rnd(c, scale=0.1), "residual": rnd(*shape),
+            "run_mean": rnd(c, scale=0.1), "run_var": rnd(c).abs() + 0.5,
+            "g0": rnd(*shape, scale=1e-2).to(dtype_c),
+            "g1": rnd(*shape, scale=1e-2).to(dtype_c),
+            "gf": rnd(*shape, scale=1e-2)}
+
+
+@pytest.mark.parametrize("dtype,dtype_c", POLICY_BN_DTYPES)
+@pytest.mark.parametrize("shape", POLICY_BN_SHAPES)
+def test_policy_bn_matches_plain(cuda_device, shape, dtype, dtype_c):
+    """The four BatchNorm kernels against their plain versions on the card:
+    statistics and running update at 1e-5 (sums in another order); the
+    apply and the backward's apply bitwise given the same statistics and
+    sums; the backward's sums at 1e-4 of their norm; with the residual and
+    the ReLU (outputs ``cf``, gradients g0 + gf) and without (``cc``, g0 +
+    g1; ``f`` without the ReLU, gf)."""
+    from blockcopy_tpu_torch.ops.kernels import policy as P
+    a = _policy_bn_inputs(shape, dtype, dtype_c, cuda_device, shape[1])
+    y, gamma, beta = a["y"], a["gamma"], a["beta"]
+    hp = dict(eps=1e-5, momentum=0.02)
+    before = dict(kernels.launches)
+    got = P.bn_stats(y, a["run_mean"], a["run_var"], **hp)
+    ref = P.bn_stats_plain(y, a["run_mean"], a["run_var"], **hp)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-5)
+    mean, rstd = got[0], got[1]
+    cases = [(a["residual"], True, (a["g0"], None, a["gf"])),
+             (None, True, (a["g0"], a["g1"], None)),
+             (None, False, (None, None, a["gf"]))]
+    for residual, relu, grads in cases:
+        want_c, want_f = grads[0] is not None, grads[2] is not None
+        out = P.bn_apply(y, mean, rstd, gamma, beta, residual, relu, dtype_c,
+                         want_c, want_f)
+        plain = P.bn_apply_plain(y, mean, rstd, gamma, beta, residual, relu,
+                                 dtype_c, want_c, want_f)
+        for o, p in zip(out, plain):
+            assert (o is None) == (p is None)
+            if o is not None:
+                assert o.dtype == p.dtype and torch.equal(o, p)
+        want_res = residual is not None
+        d_res, dgamma, dbeta = P.bn_grad(y, grads, residual, mean, rstd,
+                                         gamma, beta, relu, want_res)
+        r_res, r_gamma, r_beta = P.bn_grad_plain(y, grads, residual, mean,
+                                                 rstd, gamma, beta, relu,
+                                                 want_res)
+        assert (d_res is None) == (r_res is None)
+        if d_res is not None:
+            assert torch.equal(d_res, r_res)
+        for g, r in ((dgamma, r_gamma), (dbeta, r_beta)):
+            assert float((g - r).norm() / r.norm().clamp_min(1e-30)) < 1e-4
+        dy = P.bn_grad_apply(y, grads, residual, mean, rstd, gamma, beta,
+                             relu, d_res, dgamma, dbeta)
+        r_dy = P.bn_grad_apply_plain(y, grads, residual, mean, rstd, gamma,
+                                     beta, relu, d_res, dgamma, dbeta)
+        assert dy.dtype == dtype and torch.equal(dy, r_dy)
+    torch.cuda.synchronize()
+    moved = {k: kernels.launches[k] - before[k] for k in kernels.POLICY}
+    assert moved == {"policy_bn_stats": 1, "policy_bn_apply": 3,
+                     "policy_bn_grad": 3, "policy_bn_grad_apply": 3,
+                     "rmsprop_multi": 0}
+
+
+def test_policy_bn_refuses_bad_inputs(cuda_device):
+    """Refused before any launch: widths the kernels do not take, another
+    dtype, a non-contiguous input."""
+    from blockcopy_tpu_torch.ops.kernels import policy as P
+    before = dict(kernels.launches)
+    bf = dict(dtype=torch.bfloat16, device=cuda_device)
+    hp = dict(eps=1e-5, momentum=0.02)
+    with pytest.raises(ValueError, match="multiple"):
+        P.bn_stats(torch.zeros((1, 4, 4, 12), **bf), **hp)
+    with pytest.raises(ValueError, match="dtype"):
+        P.bn_stats(torch.zeros((1, 4, 4, 16), dtype=torch.float16,
+                               device=cuda_device), **hp)
+    with pytest.raises(ValueError, match="contiguous"):
+        P.bn_stats(torch.zeros((1, 16, 4, 4), **bf).permute(0, 2, 3, 1),
+                   **hp)
+    assert kernels.launches == before
+
+
+def test_policy_bn_reductions_on_two_streams(cuda_device):
+    """Reductions launched on two streams at once, each stream with its
+    own last-CTA counter: every launch's statistics and backward sums are
+    bitwise those of the same launch alone, and match the plain versions."""
+    from blockcopy_tpu_torch.ops.kernels import policy as P
+    hp = dict(eps=1e-5, momentum=0.02)
+    inputs = [_policy_bn_inputs((1, 256, 512, 32), torch.bfloat16,
+                                torch.bfloat16, cuda_device, seed)
+              for seed in (1, 2)]
+
+    def reductions(a):
+        mean, rstd, _, _ = P.bn_stats(a["y"], **hp)
+        _, dgamma, dbeta = P.bn_grad(a["y"], (a["g0"], None, None), None,
+                                     mean, rstd, a["gamma"], a["beta"],
+                                     True)
+        return mean, rstd, dgamma, dbeta
+
+    alone = [reductions(a) for a in inputs]
+    main = torch.cuda.current_stream(cuda_device)
+    streams = [torch.cuda.Stream(cuda_device) for _ in inputs]
+    got = [[] for _ in inputs]
+    for s in streams:
+        s.wait_stream(main)
+    for _ in range(16):
+        for s, a, out in zip(streams, inputs, got):
+            with torch.cuda.stream(s):
+                out.append(reductions(a))
+    for s in streams:
+        main.wait_stream(s)
+    torch.cuda.synchronize()
+    for a, ref, outs in zip(inputs, alone, got):
+        r_mean, r_rstd, _, _ = P.bn_stats_plain(a["y"], **hp)
+        _, r_gamma, r_beta = P.bn_grad_plain(
+            a["y"], (a["g0"], None, None), None, r_mean, r_rstd, a["gamma"],
+            a["beta"], True)
+        for g, r in zip(ref, (r_mean, r_rstd, r_gamma, r_beta)):
+            torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-5)
+        for out in outs:
+            assert all(torch.equal(g, r) for g, r in zip(out, ref))
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+def test_rmsprop_multi_matches_plain(cuda_device, momentum):
+    """One launch a 40 leaves (45 leaves of odd sizes: two launches),
+    bitwise the plain version on the card, new tensors and in place, over
+    two steps."""
+    from blockcopy_tpu_torch.ops.kernels import policy as P
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    sizes = [(3, 3, 26, 32), (32,), (1,), (7, 5)] + [(11 * i + 3,)
+                                                      for i in range(41)]
+    rnd = lambda s: torch.randn(s, generator=gen, device=cuda_device)  # noqa: E731
+    params = [rnd(s) for s in sizes]
+    sq = [rnd(s).abs() * 1e-3 for s in sizes]
+    buf = [rnd(s) * 1e-3 for s in sizes]
+    hp = dict(lr=1e-2, weight_decay=1e-3, momentum=momentum, alpha=0.99,
+              eps=1e-8)
+    own = [[t.clone() for t in x] for x in (params, sq, buf)]
+    ptrs = [t.data_ptr() for x in own for t in x]
+    for _ in range(2):
+        grads = [rnd(s) * 1e-2 for s in sizes]
+        before = kernels.launches["rmsprop_multi"]
+        new = P.rmsprop_multi(grads, params, sq, buf, **hp)
+        ref = P.rmsprop_multi_plain(grads, params, sq, buf, **hp)
+        P.rmsprop_multi(grads, *own, out=own, **hp)
+        assert kernels.launches["rmsprop_multi"] - before == 4
+        for got, want, kept in zip(new, ref, own):
+            for x, r, k in zip(got, want, kept):
+                assert torch.equal(x, r) and torch.equal(k, r)
+        params, sq, buf = new
+    assert ptrs == [t.data_ptr() for x in own for t in x]
+
+
+@pytest.mark.parametrize("arch", ["ref", "fast"])
+def test_policy_net_on_card_matches_cpu(cuda_device, monkeypatch, arch):
+    """The policy net through the kernels against the CPU's plain versions,
+    fp32 convolutions (TF32 off): logits and running statistics at 1e-4,
+    the REINFORCE gradients at 1e-3 norm-wise; two launches a BatchNorm
+    forward and two more backward."""
+    from blockcopy_tpu_torch.policy import net as N
+    from blockcopy_tpu_torch.policy.optim import tree_leaves, tree_map
+    from blockcopy_tpu_torch.policy.policies import reinforce_grads
+    monkeypatch.setattr(N, "COMPUTE_DTYPE", torch.float32)
+    params, state = N.init_policy_net(26, seed=1, arch=arch, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn((2, 64, 128, 26), generator=gen)
+    grid = (torch.rand((2, 2, 4), generator=gen) < 0.5).float()
+    signed = torch.randn((2, 2, 4), generator=gen)
+    on = lambda t: tree_map(lambda v: v.to(cuda_device), t)  # noqa: E731
+    bns = len(tree_leaves(state)) // 2
+    before = dict(kernels.launches)
+    with torch.no_grad():
+        lg, s = N.policy_net_apply(on(params), on(state), x.to(cuda_device),
+                                   arch=arch)
+    fwd = {k: kernels.launches[k] - before[k] for k in kernels.POLICY}
+    ref_lg, ref_s = N.policy_net_apply(params, state, x, arch=arch)
+    torch.testing.assert_close(lg.cpu(), ref_lg, rtol=1e-4, atol=1e-4)
+    for a, b in zip(tree_leaves(s), tree_leaves(ref_s)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+    before = dict(kernels.launches)
+    grads, _ = reinforce_grads(on(params), on(state), x.to(cuda_device),
+                               grid.to(cuda_device), signed.to(cuda_device),
+                               arch)
+    bwd = {k: kernels.launches[k] - before[k] for k in kernels.POLICY}
+    ref_g, _ = reinforce_grads(params, state, x, grid, signed, arch)
+    for a, b in zip(tree_leaves(grads), tree_leaves(ref_g)):
+        assert a.is_contiguous()
+        err = float((a.cpu() - b).norm() / b.norm().clamp_min(1e-30))
+        assert err < 1e-3, err
+    assert fwd == {"policy_bn_stats": bns, "policy_bn_apply": bns,
+                   "policy_bn_grad": 0, "policy_bn_grad_apply": 0,
+                   "rmsprop_multi": 0}
+    assert bwd == {"policy_bn_stats": bns, "policy_bn_apply": bns,
+                   "policy_bn_grad": bns, "policy_bn_grad_apply": bns,
+                   "rmsprop_multi": 0}
+
+
+def test_captured_ref_policy_step_matches_eager(cuda_device, monkeypatch):
+    """The served precision (bf16 policy convs) with the ref policy, RN18
+    256x512 fp32, REINFORCE every 2nd frame: the steps as CUDA graphs
+    bitwise the eager steps (cuDNN deterministic), and the policy's kernels
+    a frame: none on the first, one statistics and one apply launch a
+    BatchNorm on a plain frame, on a train frame those twice (the
+    REINFORCE forward) with the two backward launches a BatchNorm and one
+    RMSprop launch."""
+    from blockcopy_tpu_torch.core.stepper import (FixedCapacityStepper,
+                                                  StepperConfig)
+    from blockcopy_tpu_torch.models.swiftnet import (SwiftNetConfig,
+                                                     init_swiftnet,
+                                                     make_apply_fn)
+    from blockcopy_tpu_torch.tools.measure import synthetic_frames
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = SwiftNetConfig(backbone="resnet18", num_classes=19)
+    params = init_swiftnet(cfg, seed=0, dtype=torch.float32,
+                           device=cuda_device)
+    stepper = FixedCapacityStepper(
+        make_apply_fn(cfg), StepperConfig(train_interval=2,
+                                          policy_arch="ref"),
+        (1, 256, 512, 3), 4, dtype=torch.float32, device=cuda_device)
+    frames = synthetic_frames((1, 256, 512, 3), 6, torch.float32,
+                              device=cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    draws = [(torch.rand((1, 2, 4), generator=gen, device=cuda_device),
+              torch.rand((8,), generator=gen, device=cuda_device))
+             for _ in frames[1:]]
+    eager, e_launches = _graph_states(stepper, params, frames, draws, False)
+    graphs, g_launches = _graph_states(stepper, params, frames, draws, True)
+    assert g_launches == e_launches
+    for t, (a, b) in enumerate(zip(eager, graphs), 1):
+        for x, y in zip(_tensor_leaves(a), _tensor_leaves(b)):
+            assert torch.equal(x, y), f"frame {t}"
+    plain = {"policy_bn_stats": 11, "policy_bn_apply": 11,
+             "policy_bn_grad": 0, "policy_bn_grad_apply": 0,
+             "rmsprop_multi": 0}
+    train = {"policy_bn_stats": 22, "policy_bn_apply": 22,
+             "policy_bn_grad": 11, "policy_bn_grad_apply": 11,
+             "rmsprop_multi": 1}
+    kinds = [{k: n[k] for k in kernels.POLICY} for n in e_launches]
+    assert kinds == [dict.fromkeys(kernels.POLICY, 0), train, plain, train,
+                     plain, train]

@@ -129,6 +129,66 @@ def test_reinforce_grads_and_rmsprop(arch, monkeypatch):
                 params_to_numpy(topt["momentum_buf"]), _close(1e-5))
 
 
+@pytest.mark.parametrize("arch", ["fast", "ref"])
+def test_reinforce_update_matches_jax(arch, monkeypatch):
+    """``reinforce_update`` as the steppers and ``PolicyTrainRL`` run it
+    (the BatchNorm kernels' plain versions and their autograd backward,
+    RMSprop through ``rmsprop_multi`` into the given trees) against JAX's
+    gradient and RMSprop step from square averages of 1e-4: each leaf's
+    change and square averages at 1e-3 norm-wise (the gradients' own error,
+    measured up to 3e-4)."""
+    from blockcopy_tpu_torch.policy.policies import reinforce_update
+    monkeypatch.setattr(JN, "COMPUTE_DTYPE", jnp.float32)
+    monkeypatch.setattr(TN, "COMPUTE_DTYPE", torch.float32)
+    params, bn_state, x = _setup(arch, seed=3)
+    rs = np.random.RandomState(4)
+    grid = (rs.rand(2, 2, 4) < 0.5).astype(np.float32)
+    signed = rs.randn(2, 2, 4).astype(np.float32)
+
+    def jloss(p):
+        lg, _ = JN.policy_net_apply(p, bn_state, jnp.asarray(x),
+                                    update_stats=False, arch=arch)
+        l = lg[..., 0]
+        logp = grid * jax.nn.log_sigmoid(l) + (1 - grid) * \
+            jax.nn.log_sigmoid(-l)
+        return jnp.mean(-logp * signed)
+
+    jopt = JO.init(params)
+    jopt = jopt._replace(square_avg=jax.tree.map(
+        lambda a: jnp.full_like(a, 1e-4), jopt.square_avg))
+    hp = dict(lr=1e-2, weight_decay=1e-3, momentum=0.0)
+    jp, jopt = jax.jit(lambda p, o: JO.update(jax.grad(jloss)(p), o, p,
+                                              **hp))(params, jopt)
+    tp = params_from_jax(jtree(params), device="cpu")
+    topt = {"square_avg": TO.tree_map(lambda t: torch.full_like(t, 1e-4),
+                                      tp),
+            "momentum_buf": TO.tree_map(torch.zeros_like, tp)}
+    got_p, got_opt, _ = reinforce_update(
+        tp, params_from_jax(jtree(bn_state), device="cpu"), topt, tt(x),
+        torch.from_numpy(grid), torch.from_numpy(signed), arch,
+        hp["lr"], hp["weight_decay"], hp["momentum"])
+    assert got_p is tp and got_opt is topt
+
+    old = jtree(params)
+    assert_tree(jtree(jp), params_to_numpy(got_p),
+                lambda a, b, m: _close_rel(a - old_leaf(old, m),
+                                           b - old_leaf(old, m), m))
+    assert_tree(jtree(jopt.square_avg),
+                params_to_numpy(got_opt["square_avg"]), _close_rel)
+
+
+def old_leaf(tree, path):
+    """The leaf of ``tree`` at ``assert_tree``'s ``path`` (".a.b[0]")."""
+    for part in path.replace("[", ".[").split(".")[1:]:
+        tree = tree[int(part[1:-1])] if part.startswith("[") else tree[part]
+    return tree
+
+
+def _close_rel(a, b, m, tol=1e-3):
+    err = np.linalg.norm(b - a) / max(np.linalg.norm(a), 1e-30)
+    assert err < tol, (m, err)
+
+
 @pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
 def test_information_gain(dtype):
     rs = np.random.RandomState(3)

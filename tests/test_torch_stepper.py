@@ -98,7 +98,7 @@ def test_clip_matches_jax(monkeypatch):
     js = jfirst(jparams, js, jnp.asarray(frames[0]))
     ts = tst.first_step(tparams, ts, tt(frames[0]))
     _compare_states(js, ts, 1)
-    heads = [npf(ts["policy"]["params"]["head1"]["w"])]
+    heads = [npf(ts["policy"]["params"]["head1"]["w"]).copy()]
     n, gh, gw = jst.geom
     for t, frame in enumerate(frames[1:], start=2):
         u, u_rank = stepper_draws(js["policy"], (n, gh, gw), n * gh * gw)
@@ -108,7 +108,7 @@ def test_clip_matches_jax(monkeypatch):
         assert float(ts["prev_grid"].sum()) == CAPACITY
         assert_same(JG.exec_indices(js["prev_grid"] > 0, CAPACITY),
                     TG.exec_indices(ts["prev_grid"] > 0, CAPACITY))
-        heads.append(npf(ts["policy"]["params"]["head1"]["w"]))
+        heads.append(npf(ts["policy"]["params"]["head1"]["w"]).copy())
     # REINFORCE ran on frames 2 and 4 only
     changed = [not np.array_equal(a, b) for a, b in zip(heads, heads[1:])]
     assert changed == [True, False, True]
