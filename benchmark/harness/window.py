@@ -25,7 +25,7 @@ from harness import check, program, traffic
 from harness.modules import forbidden_modules
 from harness.trace import Traced
 from harness.weights import realize, sub_seed
-from reference import nets
+import reference
 from reference.clip import Served
 from reference.policy import flatten, in_channels, spec_policy
 
@@ -33,8 +33,8 @@ PROFILED = (4, 5)      # the clips a --trace 1 run profiles
 
 
 def model_spec(cfg):
-    return nets.spec_csp(cfg) if cfg["task"] == "detection" \
-        else nets.spec_swiftnet(cfg)
+    """The spec of the configuration's reference model's parameters."""
+    return reference.model(cfg)[1](cfg)
 
 
 def initial_policy(cfg, seed: int, device) -> Dict[str, torch.Tensor]:

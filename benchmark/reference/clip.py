@@ -47,7 +47,7 @@ from typing import Dict, List, Optional
 import torch
 import torch.distributed as dist
 
-from reference import nets, tasks
+from reference import model, nets, tasks
 from reference.policy import (RMS_ALPHA, RMS_EPS, grid_gap,
                               policy_input, policy_logits, reinforce_grads,
                               select, unflatten)
@@ -87,10 +87,10 @@ class Task:
         self.img_hw = tuple(img_hw)
         self.bs = block_size
         self.detection = cfg["task"] == "detection"
+        self.forward = model(cfg)[0]
 
     def model(self, fr, p, x):
-        return (nets.csp if self.detection else nets.swiftnet)(fr, p, x,
-                                                              self.cfg)
+        return self.forward(fr, p, x, self.cfg)
 
     def served(self, out):
         """The served form of the model's output."""

@@ -1,4 +1,5 @@
-"""SwiftNet-RN50 and CSP-R50 as BlockCopy serves them, in plain PyTorch.
+"""SwiftNet on a ResNet of the family its configuration names, and
+CSP-R50, as BlockCopy serves them, in plain PyTorch.
 
 A frame executes the blocks of a grid.  Every layer that reads
 neighbouring pixels (a convolution or pool with padding, a dense part)
@@ -117,11 +118,11 @@ class Frame:
 
 
 def conv(fr: Frame, name: str, x, w, b=None, stride=1, pad=0, dil=1,
-         blocked=True):
+         blocked=True, groups=1):
     """A convolution; with padding over blocks its input is a site."""
     if pad > 0 and blocked:
         x = fr.site(name, x)
-    y = F.conv2d(fr.prec(x), fr.prec(w), None, stride, pad, dil)
+    y = F.conv2d(fr.prec(x), fr.prec(w), None, stride, pad, dil, groups)
     fr.tally(name, y.numel() * w.shape[1] * w.shape[2] * w.shape[3],
              blocked)
     return y if b is None else y + b.view(1, -1, 1, 1)
@@ -135,8 +136,47 @@ relu = F.relu
 
 
 # ---------------------------------------------------------------------------
-# ResNet-50
+# ResNets
 # ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ResNet:
+    """One of the ResNets the served SwiftNet lists (torchvision's
+    definitions): blocks a stage, basic or bottleneck blocks, and the
+    bottleneck's 3x3 groups and base width."""
+    layers: tuple
+    bottleneck: bool
+    groups: int = 1
+    base_width: int = 64
+
+    @property
+    def expansion(self) -> int:
+        return 4 if self.bottleneck else 1
+
+    def width(self, planes: int) -> int:
+        """A bottleneck's inner width, its grouped 3x3's channels."""
+        return int(planes * self.base_width / 64.0) * self.groups
+
+    @property
+    def features(self) -> tuple:
+        """The four stages' output channels."""
+        return tuple(c * self.expansion for c in PLANES)
+
+
+PLANES = (64, 128, 256, 512)
+RESNETS = {
+    "resnet18": ResNet((2, 2, 2, 2), False),
+    "resnet34": ResNet((3, 4, 6, 3), False),
+    "resnet50": ResNet((3, 4, 6, 3), True),
+    "resnet101": ResNet((3, 4, 23, 3), True),
+    "resnet152": ResNet((3, 8, 36, 3), True),
+    "resnext50_32x4d": ResNet((3, 4, 6, 3), True, groups=32, base_width=4),
+    "resnext101_32x8d": ResNet((3, 4, 23, 3), True, groups=32,
+                               base_width=8),
+    "wide_resnet50_2": ResNet((3, 4, 6, 3), True, base_width=128),
+    "wide_resnet101_2": ResNet((3, 4, 23, 3), True, base_width=128),
+}
 
 
 def stem(fr: Frame, p, x):
@@ -147,28 +187,47 @@ def stem(fr: Frame, p, x):
     return F.max_pool2d(fr.site("stem.pool", y), 3, 2, 1)
 
 
+def _identity(fr: Frame, name: str, x, p, stride: int):
+    """The block's input, or its strided 1x1 projection."""
+    if "downsample" not in p:
+        return x
+    return bn(conv(fr, f"{name}.ds", x, p["downsample"]["conv"]["w"],
+                   stride=stride), p["downsample"]["bn"])
+
+
+def basic(fr: Frame, name: str, x, p, stride: int, dil: int):
+    """3x3 (stride, dilation), 3x3 (dilation), with the identity or a
+    strided 1x1 projection."""
+    idt = _identity(fr, name, x, p, stride)
+    h = relu(bn(conv(fr, f"{name}.conv1", x, p["conv1"]["w"], stride=stride,
+                     pad=dil, dil=dil), p["bn1"]))
+    h = bn(conv(fr, f"{name}.conv2", h, p["conv2"]["w"], pad=dil, dil=dil),
+           p["bn2"])
+    return relu(h + idt)
+
+
 def bottleneck(fr: Frame, name: str, x, p, stride: int, dil: int):
-    """1x1, 3x3 (stride, dilation), 1x1, with the identity or a strided 1x1
-    projection."""
-    idt = x
-    if "downsample" in p:
-        idt = bn(conv(fr, f"{name}.ds", x, p["downsample"]["conv"]["w"],
-                      stride=stride), p["downsample"]["bn"])
+    """1x1, 3x3 (stride, dilation, the groups its weight implies), 1x1,
+    with the identity or a strided 1x1 projection."""
+    idt = _identity(fr, name, x, p, stride)
     h = relu(bn(conv(fr, f"{name}.conv1", x, p["conv1"]["w"]), p["bn1"]))
-    h = relu(bn(conv(fr, f"{name}.conv2", h, p["conv2"]["w"], stride=stride,
-                     pad=dil, dil=dil), p["bn2"]))
+    w2 = p["conv2"]["w"]
+    h = relu(bn(conv(fr, f"{name}.conv2", h, w2, stride=stride, pad=dil,
+                     dil=dil, groups=h.shape[1] // w2.shape[1]), p["bn2"]))
     h = bn(conv(fr, f"{name}.conv3", h, p["conv3"]["w"]), p["bn3"])
     return relu(h + idt)
 
 
-def resnet50(fr: Frame, p, x, strides, dilations) -> List[torch.Tensor]:
-    """The four stages' outputs."""
+def resnet(fr: Frame, p, x, name: str, strides,
+           dilations) -> List[torch.Tensor]:
+    """The four stages' outputs of ``RESNETS[name]``."""
+    block = bottleneck if RESNETS[name].bottleneck else basic
     x = stem(fr, p, x)
     feats = []
     for s in range(4):
         for i, bp in enumerate(p[f"layer{s + 1}"]):
-            x = bottleneck(fr, f"layer{s + 1}.{i}", x, bp,
-                           strides[s] if i == 0 else 1, dilations[s])
+            x = block(fr, f"layer{s + 1}.{i}", x, bp,
+                      strides[s] if i == 0 else 1, dilations[s])
         feats.append(x)
     return feats
 
@@ -194,27 +253,36 @@ def _bn_leaf(c, scale=1.0):
                                                                   0.1)}
 
 
-def spec_resnet50(strides) -> Dict:
-    """ResNet-50 (torchvision / mmdet v1.5 layout: stride on the 3x3).
-    The last BN of each residual branch is drawn around 0.25, so that
-    sixteen residual sums keep the activations' scale."""
+def spec_resnet(name: str, strides) -> Dict:
+    """``RESNETS[name]`` (torchvision / mmdet v1.5 layout: stride on the
+    3x3).  The last BN of each residual branch (a bottleneck's ``bn3``, a
+    basic block's ``bn2``) is drawn around 0.25, so that many residual sums
+    keep the activations' scale."""
+    net = RESNETS[name]
     p: Dict = {"conv1": _conv_leaf(64, 3, 7), "bn1": _bn_leaf(64)}
     cin = 64
-    for s, (planes, blocks) in enumerate(zip((64, 128, 256, 512),
-                                             (3, 4, 6, 3))):
+    for s, (planes, blocks) in enumerate(zip(PLANES, net.layers)):
+        cout = planes * net.expansion
         stage = []
         for i in range(blocks):
             stride = strides[s] if i == 0 else 1
-            bp = {"conv1": _conv_leaf(planes, cin, 1), "bn1": _bn_leaf(planes),
-                  "conv2": _conv_leaf(planes, planes, 3),
-                  "bn2": _bn_leaf(planes),
-                  "conv3": _conv_leaf(planes * 4, planes, 1),
-                  "bn3": _bn_leaf(planes * 4, 0.25)}
-            if stride != 1 or cin != planes * 4:
-                bp["downsample"] = {"conv": _conv_leaf(planes * 4, cin, 1),
-                                    "bn": _bn_leaf(planes * 4)}
+            if net.bottleneck:
+                w = net.width(planes)
+                bp = {"conv1": _conv_leaf(w, cin, 1), "bn1": _bn_leaf(w),
+                      "conv2": _conv_leaf(w, w // net.groups, 3),
+                      "bn2": _bn_leaf(w),
+                      "conv3": _conv_leaf(cout, w, 1),
+                      "bn3": _bn_leaf(cout, 0.25)}
+            else:
+                bp = {"conv1": _conv_leaf(planes, cin, 3),
+                      "bn1": _bn_leaf(planes),
+                      "conv2": _conv_leaf(planes, planes, 3),
+                      "bn2": _bn_leaf(planes, 0.25)}
+            if stride != 1 or cin != cout:
+                bp["downsample"] = {"conv": _conv_leaf(cout, cin, 1),
+                                    "bn": _bn_leaf(cout)}
             stage.append(bp)
-            cin = planes * 4
+            cin = cout
         p[f"layer{s + 1}"] = stage
     return p
 
@@ -234,9 +302,9 @@ def _bnrc_leaf(cin, cout, k, bias=False):
 def spec_swiftnet(cfg: Dict) -> Dict:
     nf, levels = cfg["num_features"], cfg["spp_levels"]
     lvl = nf // levels
-    feats = (256, 512, 1024, 2048)
+    feats = RESNETS[cfg["backbone"]].features
     return {
-        "backbone": spec_resnet50((1, 2, 2, 2)),
+        "backbone": spec_resnet(cfg["backbone"], (1, 2, 2, 2)),
         "spp": {"bn": _bnrc_leaf(feats[3], nf, 1),
                 "levels": [_bnrc_leaf(nf, lvl, 1) for _ in range(levels)],
                 "fuse": _bnrc_leaf(nf + levels * lvl, nf, 1)},
@@ -272,7 +340,8 @@ def spp(fr: Frame, p, x, cfg: Dict):
 def swiftnet(fr: Frame, p, x, cfg: Dict):
     """(1, 3, H, W) -> (1, classes, H/4, W/4) logits, carried at the
     ``out`` site."""
-    f = resnet50(fr, p["backbone"], x, (1, 2, 2, 2), (1, 1, 1, 1))
+    f = resnet(fr, p["backbone"], x, cfg["backbone"], (1, 2, 2, 2),
+               (1, 1, 1, 1))
     out = spp(fr, p["spp"], fr.site("spp", f[3]), cfg)
     up = lambda t: F.interpolate(t, (t.shape[2] * 2, t.shape[3] * 2),
                                  mode="bilinear", align_corners=False)
@@ -313,8 +382,8 @@ def spec_csp(cfg: Dict) -> Dict:
         head[key] = {"w": Leaf((c, feat, 3, 3), std=0.01), "b": Leaf((c,))}
     head["reg_scale"] = Leaf((), 1.0, f32=True)
     head["offset_scale"] = Leaf((), 1.0, f32=True)
-    return {"backbone": spec_resnet50(tuple(cfg["strides"])), "neck": neck,
-            "head": head}
+    return {"backbone": spec_resnet("resnet50", tuple(cfg["strides"])),
+            "neck": neck, "head": head}
 
 
 def group_norm_executed(fr: Frame, x, groups, gamma, beta, eps=1e-5):
@@ -333,8 +402,8 @@ def group_norm_executed(fr: Frame, x, groups, gamma, beta, eps=1e-5):
 def csp(fr: Frame, p, x, cfg: Dict):
     """(1, 3, H, W) -> the (cls, reg, offset) maps at stride 4, each
     carried at its own site."""
-    f = resnet50(fr, p["backbone"], x, tuple(cfg["strides"]),
-                 tuple(cfg["dilations"]))
+    f = resnet(fr, p["backbone"], x, "resnet50", tuple(cfg["strides"]),
+               tuple(cfg["dilations"]))
     outs = []
     for key, feat, stride, pad in (("p3", f[1], 2, 1), ("p4", f[2], 4, 0),
                                    ("p5", f[3], 4, 0)):

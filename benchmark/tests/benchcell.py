@@ -13,8 +13,9 @@ from harness import cell as cells
 SEED = 2 ** 40 + 17
 
 
-def tiny(workload: str, clip_length: int = 4):
-    c = cells.load(workload)
+def tiny(workload: str, clip_length: int = 4, **load):
+    """``load``: ``harness.cell.load``'s other arguments."""
+    c = cells.load(workload, **load)
     c = copy.deepcopy(c)
     c.cfg.update(height=128, width=256, clip_length=clip_length,
                  dtype="float32")

@@ -12,7 +12,8 @@ from harness.check import limits, verdict
 
 
 @pytest.mark.parametrize("workload", ["semseg-rn50-b128-t05",
-                                      "det-csp-r50-b128-t03"])
+                                      "det-csp-r50-b128-t03",
+                                      "semseg-rn18-b128-t05"])
 def test_control_is_not_correct(workload):
     from calibrate import control_gaps
     cell = tiny(workload, 8)
@@ -26,7 +27,8 @@ def test_control_is_not_correct(workload):
 @pytest.mark.cuda
 @pytest.mark.parametrize("workload", ["semseg-rn50-b128-t05",
                                       "det-csp-r50-b128-t03",
-                                      "semseg-rn50-b256-t05"])
+                                      "semseg-rn50-b256-t05",
+                                      "semseg-rn18-b128-t05"])
 def test_control_is_not_correct_at_full_size(workload):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")

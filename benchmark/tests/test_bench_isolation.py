@@ -55,7 +55,7 @@ def test_the_reference_loads_nothing_of_the_program():
     mods = _top_levels(
         "import reference, reference.nets, reference.policy, "
         "reference.tasks, reference.clip\n"
-        "import work.k2, work.macs, work.peaks\n")
+        "import work.k1, work.k2, work.macs, work.peaks\n")
     assert "reference" in mods
     assert not mods & (JAX | {"blockcopy_tpu_torch", "harness"})
 

@@ -10,7 +10,8 @@ from benchcell import run, tiny
 
 
 @pytest.mark.parametrize("workload, length", [
-    ("semseg-rn50-b128-t05", 7), ("det-csp-r50-b128-t03", 5)])
+    ("semseg-rn50-b128-t05", 7), ("det-csp-r50-b128-t03", 5),
+    ("semseg-rn18-b128-t05", 7)])
 def test_reference_follows_the_program(workload, length):
     out = run(tiny(workload, length))
     checks = {k: v["value"] for k, v in out["checks"].items()}

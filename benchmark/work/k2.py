@@ -4,12 +4,49 @@ size, and the operations and bytes of each (frozen from ``chip_smoke.py``
 
 from __future__ import annotations
 
-from typing import List, Tuple
+import dataclasses
+from typing import Dict, Iterator, List, Tuple
 
+from reference.nets import PLANES, RESNETS
 from work import peaks
 
-STAGE_PLANES = (64, 128, 256, 512)
-STAGE_BLOCKS = (3, 4, 6, 3)
+
+@dataclasses.dataclass(frozen=True)
+class Block:
+    """A backbone block as the served model runs it over blocks of ``bs``
+    px at its input: ``cm`` its 3x3's channels (a bottleneck's inner
+    width, a basic block's planes), ``fused`` whether K2 runs its tail."""
+    bottleneck: bool
+    bs: int
+    cin: int
+    cm: int
+    cout: int
+    stride: int
+    dil: int
+    fused: bool
+
+
+def blocks(cfg: Dict, block_size: int) -> Iterator[Block]:
+    """Every backbone block in order.  K2 takes a bottleneck's tail where
+    the served gate does: groups 1, the stride-1 identity block, undilated,
+    Cm and Co multiples of 128 and blocks at least 8 px.  SwiftNet names
+    its ResNet; the served CSP is ResNet-50 only."""
+    net = RESNETS[cfg.get("backbone", "resnet50")]
+    strides = cfg.get("strides", (1, 2, 2, 2))
+    dilations = cfg.get("dilations", (1, 1, 1, 1))
+    cin, at = 64, 4
+    for s, planes in enumerate(PLANES):
+        cout = planes * net.expansion
+        cm = net.width(planes) if net.bottleneck else planes
+        for i in range(net.layers[s]):
+            stride = strides[s] if i == 0 else 1
+            bs = block_size // at
+            fused = (net.bottleneck and net.groups == 1 and stride == 1
+                     and cin == cout and dilations[s] == 1
+                     and cm % 128 == 0 and cout % 128 == 0 and bs >= 8)
+            yield Block(net.bottleneck, bs, cin, cm, cout, stride,
+                        dilations[s], fused)
+            cin, at = cout, at * stride
 
 
 def tail_cost(bs, cm, co, itemsize, k):
@@ -23,19 +60,9 @@ def tail_cost(bs, cm, co, itemsize, k):
 
 
 def tails(cfg, block_size: int) -> List[Tuple[int, int, int]]:
-    """(bs, Cm, Co) of each ResNet-50 bottleneck the program fuses into
-    K2: the stride-1 identity blocks (every block of a stage but its
-    first), undilated, with Cm a multiple of 128 and blocks at least 8 px
-    at that stage."""
-    strides = cfg.get("strides", (1, 2, 2, 2))
-    dilations = cfg.get("dilations", (1, 1, 1, 1))
-    out, stride = [], 4
-    for s in range(4):
-        stride *= strides[s]
-        bs, cm = block_size // stride, STAGE_PLANES[s]
-        if dilations[s] == 1 and cm % 128 == 0 and bs >= 8:
-            out += [(bs, cm, 4 * cm)] * (STAGE_BLOCKS[s] - 1)
-    return out
+    """(bs, Cm, Co) of each bottleneck the program fuses into K2."""
+    return [(b.bs, b.cm, b.cout) for b in blocks(cfg, block_size)
+            if b.fused]
 
 
 def launches_per_tail(dtype: str) -> int:

@@ -11,6 +11,7 @@ from typing import Dict
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+import reference
 from reference import nets
 from reference.policy import in_channels, policy_logits, spec_policy
 
@@ -26,15 +27,13 @@ def _meta(spec):
 def model_tally(cfg: Dict, block_size: int) -> Dict[str, tuple]:
     """{layer: (MACs over the whole frame, whether it runs over blocks)}."""
     h, w = cfg["height"], cfg["width"]
-    spec = nets.spec_csp(cfg) if cfg["task"] == "detection" \
-        else nets.spec_swiftnet(cfg)
+    forward, spec = reference.model(cfg)
     tally: Dict[str, tuple] = {}
     grid = torch.ones((h // block_size, w // block_size), dtype=torch.bool,
                       device="meta")
     fr = nets.Frame(grid, {}, macs=tally)
     x = torch.empty((1, 3, h, w), device="meta")
-    (nets.csp if cfg["task"] == "detection" else nets.swiftnet)(
-        fr, _meta(spec), x, cfg)
+    forward(fr, _meta(spec(cfg)), x, cfg)
     return tally
 
 
