@@ -1,5 +1,6 @@
 """A cell as ``BENCHMARK.json`` names it: its configuration file, its
-traffic file and its chips, found by name."""
+traffic file and its chips, found by name.  Loading a cell whose
+configuration names no served program (``programs.of``) raises."""
 
 from __future__ import annotations
 
@@ -7,6 +8,8 @@ import dataclasses
 import json
 from pathlib import Path
 from typing import Dict
+
+import programs
 
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
@@ -29,6 +32,7 @@ def load(workload: str, bench_json: Path = ROOT / "BENCHMARK.json") -> Cell:
     w = cells[workload]
     conf = {c["name"]: c for c in spec["configs"]}[w["config"]]
     cfg = json.loads((ROOT / conf["file"]).read_text())
+    programs.of(cfg)        # a configuration names its served program
     traffic = json.loads((BENCH / "traffic" / f"{w['traffic']}.json")
                          .read_text())
     return Cell(workload, cfg, traffic, w["chips"], spec)

@@ -21,6 +21,7 @@ from typing import Dict, List
 
 import torch
 
+import programs
 from harness import check, program, traffic
 from harness.modules import forbidden_modules
 from harness.trace import Traced
@@ -60,17 +61,17 @@ def recorded_clips(seed: int) -> tuple:
 
 class Recording:
     """A clip as the program served it: its starting policy, each frame's
-    outputs and grid, the policy after each train frame and at its end.
+    outputs and grid (``prog.served``, ``prog`` the configuration's
+    program module), the policy after each train frame and at its end.
     Its buffers are allocated in set-up (``Recording(...)``), so that the
     window only copies into them: an allocation there could reach
     ``cudaMalloc``, which waits for the card."""
 
-    def __init__(self, stepper, state, detection: bool, length: int):
+    def __init__(self, stepper, state, prog, length: int):
         like = lambda tree: {k: torch.empty_like(v) for k, v in tree.items()}
-        self.detection = detection
+        self.prog = prog
         self.start = like(program.policy_tensors(state))
-        self.frames = [like(program.served(state, detection))
-                       for _ in range(length)]
+        self.frames = [like(prog.served(state)) for _ in range(length)]
         self.after = {t: like(program.policy_tensors(state))
                       for t in range(2, length + 1)
                       if stepper.is_train_frame(t)}
@@ -86,7 +87,7 @@ class Recording:
         self._copy(self.start, program.policy_tensors(state))
 
     def frame(self, state, t: int) -> None:
-        self._copy(self.frames[t - 1], program.served(state, self.detection))
+        self._copy(self.frames[t - 1], self.prog.served(state))
         if t in self.after:
             self._copy(self.after[t], program.policy_tensors(state))
         self.count = t
@@ -98,7 +99,7 @@ class Recording:
         """The recorded frames in the reference's layout."""
         out = Served()
         for rec in self.frames[: self.count]:
-            o, g = program.reference_layout(rec, geom, self.detection)
+            o, g = self.prog.reference_layout(rec, geom)
             out.outputs.append(o)
             out.grids.append(g)
         return out
@@ -144,7 +145,7 @@ def serve_rank(cell, seed: int, seconds: float, trace: bool, t0: float,
     log = lambda msg: print(f"[rank {rank}] {time.time() - t0:.2f} s: "
                             f"{msg}", file=sys.stderr, flush=True)
     log("start")
-    detection = cfg["task"] == "detection"
+    prog = programs.of(cfg)
     dtype = getattr(torch, cfg["dtype"])
     params = realize(model_spec(cfg), sub_seed(seed, 1), dtype, device)
     log("weights")
@@ -177,7 +178,7 @@ def serve_rank(cell, seed: int, seconds: float, trace: bool, t0: float,
     sync()
     log("graphs captured")
     program.load_policy(state, pol0)
-    recs = {i: Recording(stepper, state, detection, cfg["clip_length"])
+    recs = {i: Recording(stepper, state, prog, cfg["clip_length"])
             for i in recorded_clips(seed)}
     sync()
     if stop_vote is not None:
@@ -234,9 +235,10 @@ def serve_rank(cell, seed: int, seconds: float, trace: bool, t0: float,
         torch.cuda.empty_cache()
     log(f"window: {len(kinds)} frames in {window_s:.3f} s")
     q = max(1, len(intervals) // 4)
+    quarters = [part for part in (intervals[j:j + q]
+                                  for j in range(0, 4 * q, q)) if part]
     log("ms a frame by quarter of the window: " + " ".join(
-        f"{sum(intervals[j:j + q]) / len(intervals[j:j + q]):.3f}"
-        for j in range(0, q * 4, q)) + "; longest "
+        f"{sum(part) / len(part):.3f}" for part in quarters) + "; longest "
         + " ".join(f"{v:.2f}" for v in sorted(intervals)[-5:]))
     gaps = check.judge(cell, seed, recs, geom, pol0, host, draws, device,
                        group)

@@ -69,3 +69,24 @@ def serve_as_rank(group, cell, plant=None):
         plant()
     window.PROFILED = (1, 2)
     return rank_main(group, cell, SEED, 0.3, False, 0.0)
+
+
+def spy_k1(monkeypatch) -> dict:
+    """The halo exchanges the served program makes, (bs, C, pad) each in
+    the order made, by kind (``gather``: ``ExecCtx.exchange``, ``pieces``:
+    ``ExecCtx.exchange_pieces``); its shape pass, which fuses nothing, left
+    out."""
+    from blockcopy_tpu_torch.core.blocked import ExecCtx
+    seen = {"gather": [], "pieces": []}
+
+    def spy(kind, orig):
+        def fn(self, name, x, pad):
+            if not self.building:
+                seen[kind].append((x.data.shape[1], x.data.shape[-1], pad))
+            return orig(self, name, x, pad)
+        return fn
+    monkeypatch.setattr(ExecCtx, "exchange",
+                        spy("gather", ExecCtx.exchange))
+    monkeypatch.setattr(ExecCtx, "exchange_pieces",
+                        spy("pieces", ExecCtx.exchange_pieces))
+    return seen

@@ -44,6 +44,14 @@ def test_end_to_end_metrics():
     assert out["metrics"]["fps"]["unit"] == "frames/s"
 
 
+def test_a_window_of_fewer_than_four_frames():
+    """One clip of three frames: the log's quarters of the window are
+    taken over the frames there are."""
+    out = run(tiny("semseg-rn18-b128-t05", 3), seconds=0.0)
+    assert out["attempted"] == 3
+    assert out["correct"] is True, out["checks"]
+
+
 def _unchanged(monkeypatch):
     from blockcopy_tpu_torch.core.stepper import FixedCapacityStepper
     monkeypatch.setattr(FixedCapacityStepper, "step_",

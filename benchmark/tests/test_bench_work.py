@@ -98,20 +98,8 @@ def test_k1_launches_are_the_programs(monkeypatch, workload):
     the CPU (where K2's gate lets stage 2 through at 8 px and stops stage
     3 at 4), one frame's list after another; its shape pass, which fuses
     nothing, left out."""
-    from benchcell import run, tiny
-    from blockcopy_tpu_torch.core.blocked import ExecCtx
-    seen = {"gather": [], "pieces": []}
-
-    def spy(kind, orig):
-        def fn(self, name, x, pad):
-            if not self.building:
-                seen[kind].append((x.data.shape[1], x.data.shape[-1], pad))
-            return orig(self, name, x, pad)
-        return fn
-    monkeypatch.setattr(ExecCtx, "exchange",
-                        spy("gather", ExecCtx.exchange))
-    monkeypatch.setattr(ExecCtx, "exchange_pieces",
-                        spy("pieces", ExecCtx.exchange_pieces))
+    from benchcell import run, spy_k1, tiny
+    seen = spy_k1(monkeypatch)
     cell = tiny(workload, 4)
     run(cell, seconds=0.01)
     want = k1.launches(cell.cfg, cell.traffic["block_size"])

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
+import programs
 from work import k2, peaks
 
 Launch = Tuple[int, int, int]       # (bs, C, pad) of the gathered blocks
@@ -35,15 +36,14 @@ def launches(cfg: Dict, block_size: int) -> Dict[str, List[Launch]]:
 
     The stem runs in space-to-depth form: its 7x7 s2 conv as a 3x3 over
     4 x 4 cells (16 x 3 channels at bs / 4), its max pool from the
-    conv's four output planes (4 x 64 channels).  A bottleneck's 3x3 and a
-    basic block's two 3x3s gather their input's halo (pad = dilation);
-    K2 reads a fused tail's halo from the strips in place.  Then SwiftNet's
-    three 3x3 blends at strides 16, 8, 4 over ``num_features``, or CSP's
-    head: its fused 3x3 over the three neck maps, and its three final 3x3s
-    over ``head_feat``, at ``head_stride``."""
+    conv's four output planes (4 x 64 channels).  In the backbone
+    (``k2.walk``) a bottleneck's 3x3 and a basic block's two 3x3s gather
+    their input's halo (pad = dilation); K2 reads a fused tail's halo from
+    the strips in place.  Then the launches after the backbone, which the
+    configuration's program module lists (``k1_head``)."""
     gather = [(block_size // 4, 16 * 3, 1)]
     pieces = [(block_size // 4, 4 * 64, 1)]
-    for b in k2.blocks(cfg, block_size):
+    for b in k2.walk(cfg, block_size):
         if b.fused:
             continue
         if b.bottleneck:
@@ -51,13 +51,7 @@ def launches(cfg: Dict, block_size: int) -> Dict[str, List[Launch]]:
         else:
             gather += [(b.bs, b.cin, b.dil),
                        (b.bs // b.stride, b.cm, b.dil)]
-    if cfg["task"] == "semseg":
-        gather += [(block_size // s, cfg["num_features"], 1)
-                   for s in (16, 8, 4)]
-    else:
-        bs = block_size // cfg["head_stride"]
-        gather += [(bs, 3 * cfg["neck_out"], 1)] \
-            + [(bs, cfg["head_feat"], 1)] * 3
+    gather += programs.of(cfg).k1_head(cfg, block_size)
     return {"gather": gather, "pieces": pieces}
 
 

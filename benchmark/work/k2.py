@@ -7,6 +7,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Iterator, List, Tuple
 
+import programs
 from reference.nets import PLANES, RESNETS
 from work import peaks
 
@@ -49,6 +50,12 @@ def blocks(cfg: Dict, block_size: int) -> Iterator[Block]:
             cin, at = cout, at * stride
 
 
+def walk(cfg: Dict, block_size: int) -> Iterator[Block]:
+    """The served backbone's blocks: its program module's own ``blocks``
+    where the module gives one, ``blocks`` here otherwise."""
+    return getattr(programs.of(cfg), "blocks", blocks)(cfg, block_size)
+
+
 def tail_cost(bs, cm, co, itemsize, k):
     """K2's operations and the bytes it must move: h1, x, y, each block's
     halo (4 bs + 4 pixels of its neighbours' strips), the weights and the
@@ -61,7 +68,7 @@ def tail_cost(bs, cm, co, itemsize, k):
 
 def tails(cfg, block_size: int) -> List[Tuple[int, int, int]]:
     """(bs, Cm, Co) of each bottleneck the program fuses into K2."""
-    return [(b.bs, b.cm, b.cout) for b in blocks(cfg, block_size)
+    return [(b.bs, b.cm, b.cout) for b in walk(cfg, block_size)
             if b.fused]
 
 
